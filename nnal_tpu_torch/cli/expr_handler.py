@@ -1,0 +1,93 @@
+"""Experiment front-end + CLI (counterpart of ``nnal_tpu/cli/expr_handler.py``)::
+
+    python -m nnal_tpu_torch.cli.expr_handler <root_dir> <method> <nqueries> \\
+        [key=val,key=val ...] [--synthetic] [--device cuda|cpu]
+
+Runs on the card unless ``--device cpu`` is given; a missing CUDA device
+is an error, not a fall-back to the host.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+from nnal_tpu_torch.core.config import ExperimentConfig, set_parameters
+from nnal_tpu_torch.engine.pw_experiment import PWExperiment
+
+DEFAULT_PARS = {
+    "model_name": "PW",
+    "patch_shape": [15, 15, 1],
+    "grid_spacing": 3,
+    "k": 10,
+    "B": 100,
+    "ntb": 1024,
+    "b": 64,
+    "epochs": 1,
+    "MC_iters": 5,
+    "learning_rate": 1e-3,
+    "dropout_rate": 0.5,
+    "optimizer_name": "Adam",
+    "lambda_": 0.0,
+    "init_size": 8,
+    "seed": 0,
+}
+
+
+def create_expr(root_dir: str, overrides: str = "", synthetic: bool = False,
+                device=None) -> PWExperiment:
+    par_path = os.path.join(root_dir, "parameters.txt")
+    if os.path.exists(par_path):
+        expr = PWExperiment(root_dir, device=device)
+    else:
+        pars = set_parameters(DEFAULT_PARS, overrides)
+        expr = PWExperiment(root_dir, ExperimentConfig.from_pars(pars),
+                            device=device)
+    if synthetic:
+        from nnal_tpu_torch.data.io import synthetic_subject
+
+        shape = tuple(getattr(expr.config, "synthetic_shape", (36, 36, 10)))
+        blobs = int(getattr(expr.config, "synthetic_blobs", 3))
+        vols, mask = synthetic_subject(shape=shape, n_modalities=2,
+                                       n_blobs=blobs, seed=expr.config.seed)
+        expr.attach_subject(vols, mask)
+    if not os.path.exists(os.path.join(root_dir, "init_pool_inds.txt")):
+        expr.prep_data()
+    return expr
+
+
+def do_expr(root_dir: str, method: str, nqueries: int, overrides: str = "",
+            synthetic: bool = False, device=None) -> dict:
+    """add_method-if-missing + run_method (reference ``do_expr``)."""
+    expr = create_expr(root_dir, overrides, synthetic, device)
+    method_dir = os.path.join(root_dir, method)
+    if not os.path.exists(os.path.join(method_dir, "curr_weights.npz")):
+        expr.add_method(method)
+    return expr.run_method(method, nqueries)
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    synthetic = "--synthetic" in argv
+    argv = [a for a in argv if a != "--synthetic"]
+    device = None
+    if "--device" in argv:
+        i = argv.index("--device")
+        if i + 1 >= len(argv):
+            print(__doc__)
+            return 1
+        device = argv[i + 1]
+        del argv[i:i + 2]
+    if len(argv) < 3:
+        print(__doc__)
+        return 1
+    root_dir, method, nqueries = argv[0], argv[1], int(argv[2])
+    overrides = argv[3] if len(argv) > 3 else ""
+    res = do_expr(root_dir, method, nqueries, overrides, synthetic, device)
+    print(f"method={method} queries={res['n_queries']} "
+          f"perf={res['perf'].tolist()}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

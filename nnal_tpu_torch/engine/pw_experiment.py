@@ -1,0 +1,324 @@
+"""Single-subject patch-wise AL experiment (counterpart of
+``nnal_tpu/engine/pw_experiment.py``).
+
+The root directory holds ``parameters.txt`` (YAML config), pool/test index
+files, ``init_weights.npz`` and one subdirectory per querying method with
+membership files, a ``queries/`` journal, per-round F-measures
+(``perf_evals.txt``), ``query_times.txt``, ``phases.jsonl``, ``state.json``
+and ``curr_weights.npz`` — the JAX package's layout, so either package can
+read the other's experiment directories.  The AL loop per round: query ->
+move queries from pool to train -> finetune -> predict test -> append
+F-measure -> checkpoint.  Resume replays the ``queries/`` journal plus
+``state.json``.  Checkpoints are written synchronously.
+
+Runs on ``device`` (default: the card; CUDA missing raises).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from nnal_tpu_torch.core.config import ExperimentConfig
+from nnal_tpu_torch.core.device import resolve_device, set_precision
+from nnal_tpu_torch.core.journal import MethodJournal, load_inds, save_inds
+from nnal_tpu_torch.core.profiling import PhaseTimer
+from nnal_tpu_torch.core.rng import RngStream
+from nnal_tpu_torch.data.batching import make_onehot
+from nnal_tpu_torch.data.patches import (
+    gather_labels,
+    gather_patches_normalized,
+    pad_volumes,
+)
+from nnal_tpu_torch.data.samplers import (
+    even_odd_slice_split,
+    generate_grid_samples,
+)
+from nnal_tpu_torch.data.stats import multimg_stats
+from nnal_tpu_torch.engine.common import (
+    check_slice_config,
+    inverse_frequency_weights,
+    reconcile_membership,
+    replay_prefix_lens,
+)
+from nnal_tpu_torch.evaluation.metrics import f_measure
+from nnal_tpu_torch.models.bridge import from_jax_params, to_jax_params
+from nnal_tpu_torch.models.checkpoint import (
+    load_checkpoint,
+    load_opt_leaves,
+    save_checkpoint,
+)
+from nnal_tpu_torch.models.cnn import CNN, init_cnn
+from nnal_tpu_torch.models.optim import load_opt_state, opt_state_leaves
+from nnal_tpu_torch.models.specs import create_model
+from nnal_tpu_torch.models.train import (
+    TrainState,
+    build_batch_index_matrix,
+    finetune_steps,
+    init_train_state,
+)
+from nnal_tpu_torch.scoring.grid_eval import GridPoolEvaluator
+from nnal_tpu_torch.scoring.strategies import QueryContext, cnn_query
+
+
+class PWExperiment:
+    """Patch-wise AL experiment over one subject's volumes."""
+
+    def __init__(self, root_dir: str,
+                 config: Optional[ExperimentConfig] = None, device=None):
+        self.device = resolve_device(device)
+        set_precision()
+        self.root_dir = root_dir
+        os.makedirs(root_dir, exist_ok=True)
+        par_path = os.path.join(root_dir, "parameters.txt")
+        if config is None:
+            config = ExperimentConfig.from_yaml(par_path)
+        else:
+            config.to_yaml(par_path)
+        check_slice_config(config)
+        self.config = config
+        self.rng = RngStream(config.seed)
+        self._vols: Optional[List[np.ndarray]] = None
+        self._mask: Optional[np.ndarray] = None
+        self._padded: Optional[torch.Tensor] = None
+
+    # ------------------------------------------------------------- data
+    def attach_subject(self, vols, mask) -> None:
+        """Provide the subject volumes in memory (tests/synthetic)."""
+        self._vols = [np.asarray(v) for v in vols]
+        self._mask = np.asarray(mask)
+        self._padded = None
+
+    def _load_subject(self):
+        if self._vols is None:
+            from nnal_tpu_torch.data.io import read_volume
+
+            self._vols = [read_volume(p) for p in self.config.data.img_paths]
+            self._mask = read_volume(self.config.data.mask_path)
+        return self._vols, self._mask
+
+    def padded(self) -> torch.Tensor:
+        """The subject's zero-padded float32 volume on the device (built
+        once; the JAX package re-pads per call)."""
+        if self._padded is None:
+            self._padded = pad_volumes(self._load_subject()[0],
+                                       self.config.model.patch_shape,
+                                       self.device)
+        return self._padded
+
+    def prep_data(self) -> None:
+        """Grid-sample the subject; even axial slices feed the pool, the
+        full grid is the test set (reference ``prep_AL_data``).  NaN-masked
+        voxels are discarded."""
+        vols, mask = self._load_subject()
+        inds, labels = generate_grid_samples(
+            vols[0].shape, self.config.data.grid_spacing, mask)
+        pool_inds, test_inds = even_odd_slice_split(inds, vols[0].shape)
+        lab_of = dict(zip(inds.tolist(), labels.tolist()))
+        save_inds(self._p("init_pool_inds.txt"), pool_inds)
+        save_inds(self._p("init_pool_labels.txt"),
+                  [lab_of[i] for i in pool_inds.tolist()])
+        save_inds(self._p("test_inds.txt"), test_inds)
+        save_inds(self._p("test_labels.txt"),
+                  [lab_of[i] for i in test_inds.tolist()])
+        np.savetxt(self._p("train_stats.txt"), multimg_stats([(vols, mask)]))
+
+    def _p(self, name: str) -> str:
+        return os.path.join(self.root_dir, name)
+
+    # ------------------------------------------------------------- model
+    def build_model(self):
+        m = self.config.model
+        d1, d2, d3 = m.patch_shape
+        nmod = len(self._load_subject()[0])
+        return create_model(m.model_name, nclass=m.nclass,
+                            dropout_rate=m.dropout_rate,
+                            patch_shape=(d1, d2, nmod * d3))
+
+    def _stats_arrays(self):
+        stats = np.loadtxt(self._p("train_stats.txt")).reshape(1, -1)
+        return stats[0, 0::2], stats[0, 1::2]
+
+    def make_evaluator(self, spec) -> GridPoolEvaluator:
+        """Grid pools sweep by im2col; off-grid sets fall back inside."""
+        mu, sd = self._stats_arrays()
+        return GridPoolEvaluator(
+            spec, self.padded(), mu, sd, tuple(self.config.model.patch_shape),
+            tuple(self._load_subject()[0][0].shape),
+            grid_spacing=self.config.data.grid_spacing,
+            ntb=self.config.query.ntb)
+
+    def _load_model(self, spec, params) -> CNN:
+        model = CNN(spec)
+        model.load_state_dict(from_jax_params(params))
+        return model.to(self.device)
+
+    # ------------------------------------------------------------- methods
+    def add_method(self, method_name: str, init_size: Optional[int] = None):
+        """Create a method directory with the initial pool/train membership
+        and the shared initial weights (reference ``add_method``)."""
+        j = MethodJournal(self.root_dir, method_name)
+        pool = load_inds(self._p("init_pool_inds.txt"))
+        init_size = (self.config.query.init_size
+                     if init_size is None else init_size)
+        host = self.rng.fold(f"init-{method_name}").host
+        if init_size > 0:
+            pick = host.permutation(len(pool))[:init_size]
+            train = pool[pick]
+            pool = np.delete(pool, pick)
+        else:
+            train = np.zeros(0, dtype=np.int64)
+        j.init_membership(train, pool)
+
+        init_w = self._p("init_weights.npz")
+        if not os.path.exists(init_w):
+            model = init_cnn(self.build_model(),
+                             self.rng.fold("init-weights").next())
+            save_checkpoint(init_w, to_jax_params(model.state_dict()))
+        params, bn, _, _ = load_checkpoint(init_w)
+        save_checkpoint(j.path("curr_weights.npz"), params, bn_state=bn)
+        return j
+
+    # ------------------------------------------------------------- training
+    def finetune(self, state: TrainState, train_inds) -> TrainState:
+        """Finetune on the labeled set (reference ``finetune``): gather and
+        normalize it once (kernel K2 on the card), then run the round's
+        batch-index matrix."""
+        m = self.config.model
+        if getattr(m, "opt_reset_per_round", False):
+            state.optimizer.state.clear()
+        if len(train_inds) == 0 or m.epochs == 0:
+            return state
+        vols, mask = self._load_subject()
+        mu, sd = self._stats_arrays()
+        orig_shape = tuple(vols[0].shape)
+        labels_all = np.asarray(gather_labels(mask, train_inds, orig_shape))
+        cw = getattr(m, "class_weights", None)
+        if isinstance(cw, str) and cw == "auto":
+            cw = inverse_frequency_weights(labels_all, m.nclass)
+        # streams keyed on the replay-stable optimizer step, as in the JAX
+        # package, so a resumed campaign shuffles identically
+        host = self.rng.fold(f"finetune-{state.step}").host
+        seed = self.rng.fold(f"finetune-dropout-{state.step}").next()
+        dev = self.device
+        x_all = gather_patches_normalized(
+            self.padded(), torch.as_tensor(np.asarray(train_inds, np.int64)
+                                           ).to(dev),
+            torch.as_tensor(np.asarray(mu, np.float32)).to(dev),
+            torch.as_tensor(np.asarray(sd, np.float32)).to(dev),
+            tuple(m.patch_shape), orig_shape)
+        y_all = torch.as_tensor(make_onehot(labels_all, m.nclass)).to(dev)
+        idx_mat, w_mat = build_batch_index_matrix(len(train_inds), m.b,
+                                                  m.epochs, host, bucket=256)
+        cw_vec = (torch.ones(m.nclass) if cw is None
+                  else torch.as_tensor(np.asarray(cw, np.float32))).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        finetune_steps(state, x_all, y_all, idx_mat, w_mat, cw_vec, gen)
+        return state
+
+    def _replay_to_round(self, j, state, al_state, train_inds, round_id):
+        """Re-run the finetunes of journaled rounds the checkpoint does not
+        hold yet (a crash between the query journal and the save)."""
+        for ln in replay_prefix_lens(j, al_state, round_id, len(train_inds)):
+            state = self.finetune(state, train_inds[:ln])
+        return state
+
+    # ------------------------------------------------------------- AL loop
+    def run_method(self, method_name: str, max_queries: int) -> Dict:
+        """The AL loop (reference ``run_method``), resumable: replayed
+        queries count toward ``max_queries``."""
+        cfg = self.config
+        j = MethodJournal(self.root_dir, method_name)
+        spec = self.build_model()
+        evaluator = self.make_evaluator(spec)
+        test_inds = load_inds(self._p("test_inds.txt"))
+        test_labels = load_inds(self._p("test_labels.txt"))
+
+        ckpt = j.path("curr_weights.npz")
+        params, bn, teacher, al_state = load_checkpoint(ckpt)
+        if bn or teacher is not None:
+            raise NotImplementedError(
+                f"{ckpt}: batch-norm state or a mean-teacher group — not "
+                "supported by the PyTorch port yet")
+        model = self._load_model(spec, params)
+        state = init_train_state(model, cfg.model.optimizer_name,
+                                 cfg.model.learning_rate)
+        load_opt_state(state.optimizer, model, load_opt_leaves(ckpt))
+        if al_state is not None:
+            state.step = int(al_state.get("step", 0))
+
+        saved = j.load_state()
+        if saved is not None:
+            if not isinstance(saved["rng"].get("key"), str):
+                raise ValueError(f"{j.state_path} was written by the JAX "
+                                 "package; its device RNG state cannot be "
+                                 "resumed by the PyTorch port")
+            self.rng.restore(saved["rng"])
+        n_queries = j.n_queried()
+        round_id = len(j.query_iters())
+        train_inds, pool_inds = j.membership()
+        train_inds, pool_inds, _ = reconcile_membership(j, train_inds,
+                                                        pool_inds)
+        state = self._replay_to_round(j, state, al_state, train_inds,
+                                      round_id)
+
+        timer = PhaseTimer(j.path("phases.jsonl"), self.device)
+        # pool guard: an exhausted pool would yield k=0 rounds forever
+        while n_queries < max_queries and len(pool_inds) > 0:
+            t0 = time.time()
+            k = min(cfg.query.k, max_queries - n_queries, len(pool_inds))
+            if cfg.query.iter_k:
+                k = min(k, cfg.query.iter_k[min(round_id,
+                                                len(cfg.query.iter_k) - 1)])
+            if k <= 0:
+                break
+            # per-round stateless stream: replayable from (seed, method,
+            # round) alone
+            qrng = self.rng.fold(f"query-{method_name}-{round_id}")
+            ctx = QueryContext(spec=spec, params=model, evaluator=evaluator,
+                               pool_inds=pool_inds, k=k, rng=qrng.host,
+                               train_inds=train_inds)
+            with timer.phase("score_select"):
+                q_pos = cnn_query(ctx, method_name)
+            q_inds = pool_inds[q_pos]
+
+            # bookkeeping: journal then membership (replayable order)
+            j.record_queries(round_id, q_inds)
+            train_inds = np.concatenate([train_inds, q_inds])
+            pool_inds = np.delete(pool_inds, q_pos)
+            j.init_membership(train_inds, pool_inds)
+            n_queries += len(q_inds)
+            round_id += 1
+
+            with timer.phase("train"):
+                state = self.finetune(state, train_inds)
+            with timer.phase("eval"):
+                preds = evaluator.evaluate(model, test_inds,
+                                           ("prediction",))["prediction"]
+                fm = f_measure(preds, test_labels)
+            j.append_eval([fm])
+
+            dt = time.time() - t0
+            with open(j.path("query_times.txt"), "a") as f:
+                f.write(f"{round_id - 1} {dt:.3f}\n")
+
+            with timer.phase("checkpoint"):
+                save_checkpoint(ckpt, to_jax_params(model.state_dict()),
+                                al_state={"step": int(state.step),
+                                          "round": round_id},
+                                opt_state=opt_state_leaves(state.optimizer,
+                                                           model))
+            timer.commit_round(round_id - 1, n_train=len(train_inds),
+                               n_pool=len(pool_inds), f_measure=fm)
+            j.save_state(round_id=round_id, rng_state=self.rng.state(),
+                         n_train=len(train_inds), n_pool=len(pool_inds))
+        return {
+            "n_queries": n_queries,
+            "train_inds": train_inds,
+            "pool_inds": pool_inds,
+            "perf": j.load_evals(),
+        }

@@ -1,0 +1,68 @@
+"""Weights across frameworks: the JAX package's params pytree
+``{layer: {"W", "b"}}`` (conv W in HWIO, fc W as (in, out)) as numpy, and
+the port's ``state_dict`` (``<layer>.weight`` in OIHW or (out, in),
+``<layer>.bias``).
+
+Both directions are pure layout moves (transposes), so a round trip is
+exact.  The fc flatten order needs no permutation here: the port flattens
+channels-last like the JAX package (see ``models/cnn.py``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _w_to_port(w: np.ndarray) -> np.ndarray:
+    if w.ndim == 4:                      # HWIO -> OIHW
+        return w.transpose(3, 2, 0, 1)
+    if w.ndim == 2:                      # (in, out) -> (out, in)
+        return w.T
+    raise ValueError(f"unsupported weight rank {w.ndim}")
+
+
+def _w_to_jax(w: np.ndarray) -> np.ndarray:
+    if w.ndim == 4:                      # OIHW -> HWIO
+        return w.transpose(2, 3, 1, 0)
+    if w.ndim == 2:
+        return w.T
+    raise ValueError(f"unsupported weight rank {w.ndim}")
+
+
+def from_jax_params(np_params: Mapping[str, Mapping[str, np.ndarray]]
+                    ) -> Dict[str, torch.Tensor]:
+    """JAX-layout params -> a ``state_dict`` for :class:`models.cnn.CNN`."""
+    out = {}
+    for layer, p in np_params.items():
+        unknown = set(p) - {"W", "b"}
+        if unknown:
+            raise NotImplementedError(
+                f"params of {layer!r} carry {sorted(unknown)}; only W/b "
+                "layers are ported")
+        w = np.asarray(p["W"], np.float32)
+        out[f"{layer}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(_w_to_port(w)))
+        out[f"{layer}.bias"] = torch.from_numpy(
+            np.array(p["b"], np.float32))
+    return out
+
+
+def to_jax_params(state: Mapping[str, torch.Tensor]
+                  ) -> Dict[str, Dict[str, np.ndarray]]:
+    """A port ``state_dict`` (or any mapping shaped like one, e.g. Adam
+    moments keyed the same way) -> JAX-layout numpy params."""
+    out: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, t in state.items():
+        layer, _, kind = key.rpartition(".")
+        a = t.detach().to("cpu", torch.float32).numpy()
+        if kind == "weight":
+            out.setdefault(layer, {})["W"] = np.ascontiguousarray(
+                _w_to_jax(a))
+        elif kind == "bias":
+            out.setdefault(layer, {})["b"] = a.copy()
+        else:
+            raise ValueError(f"unexpected state key {key!r}")
+    return out

@@ -1,0 +1,162 @@
+"""CNN engine over a :class:`CNNSpec` (counterpart of ``nnal_tpu/models/cnn.py``).
+
+``CNN`` is an ``nn.Module`` built from the same spec rows as the JAX
+package's ``init_cnn``/``apply_cnn``.  This slice supports the
+conv/pool/fc stacks without batch norm or skip connections (PW1, and the
+VGG/AlexNet shapes); dense (fcn) specs, BN and aleatoric heads raise.
+
+Semantics kept from the JAX package:
+* public inputs are channels-last ``(b, d1, d2, C)``; internally the module
+  runs NCHW (``forward(..., nchw=True)`` skips the transpose);
+* ``SAME`` convolution and max-pool padding is XLA's: ``total = max((out-1)
+  * s + k - n, 0)``, ``lo = total // 2`` — for the 2x2 stride-2 pools on
+  odd sizes (25 -> 13 -> 7) that is one ``-inf`` row/column at the END
+  only;
+* fc layers flatten in (h, w, c) order, so the activation is permuted to
+  channels-last before the first fc;
+* dropout (drop probability) follows every layer with ``dropout > 0`` —
+  for PW1 fc1, fc2 and the linear head fc3 — when ``train`` and a
+  generator are given; ``feature`` is the feature layer's output after it.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from nnal_tpu_torch.models.specs import CNNSpec
+
+
+@dataclass
+class CNNOutput:
+    logits: torch.Tensor
+    posteriors: torch.Tensor
+    prediction: torch.Tensor
+    feature: Optional[torch.Tensor]
+
+
+_ACTS = {"relu": F.relu, "elu": F.elu, "tanh": torch.tanh, "gelu": F.gelu,
+         "identity": lambda x: x}
+
+
+def _conv_dim(n, k, s, padding):
+    if padding == "SAME":
+        return -(-n // s)
+    return -(-(n - k + 1) // s)
+
+
+def _same_pad(n, k, s) -> Tuple[int, int]:
+    total = max((_conv_dim(n, k, s, "SAME") - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def _check_supported(spec: CNNSpec) -> None:
+    if spec.fcn:
+        raise NotImplementedError("model: dense (fcn) specs are not ported")
+    if spec.aleatoric:
+        raise NotImplementedError("aleatoric: the sigma head is not ported")
+    if spec.spatial_rank != 2:
+        raise NotImplementedError("model: only 2-D conv specs are ported")
+    for layer in spec.layers:
+        if layer.kind not in ("conv", "pool", "fc"):
+            raise NotImplementedError(f"model: layer kind {layer.kind!r}")
+        if layer.sources or "B" in layer.op_order:
+            raise NotImplementedError(
+                f"model: layer {layer.name!r} uses skip sources or batch "
+                "norm, which are not ported")
+
+
+class CNN(nn.Module):
+    """Sequential conv/pool/fc network; submodules are named after the spec
+    rows (``conv1``, ``fc1``, ...) so ``state_dict`` keys are
+    ``<layer>.weight`` / ``<layer>.bias``."""
+
+    def __init__(self, spec: CNNSpec):
+        super().__init__()
+        _check_supported(spec)
+        self.spec = spec
+        self.act = _ACTS[spec.activation]
+        self._pads: Dict[str, Tuple[int, int, int, int]] = {}
+        h, w, c = spec.input_shape
+        for layer in spec.layers:
+            if layer.kind == "conv":
+                (kh, kw), (sh, sw) = layer.ksize, layer.strides
+                sym = (0, 0)
+                if layer.padding == "SAME":
+                    ph, pw = _same_pad(h, kh, sh), _same_pad(w, kw, sw)
+                    if ph[0] == ph[1] and pw[0] == pw[1]:
+                        sym = (ph[0], pw[0])      # odd kernels, stride 1
+                    else:
+                        self._pads[layer.name] = (pw[0], pw[1], ph[0], ph[1])
+                self.add_module(layer.name, nn.Conv2d(
+                    c, layer.out, (kh, kw), (sh, sw), padding=sym))
+                h = _conv_dim(h, kh, sh, layer.padding)
+                w = _conv_dim(w, kw, sw, layer.padding)
+                c = layer.out
+            elif layer.kind == "pool":
+                (kh, kw), (sh, sw) = layer.ksize, layer.strides
+                ph, pw = _same_pad(h, kh, sh), _same_pad(w, kw, sw)
+                self._pads[layer.name] = (pw[0], pw[1], ph[0], ph[1])
+                h = _conv_dim(h, kh, sh, "SAME")
+                w = _conv_dim(w, kw, sw, "SAME")
+            else:
+                in_d = h * w * c
+                self.add_module(layer.name, nn.Linear(in_d, layer.out))
+                h, w, c = 1, 1, layer.out
+
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                nchw: bool = False) -> CNNOutput:
+        h = x if nchw else x.permute(0, 3, 1, 2)
+        flat = False
+        feature = None
+        use_dropout = train and generator is not None
+        for i, layer in enumerate(self.spec.layers):
+            mod = getattr(self, layer.name, None)
+            if layer.kind == "conv":
+                pad = self._pads.get(layer.name)
+                if pad is not None:
+                    h = F.pad(h, pad)
+                h = mod(h)
+            elif layer.kind == "pool":
+                h = F.pad(h, self._pads[layer.name], value=float("-inf"))
+                h = F.max_pool2d(h, layer.ksize, layer.strides)
+            else:
+                if not flat:
+                    h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
+                    flat = True
+                h = mod(h)
+            if layer.kind != "pool" and "A" in layer.op_order:
+                h = self.act(h)
+            if layer.dropout > 0 and use_dropout:
+                keep = 1.0 - layer.dropout
+                mask = torch.rand(h.shape, generator=generator,
+                                  device=h.device) < keep
+                h = torch.where(mask, h / keep, torch.zeros_like(h))
+            if i == self.spec.feature_layer:
+                feature = h.reshape(h.shape[0], -1)
+        logits = h.float()
+        return CNNOutput(logits=logits,
+                         posteriors=torch.softmax(logits, dim=-1),
+                         prediction=torch.argmax(logits, dim=-1),
+                         feature=feature)
+
+
+def init_cnn(spec: CNNSpec, seed: int, device="cpu") -> CNN:
+    """He-initialized network (``cnn.py:55-92``): weights ~ N(0, 2/fan_in),
+    zero biases, drawn from a ``torch.Generator`` seeded with ``seed``."""
+    model = CNN(spec)
+    gen = torch.Generator().manual_seed(int(seed))
+    with torch.no_grad():
+        for mod in model.children():
+            fan_in = int(np.prod(mod.weight.shape[1:]))
+            mod.weight.copy_(torch.randn(mod.weight.shape, generator=gen)
+                             * np.sqrt(2.0 / fan_in))
+            mod.bias.zero_()
+    return model.to(device)
+

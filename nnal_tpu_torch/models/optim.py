@@ -1,0 +1,83 @@
+"""Optimizers (counterpart of ``nnal_tpu/models/optim.py``).
+
+``make_optimizer`` builds ``torch.optim`` SGD/Adam with optax's
+hyperparameters (``optax.sgd(lr)``: no momentum; ``optax.adam(lr)``:
+b1 0.9, b2 0.999, eps 1e-8).  ``opt_state_leaves``/``load_opt_state``
+convert the optimizer state to and from optax's leaf order, which is what
+checkpoints store (see ``models/checkpoint.py``).
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from nnal_tpu_torch.models.bridge import from_jax_params, to_jax_params
+
+
+def make_optimizer(name: str, learning_rate: float, params
+                   ) -> torch.optim.Optimizer:
+    lr = float(learning_rate)
+    if name == "SGD":
+        return torch.optim.SGD(params, lr=lr)
+    if name == "Adam":
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    if name == "RMSProp":
+        raise NotImplementedError("optimizer_name='RMSProp' is not ported")
+    raise ValueError(name)
+
+
+def _ordered(tree):
+    """Leaves of a JAX-layout params tree in jax's sorted-key order."""
+    return [tree[layer][k] for layer in sorted(tree)
+            for k in sorted(tree[layer])]
+
+
+def opt_state_leaves(optimizer: torch.optim.Optimizer,
+                     model: torch.nn.Module) -> List[np.ndarray]:
+    """Optimizer state as optax's leaves: ``[]`` for SGD; for Adam
+    ``[count, *mu, *nu]`` with the moments in JAX layout."""
+    if isinstance(optimizer, torch.optim.SGD):
+        return []
+    named = dict(model.named_parameters())
+    st = {name: optimizer.state.get(p, {}) for name, p in named.items()}
+    count = max((int(s["step"]) for s in st.values() if "step" in s),
+                default=0)
+    moments = []
+    for key in ("exp_avg", "exp_avg_sq"):
+        sd = {name: s[key] if key in s else torch.zeros_like(named[name])
+              for name, s in st.items()}
+        moments += _ordered(to_jax_params(sd))
+    return [np.asarray(count, np.int32)] + moments
+
+
+def load_opt_state(optimizer: torch.optim.Optimizer, model: torch.nn.Module,
+                   leaves: List[np.ndarray]) -> None:
+    """Install optax-ordered leaves (from a checkpoint) into ``optimizer``;
+    no leaves leaves the optimizer fresh, as the JAX loader does."""
+    if not leaves:
+        return
+    if isinstance(optimizer, torch.optim.SGD):
+        raise ValueError(f"SGD carries no state; checkpoint has "
+                         f"{len(leaves)} optimizer leaves")
+    named = dict(model.named_parameters())
+    template = to_jax_params({k: v for k, v in named.items()})
+    slots = [(layer, k) for layer in sorted(template)
+             for k in sorted(template[layer])]
+    if len(leaves) != 1 + 2 * len(slots):
+        raise ValueError(f"checkpoint has {len(leaves)} opt leaves, "
+                         f"Adam needs {1 + 2 * len(slots)}")
+    count = int(leaves[0])
+    moments = []
+    for part in (leaves[1:1 + len(slots)], leaves[1 + len(slots):]):
+        tree: dict = {}
+        for (layer, k), v in zip(slots, part):
+            tree.setdefault(layer, {})[k] = v
+        moments.append(from_jax_params(tree))
+    for name, p in named.items():
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": moments[0][name].to(p.device),
+            "exp_avg_sq": moments[1][name].to(p.device)}

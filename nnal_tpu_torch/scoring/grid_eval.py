@@ -1,0 +1,180 @@
+"""Grid-pool evaluation via im2col (counterpart of
+``nnal_tpu/scoring/grid_eval.py``).
+
+AL pools are regular grids over axial slices, and extracting every grid
+window of a slice is ``F.unfold`` (im2col): strided copies instead of
+per-patch gathers.  :class:`GridPoolEvaluator` sweeps the grid z-chunk by
+z-chunk (extract -> normalize -> forward) and selects the rows the caller
+asked for; off-grid indices route to a stride-1 slab sweep when that is
+cheaper, else to the per-patch gather of :class:`PoolEvaluator` (kernel K2
+on the card).  Multi-slice patches (``d3 > 1``, odd) ride the same 2-D
+im2col by stacking each voxel's z-neighbours as channels, modality-major
+like the gather's ``(b, d1, d2, m*d3)`` layout.  ``fim_sweep`` and
+``perturb_sweep`` are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from nnal_tpu_torch.scoring.pool_eval import (
+    PoolEvaluator,
+    select_output,
+    to_host,
+)
+
+# ops whose per-patch output is wide: the host path pulls them slab by slab
+_WIDE_OPS = {"feature_layer", "logits"}
+
+# off-grid index sets take a stride-1 slab sweep when it is this many times
+# cheaper per patch than the gather (the JAX package's routing margin)
+_DENSE_OFFGRID_RATIO = 6
+
+
+def extract_normalize(blk, d1, d2, g, mu, sd) -> torch.Tensor:
+    """im2col of ``blk`` (zc, C, D1p, D2p) at stride ``g`` + per-channel
+    normalization.  Returns ``(zc*nx*ny, C, d1, d2)`` rows in z-major grid
+    order; ``F.unfold`` emits channel-major (c, kh, kw) features, as
+    ``conv_general_dilated_patches`` does.  ``mu``/``sd`` span the C
+    channels (depth-repeated for d3 > 1)."""
+    c = blk.shape[1]
+    cols = F.unfold(blk, (d1, d2), stride=g)          # (zc, C*d1*d2, L)
+    x = cols.transpose(1, 2).reshape(-1, c, d1, d2)
+    return (x - mu[:, None, None]) / sd[:, None, None]
+
+
+class GridPoolEvaluator(PoolEvaluator):
+    """Pool evaluator specialized for grid-sampled pools."""
+
+    def __init__(self, spec, padded, mu, sd, patch_shape, orig_shape,
+                 grid_spacing: int, ntb: int = 4096, z_chunk: int = 4):
+        super().__init__(spec, padded, mu, sd, patch_shape, orig_shape,
+                         ntb=ntb)
+        self.grid_spacing = int(grid_spacing)
+        self.z_chunk = int(z_chunk)
+        s1, s2, s3 = self.orig_shape
+        self.nx = len(range(0, s1, self.grid_spacing))
+        self.ny = len(range(0, s2, self.grid_spacing))
+        self.nz = s3
+        d3 = self.patch_shape[2]
+        # even depths cannot sweep: the gather clamps the last z's window,
+        # which a channel stack cannot reproduce — every evaluate of an
+        # even-d3 evaluator takes the exact gather path
+        self._sweep_ok = d3 % 2 == 1
+        self._slices = None
+        if d3 == 1:
+            # (D3, m, D1p, D2p) slice stack, device-resident
+            self._slices = self.padded.permute(3, 0, 1, 2).contiguous()
+        elif self._sweep_ok:
+            # slice z's channel j*d3 + t is modality j at depth z + t
+            p = self.padded                              # (m, D1p, D2p, D3p)
+            views = torch.stack([p[..., t:t + s3] for t in range(d3)],
+                                dim=1)                   # (m, d3, D1p, D2p, s3)
+            self._slices = views.permute(4, 0, 1, 2, 3).reshape(
+                (s3, p.shape[0] * d3) + tuple(p.shape[1:3])).contiguous()
+        self._mu_c = self.mu.repeat_interleave(d3)
+        self._sd_c = self.sd.repeat_interleave(d3)
+
+    def _sweep_block(self, model, block, ops):
+        d1, d2, _ = self.patch_shape
+        x = extract_normalize(block, d1, d2, self.grid_spacing, self._mu_c,
+                              self._sd_c)
+        out = model(x, nchw=True)
+        return [select_output(out, op, self.spec.nclass) for op in ops]
+
+    def _grid_rows(self, inds: np.ndarray):
+        """Raveled voxel indices -> full-grid row ids, or None if any index
+        is off-grid."""
+        _, s2, s3 = self.orig_shape
+        g = self.grid_spacing
+        inds = np.asarray(inds, np.int64)
+        z = inds % s3
+        rem = inds // s3
+        y = rem % s2
+        x = rem // s2
+        if np.any(x % g) or np.any(y % g):
+            return None
+        return (z * self.nx + x // g) * self.ny + y // g
+
+    def with_spacing(self, grid_spacing: int) -> "GridPoolEvaluator":
+        """Clone at another grid spacing (e.g. stride 1) sharing the device
+        volumes; the z-chunk shrinks so rows per chunk stay about equal."""
+        ev = GridPoolEvaluator.__new__(GridPoolEvaluator)
+        ev.__dict__.update(self.__dict__)
+        ev.grid_spacing = int(grid_spacing)
+        s1, s2, _ = self.orig_shape
+        ev.nx = len(range(0, s1, ev.grid_spacing))
+        ev.ny = len(range(0, s2, ev.grid_spacing))
+        ev.z_chunk = max(1, (self.z_chunk * self.nx * self.ny)
+                         // (ev.nx * ev.ny))
+        return ev
+
+    def _offgrid_dense_worthwhile(self, inds: np.ndarray) -> bool:
+        """True when a stride-1 slab sweep over the touched z-slabs beats
+        per-patch gathers for this off-grid index set."""
+        if len(inds) == 0:
+            return False
+        s1, s2, s3 = self.orig_shape
+        slabs = len(np.unique((np.asarray(inds, np.int64) % s3)
+                              // self.z_chunk))
+        return (len(inds) * _DENSE_OFFGRID_RATIO
+                > slabs * s1 * s2 * self.z_chunk)
+
+    def _eval_slabs(self, model, rows: np.ndarray, ops
+                    ) -> Dict[str, np.ndarray]:
+        """One z-chunk sweep per slab that holds requested rows; the rows
+        are selected on the device so only they reach the host."""
+        rows = np.asarray(rows, np.int64)
+        slab_rows = self.nx * self.ny * self.z_chunk
+        slab_ids = rows // slab_rows
+        results: Dict[str, np.ndarray] = {}
+        for slab in np.unique(slab_ids):
+            sel = np.nonzero(slab_ids == slab)[0]
+            local = torch.as_tensor(rows[sel] - slab * slab_rows).to(
+                self.device)
+            z0 = int(slab) * self.z_chunk
+            outs = self._sweep_block(model,
+                                     self._slices[z0:z0 + self.z_chunk], ops)
+            for op, o in zip(ops, outs):
+                arr = o[local].cpu().numpy()
+                if op not in results:
+                    results[op] = np.empty((len(rows),) + arr.shape[1:],
+                                           arr.dtype)
+                results[op][sel] = arr
+        return results
+
+    def _whole_sweep(self, model, ops):
+        """Every grid row, one z-chunk at a time; one tensor per op with
+        ``nz*nx*ny`` rows in grid order."""
+        parts = [self._sweep_block(model, self._slices[z0:z0 + self.z_chunk],
+                                   ops)
+                 for z0 in range(0, self.nz, self.z_chunk)]
+        return [torch.cat([p[i] for p in parts]) for i in range(len(ops))]
+
+    @torch.no_grad()
+    def evaluate(self, model, pool_inds, ops: Sequence[str] = ("posteriors",),
+                 as_device: bool = False) -> Dict:
+        ops = tuple(ops)
+        rows = self._grid_rows(pool_inds) if self._sweep_ok else None
+        if rows is None:
+            if not as_device and self._sweep_ok \
+                    and self._offgrid_dense_worthwhile(pool_inds):
+                ev1 = self if self.grid_spacing == 1 else self.with_spacing(1)
+                return ev1.evaluate(model, pool_inds, ops)
+            return super().evaluate(model, pool_inds, ops, as_device)
+        if not as_device and len(rows):
+            n_slabs = -(-self.nz // self.z_chunk)
+            needed = len(np.unique(np.asarray(rows, np.int64)
+                                   // (self.nx * self.ny * self.z_chunk)))
+            # wide ops always slab; narrow ones only when at least half the
+            # slabs can be skipped
+            if (set(ops) & _WIDE_OPS) or needed <= n_slabs // 2:
+                return self._eval_slabs(model, rows, ops)
+        outs = self._whole_sweep(model, ops)
+        rows_d = torch.as_tensor(np.asarray(rows, np.int64)).to(self.device)
+        return to_host({op: o[rows_d] for op, o in zip(ops, outs)},
+                       as_device)

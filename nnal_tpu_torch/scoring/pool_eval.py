@@ -1,0 +1,73 @@
+"""Batched pool evaluation over arbitrary voxel indices (counterpart of
+``nnal_tpu/scoring/pool_eval.py``).
+
+Each chunk of ``ntb`` indices is gathered and normalized on the device
+(kernel K2 on a CUDA volume, see ``ops/gather.py``) and run through the
+model; only the requested outputs are kept.  The ragged last chunk is just
+shorter: PyTorch runs eagerly, so the JAX package's pad-and-mask (which
+keeps one compiled shape) would only add work.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+
+from nnal_tpu_torch.data.patches import gather_patches_normalized
+
+
+def select_output(out, op: str, nclass: int) -> torch.Tensor:
+    """One requested output of a forward pass (the ``ops`` vocabulary of
+    the JAX evaluators)."""
+    if op == "posteriors":
+        # binary models expose P(class 1) as a 1-D score row
+        return out.posteriors[:, 1] if nclass == 2 else out.posteriors
+    if op == "prediction":
+        return out.prediction
+    if op == "feature_layer":
+        return out.feature
+    if op == "logits":
+        return out.logits
+    raise ValueError(op)
+
+
+def to_host(res: Dict[str, torch.Tensor], as_device: bool):
+    if as_device:
+        return res
+    return {op: t.cpu().numpy() for op, t in res.items()}
+
+
+class PoolEvaluator:
+    """Evaluate model outputs over voxel-index sets of one subject; holds
+    the padded device-resident volumes and normalization constants."""
+
+    def __init__(self, spec, padded: torch.Tensor, mu, sd, patch_shape,
+                 orig_shape, ntb: int = 4096):
+        self.spec = spec
+        self.padded = padded
+        self.device = padded.device
+        self.mu = torch.as_tensor(np.asarray(mu, np.float32)).to(self.device)
+        self.sd = torch.as_tensor(np.asarray(sd, np.float32)).to(self.device)
+        self.patch_shape = tuple(int(v) for v in patch_shape)
+        self.orig_shape = tuple(int(v) for v in orig_shape)
+        self.ntb = int(ntb)
+
+    @torch.no_grad()
+    def evaluate(self, model, pool_inds, ops: Sequence[str] = ("posteriors",),
+                 as_device: bool = False) -> Dict:
+        """Sweep ``pool_inds`` in ``ntb`` chunks; returns one array per op
+        (numpy, or device tensors with ``as_device``)."""
+        inds = torch.as_tensor(np.asarray(pool_inds, np.int64)).to(
+            self.device)
+        chunks: Dict[str, list] = {op: [] for op in ops}
+        for lo in range(0, len(inds), self.ntb):
+            x = gather_patches_normalized(self.padded, inds[lo:lo + self.ntb],
+                                          self.mu, self.sd, self.patch_shape,
+                                          self.orig_shape)
+            out = model(x)
+            for op in ops:
+                chunks[op].append(select_output(out, op, self.spec.nclass))
+        return to_host({op: torch.cat(c) for op, c in chunks.items()},
+                       as_device)

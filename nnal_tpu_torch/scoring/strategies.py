@@ -1,0 +1,96 @@
+"""Query-strategy dispatch for patch-wise AL (counterpart of
+``nnal_tpu/scoring/strategies.py:87-229``).
+
+Each strategy consumes a :class:`QueryContext` and returns positions into
+``ctx.pool_inds``.  This slice ports ``random``, ``entropy`` and
+``core-set``; any other name raises the dispatch's ``ValueError``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from nnal_tpu_torch.scoring.pool_eval import PoolEvaluator
+from nnal_tpu_torch.scoring.representative import (
+    ROW_BUCKET,
+    core_set_select,
+    cross_max_similarities,
+    normalize_rows,
+    pad_inds_repeat,
+)
+from nnal_tpu_torch.scoring.uncertainty import binary_uncertainty_filter
+
+
+@dataclass
+class QueryContext:
+    """Everything a strategy needs for one subject."""
+
+    spec: object
+    params: torch.nn.Module               # the model holding the weights
+    evaluator: PoolEvaluator
+    pool_inds: np.ndarray                 # raveled voxel indices
+    k: int
+    rng: np.random.Generator              # host sampling
+    train_inds: Optional[np.ndarray] = None
+
+
+_STRATEGIES: Dict[str, Callable] = {}
+
+
+def register_strategy(name: str):
+    def deco(fn):
+        _STRATEGIES[name] = fn
+        return fn
+    return deco
+
+
+def cnn_query(ctx: QueryContext, method_name: str) -> np.ndarray:
+    """Dispatch (reference ``PW_NNAL.CNN_query``).  Returns positions into
+    ``ctx.pool_inds``."""
+    if method_name not in _STRATEGIES:
+        raise ValueError(f"unknown query method {method_name!r}; "
+                         f"available: {sorted(_STRATEGIES)}")
+    q = _STRATEGIES[method_name](ctx)
+    return np.asarray(q, dtype=np.int64)
+
+
+@register_strategy("random")
+def _random(ctx: QueryContext):
+    return ctx.rng.permutation(len(ctx.pool_inds))[:ctx.k]
+
+
+@register_strategy("entropy")
+def _entropy(ctx: QueryContext):
+    p1 = ctx.evaluator.evaluate(ctx.params, ctx.pool_inds,
+                                ("posteriors",))["posteriors"]
+    return binary_uncertainty_filter(p1, ctx.k)
+
+
+@register_strategy("core-set")
+def _core_set(ctx: QueryContext):
+    """Greedy k-center on pool features vs labeled features (reference
+    PW_NNAL.py:353-451), features on the device end to end.  The pool
+    index array is repeat-padded to a ``ROW_BUCKET`` multiple as in the
+    JAX package; the padded rows get ``sims0 = +inf`` so the argmin never
+    picks them."""
+    n_u = len(ctx.pool_inds)
+    inds_p = pad_inds_repeat(ctx.pool_inds, ROW_BUCKET)
+    F_u = ctx.evaluator.evaluate(ctx.params, inds_p, ("feature_layer",),
+                                 as_device=True)["feature_layer"]
+    Fn = normalize_rows(F_u)
+    if ctx.train_inds is not None and len(ctx.train_inds) > 0:
+        tr_p = pad_inds_repeat(ctx.train_inds, 256)
+        F_t = ctx.evaluator.evaluate(ctx.params, tr_p, ("feature_layer",),
+                                     as_device=True)["feature_layer"]
+        sims0 = cross_max_similarities(F_u, F_t, as_device=True,
+                                       keep_pad=True)
+    else:
+        sims0 = torch.full((F_u.shape[0],), float("-inf"),
+                           device=F_u.device)
+    valid = torch.arange(F_u.shape[0], device=F_u.device) < n_u
+    sims0 = torch.where(valid, sims0, torch.full_like(sims0, float("inf")))
+    return core_set_select(Fn, sims0, min(ctx.k, n_u))
