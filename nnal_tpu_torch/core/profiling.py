@@ -3,7 +3,8 @@
 ``PhaseTimer`` records score/select/train/eval phases per AL round into a
 JSONL stream.  PyTorch returns before CUDA kernels finish, so on a CUDA
 device every phase boundary synchronizes: without it a kernel queued in
-one phase would bill to whichever later phase first waits on it.
+one phase would bill to whichever later phase first waits on it.  The
+device defaults to the card, as every entry point of the port does.
 """
 
 from __future__ import annotations
@@ -13,15 +14,15 @@ import json
 import time
 from typing import Dict, Optional
 
-from nnal_tpu_torch.core.device import synchronize
+from nnal_tpu_torch.core.device import resolve_device, synchronize
 
 
 class PhaseTimer:
     """Per-round phase timing journal (JSONL, one record per round)."""
 
-    def __init__(self, path: Optional[str] = None, device="cpu"):
+    def __init__(self, path: Optional[str] = None, device=None):
         self.path = path
-        self.device = device
+        self.device = resolve_device(device)
         self.current: Dict[str, float] = {}
         self.records = []
 

@@ -17,6 +17,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from nnal_tpu_torch.core.device import resolve_device
 from nnal_tpu_torch.ops.gather import gather_patches_normalized  # noqa: F401
 
 
@@ -24,11 +25,12 @@ def patch_radii(patch_shape: Sequence[int]) -> Tuple[int, int, int]:
     return tuple(int((s - 1) // 2) for s in patch_shape)
 
 
-def pad_volumes(vols, patch_shape, device="cpu") -> torch.Tensor:
+def pad_volumes(vols, patch_shape, device=None) -> torch.Tensor:
     """Stack per-modality volumes into a float32 ``(m, D1+2r1, D2+2r2,
-    D3+2r3)`` tensor on ``device``, zero-padded by the patch radii.  The
-    cast to float32 is what the JAX package's ``jnp.stack`` does to
-    float64 volumes with x64 off."""
+    D3+2r3)`` tensor on ``device`` (``None``: the card), zero-padded by the
+    patch radii.  The cast to float32 is what the JAX package's
+    ``jnp.stack`` does to float64 volumes with x64 off."""
+    device = resolve_device(device)
     r1, r2, r3 = patch_radii(patch_shape)
     vols = torch.from_numpy(np.stack([np.asarray(v) for v in vols]))
     vols = vols.to(device=device, dtype=torch.float32)

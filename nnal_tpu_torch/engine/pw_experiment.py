@@ -177,7 +177,8 @@ class PWExperiment:
         init_w = self._p("init_weights.npz")
         if not os.path.exists(init_w):
             model = init_cnn(self.build_model(),
-                             self.rng.fold("init-weights").next())
+                             self.rng.fold("init-weights").next(),
+                             device="cpu")
             save_checkpoint(init_w, to_jax_params(model.state_dict()))
         params, bn, _, _ = load_checkpoint(init_w)
         save_checkpoint(j.path("curr_weights.npz"), params, bn_state=bn)

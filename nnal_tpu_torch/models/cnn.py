@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from nnal_tpu_torch.core.device import resolve_device
 from nnal_tpu_torch.models.specs import CNNSpec
 
 
@@ -147,9 +148,11 @@ class CNN(nn.Module):
                          feature=feature)
 
 
-def init_cnn(spec: CNNSpec, seed: int, device="cpu") -> CNN:
+def init_cnn(spec: CNNSpec, seed: int, device=None) -> CNN:
     """He-initialized network (``cnn.py:55-92``): weights ~ N(0, 2/fan_in),
-    zero biases, drawn from a ``torch.Generator`` seeded with ``seed``."""
+    zero biases, drawn from a ``torch.Generator`` seeded with ``seed`` on
+    the host, then moved to ``device`` (``None``: the card)."""
+    device = resolve_device(device)
     model = CNN(spec)
     gen = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():

@@ -2,9 +2,10 @@
 
 Each ``.cu`` source exposes a plain C function and is compiled on its own
 by ``nvcc`` for ``sm_90a`` into a shared library under
-``nnal_tpu_torch/_build/`` (named by the source's content hash, so an
-edited source rebuilds and an unchanged one loads as is), then bound with
-``ctypes``.  Nothing builds at import time: the first launch builds, or
+``nnal_tpu_torch/_build/`` (named by the hash of the source and of its
+nvcc flags -- the common ones plus any a kernel adds -- so an edited
+source or flag rebuilds and an unchanged one loads as is), then bound
+with ``ctypes``.  Nothing builds at import time: the first launch builds, or
 :func:`build_all` builds every kernel at once with one ``nvcc`` process
 per source running in parallel.  A failed build raises with nvcc's
 stderr.
@@ -18,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 from typing import List, Optional, Sequence
 
@@ -45,18 +47,20 @@ class CudaKernel:
     wrapper calls :meth:`launch`); plain-version calls never touch it."""
 
     def __init__(self, name: str, source: str, symbol: str,
-                 argtypes: Sequence):
+                 argtypes: Sequence, extra_flags: Sequence[str] = ()):
         self.name = name
         self.source = CSRC / source
         self.symbol = symbol
         self.argtypes = list(argtypes)
+        self.flags = (*NVCC_FLAGS, *extra_flags)
         self.launches = 0
         self.build_log = ""
+        self.build_s = 0.0
         self._fn = None
 
     def lib_path(self) -> Path:
         digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                                + " ".join(self.flags).encode()).hexdigest()
         return BUILD_DIR / f"{self.source.stem}-{digest[:16]}.so"
 
     def _start_build(self) -> Optional[subprocess.Popen]:
@@ -67,15 +71,16 @@ class CudaKernel:
         fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
         os.close(fd)
         proc = subprocess.Popen(
-            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(self.source)],
+            [find_nvcc(), *self.flags, "-o", tmp, str(self.source)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        proc.tmp, proc.out = tmp, out
+        proc.tmp, proc.out, proc.t0 = tmp, out, time.perf_counter()
         return proc
 
     def _finish_build(self, proc: Optional[subprocess.Popen]) -> None:
         if proc is None:
             return
         stdout, stderr = proc.communicate()
+        self.build_s = time.perf_counter() - proc.t0
         self.build_log = stdout + stderr
         if proc.returncode != 0:
             os.unlink(proc.tmp)
@@ -113,10 +118,13 @@ def build_all(kernels: List[CudaKernel]) -> None:
 
 
 def stream_ptr(t) -> int:
-    """The current CUDA stream of ``t``'s device, as an int for ctypes."""
+    """The current CUDA stream of ``t``'s device, as an int for ctypes.
+    The raw lookup (what PyTorch's own generated code calls) skips the
+    ``torch.cuda.Stream`` object that ``torch.cuda.current_stream`` builds,
+    a host cost that a small launch feels (``chip_smoke.py`` times both)."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 VOIDP = ctypes.c_void_p

@@ -7,26 +7,37 @@ On a CUDA tensor it launches the hand-written kernel in
 raises; on a CPU tensor it runs the plain advanced-indexing version below.
 Every patch shape goes through the kernel (the TPU kernel only took
 ``d3 == 1``).
+
+The kernel reads a y-contiguous copy of the padded volume,
+``(m, D1p, D3p, D2p)``, so that a window row is contiguous.
+:func:`y_contiguous` makes it once per volume and keeps it in a one-entry
+cache keyed on the volume's address, shape, strides and version counter
+(an in-place edit bumps the counter and rebuilds the copy); the cache
+holds a reference to the volume, so its address cannot be reused while
+the entry lives.  The volume's checks run when the copy is made, which
+keeps the per-call host cost to what the call needs.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
 
-from nnal_tpu_torch.ops._build import (
-    INT,
-    LONG,
-    VOIDP,
-    CudaKernel,
-    stream_ptr,
-)
+from nnal_tpu_torch.ops._build import INT, VOIDP, CudaKernel, stream_ptr
+
+
+class GatherParams(ctypes.Structure):
+    """The kernel's per-volume constants (``GatherParams`` in the source)."""
+    _fields_ = [(name, ctypes.c_int) for name in
+                ("d1", "d2", "d3", "m", "D1p", "D2p", "D3p", "s2", "s3")]
+
 
 KERNEL = CudaKernel("gather_patches_normalized", "gather_patches.cu",
                     "gather_patches_normalized_f32",
-                    [VOIDP, VOIDP, VOIDP, VOIDP, VOIDP, LONG, INT, INT, INT,
-                     INT, LONG, LONG, LONG, LONG, LONG, VOIDP])
+                    [VOIDP, VOIDP, VOIDP, VOIDP, VOIDP, INT,
+                     ctypes.POINTER(GatherParams), VOIDP])
 
 REPLACES = "nnal_tpu/ops/gather_pallas.py:90"
 
@@ -57,6 +68,59 @@ def gather_patches_plain(padded, inds, mu, sd, patch_shape, orig_shape):
     return (x - mu_full) / sd_full
 
 
+class _YCache:
+    """One entry: the volume, its key and its y-contiguous copy."""
+    src = key = copy = None
+
+
+_YCACHE = _YCache()
+
+
+def _check_volume(padded: torch.Tensor) -> None:
+    if padded.dim() != 4 or padded.dtype != torch.float32:
+        raise ValueError("padded must be a float32 (m, D1p, D2p, D3p) "
+                         f"tensor; got {padded.dtype} {tuple(padded.shape)}")
+    if padded.numel() >= 2 ** 31:
+        raise ValueError("the padded volume must have < 2**31 elements "
+                         "(the kernel indexes it in int32)")
+
+
+def y_contiguous(padded: torch.Tensor) -> torch.Tensor:
+    """``padded`` (m, D1p, D2p, D3p) as a contiguous (m, D1p, D3p, D2p)
+    copy, made once per volume (see the module docstring)."""
+    key = (padded.data_ptr(), padded.shape, padded.stride(),
+           padded._version, padded.device)
+    if _YCACHE.key != key:
+        _check_volume(padded)
+        _YCACHE.src, _YCACHE.key = padded, key
+        _YCACHE.copy = padded.permute(0, 1, 3, 2).contiguous()
+    return _YCACHE.copy
+
+
+_PARAMS = {}
+
+
+def _params(yvol: torch.Tensor, patch_shape, orig_shape) -> GatherParams:
+    key = (yvol.shape, patch_shape, orig_shape)
+    p = _PARAMS.get(key)
+    if p is None:
+        d1, d2, d3 = (int(v) for v in patch_shape)
+        m, D1p, D3p, D2p = yvol.shape
+        _, s2, s3 = (int(v) for v in orig_shape)
+        if d1 > D1p or d2 > D2p or d3 > D3p:
+            raise ValueError(f"patch {patch_shape} exceeds the padded "
+                             f"volume {tuple(yvol.shape)}")
+        if s2 * s3 >= 2 ** 31 or d1 * d2 * m * d3 >= 2 ** 31:
+            raise ValueError("the original shape's last two extents and "
+                             "a patch must have < 2**31 elements (the "
+                             "kernel indexes in int32)")
+        if len(_PARAMS) >= 16:
+            _PARAMS.clear()
+        p = _PARAMS[key] = GatherParams(d1, d2, d3, m, D1p, D2p, D3p, s2,
+                                        s3)
+    return p
+
+
 def gather_patches_normalized(padded: torch.Tensor, inds: torch.Tensor,
                               mu: torch.Tensor, sd: torch.Tensor,
                               patch_shape, orig_shape) -> torch.Tensor:
@@ -64,10 +128,11 @@ def gather_patches_normalized(padded: torch.Tensor, inds: torch.Tensor,
     ``inds`` (non-negative, on ``orig_shape``) of the zero-padded
     ``(m, D1p, D2p, D3p)`` float32 volume; ``mu``/``sd`` are the (m,)
     per-modality statistics."""
-    d1, d2, d3 = (int(v) for v in patch_shape)
-    if padded.dim() != 4 or padded.dtype != torch.float32:
-        raise ValueError("padded must be a float32 (m, D1p, D2p, D3p) "
-                         f"tensor; got {padded.dtype} {tuple(padded.shape)}")
+    dev = padded.device
+    if dev.type == "cuda":
+        yvol = y_contiguous(padded)   # checks the volume when it is new
+    else:
+        _check_volume(padded)
     m = padded.shape[0]
     if inds.dim() != 1 or inds.dtype != torch.int64:
         raise ValueError(f"inds must be 1-D int64; got {inds.dtype} "
@@ -75,21 +140,24 @@ def gather_patches_normalized(padded: torch.Tensor, inds: torch.Tensor,
     if (mu.shape != (m,) or sd.shape != (m,) or mu.dtype != torch.float32
             or sd.dtype != torch.float32):
         raise ValueError(f"mu/sd must be float32 ({m},)")
-    if len({t.device for t in (padded, inds, mu, sd)}) != 1:
+    if not inds.device == mu.device == sd.device == dev:
         raise ValueError("padded, inds, mu and sd must share one device")
-    if padded.device.type == "cpu":
-        return gather_patches_plain(padded, inds, mu, sd, (d1, d2, d3),
+    patch_shape = tuple(patch_shape)
+    if dev.type == "cpu":
+        return gather_patches_plain(padded, inds, mu, sd, patch_shape,
                                     orig_shape)
-    if padded.device.type != "cuda":
-        raise ValueError(f"unsupported device {padded.device}")
-    if not all(t.is_contiguous() for t in (padded, inds, mu, sd)):
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not (inds.is_contiguous() and mu.is_contiguous()
+            and sd.is_contiguous()):
         raise ValueError("gather_patches_normalized needs contiguous inputs")
+    params = _params(yvol, patch_shape, tuple(orig_shape))
     n = inds.shape[0]
-    _, D1p, D2p, D3p = padded.shape
-    _, s2, s3 = (int(v) for v in orig_shape)
-    out = torch.empty((n, d1, d2, m * d3), dtype=torch.float32,
-                      device=padded.device)
-    KERNEL.launch(padded.data_ptr(), inds.data_ptr(), mu.data_ptr(),
-                  sd.data_ptr(), out.data_ptr(), n, d1, d2, d3, m, D1p, D2p,
-                  D3p, s2, s3, stream_ptr(padded))
+    if n >= 2 ** 31:
+        raise ValueError("at most 2**31 - 1 patches per call")
+    d1, d2, d3 = patch_shape
+    out = torch.empty((n, d1, d2, m * d3), dtype=torch.float32, device=dev)
+    KERNEL.launch(yvol.data_ptr(), inds.data_ptr(), mu.data_ptr(),
+                  sd.data_ptr(), out.data_ptr(), n, ctypes.byref(params),
+                  stream_ptr(padded))
     return out

@@ -6,6 +6,11 @@ On a CUDA tensor it launches the hand-written kernel in
 ``csrc/rowmax_similarity.cu`` (see its header for the bound and design)
 or raises; on a CPU tensor it runs the plain version below.  There is no
 fallback from the card to the plain version.
+
+The kernel's main path computes in split-precision TF32 on the tensor
+cores; :func:`rowmax_similarity_3xtf32` emulates that arithmetic in plain
+PyTorch so that the CPU tests fix its error budget (about 2^-21 |a||b| per
+product, dropped ``lo . lo'`` term included).
 """
 
 from __future__ import annotations
@@ -16,7 +21,8 @@ from nnal_tpu_torch.ops._build import INT, VOIDP, CudaKernel, stream_ptr
 
 KERNEL = CudaKernel("rowmax_similarity", "rowmax_similarity.cu",
                     "rowmax_similarity_f32",
-                    [VOIDP, VOIDP, VOIDP, INT, INT, INT, INT, VOIDP])
+                    [VOIDP, VOIDP, VOIDP, VOIDP, INT, INT, INT, INT, VOIDP],
+                    extra_flags=("-lineinfo",))
 
 # source of the Pallas kernel this replaces (for reports)
 REPLACES = "nnal_tpu/ops/similarity_pallas.py:74"
@@ -29,6 +35,30 @@ def rowmax_similarity_plain(P: torch.Tensor, R: torch.Tensor,
     out = [torch.matmul(P[lo:lo + tile], R.T).amax(dim=1)
            for lo in range(0, P.shape[0], tile)]
     return torch.cat(out) if out else P.new_empty((0,))
+
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits), nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` does: add half of the 13 dropped
+    bits to the magnitude, then clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """``x = hi + lo`` with ``hi = tf32(x)`` and ``lo = tf32(x - hi)``
+    (``x - hi`` is exact in float32)."""
+    hi = round_tf32(x)
+    return hi, round_tf32(x - hi)
+
+
+def rowmax_similarity_3xtf32(P: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    """Plain emulation of the kernel's arithmetic, for tests: the three
+    products ``hi.hi' + hi.lo' + lo.hi'`` of the TF32 halves, summed in
+    float64 so that only the split's own error remains."""
+    ph, pl = (t.double() for t in split_tf32(P))
+    rh, rl = (t.double() for t in split_tf32(R))
+    return (ph @ rh.T + ph @ rl.T + pl @ rh.T).amax(dim=1).float()
 
 
 def _check(P, R):
@@ -59,9 +89,14 @@ def rowmax_similarity(P: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     if max(n, m, d) >= 2 ** 31:
         raise ValueError("dimensions must fit in int32")
     out = torch.empty((n,), dtype=torch.float32, device=P.device)
-    vec = int(d % 4 == 0 and P.data_ptr() % 16 == 0
-              and R.data_ptr() % 16 == 0)
-    KERNEL.launch(P.data_ptr(), R.data_ptr(), out.data_ptr(), n, m, d, vec,
+    # TMA reads P in place and needs 16-byte aligned rows; anything else
+    # takes the f32 FMA path.  R is read once, into R_hi and R_lo, split
+    # inside the call
+    vec = d % 4 == 0 and P.data_ptr() % 16 == 0
+    scratch = (torch.empty((2, m, d), dtype=torch.float32, device=P.device)
+               if vec else None)
+    KERNEL.launch(P.data_ptr(), R.data_ptr(), out.data_ptr(),
+                  scratch.data_ptr() if vec else None, n, m, d, int(vec),
                   stream_ptr(P))
     return out
 

@@ -34,16 +34,17 @@ def _inputs(patch_shape, n=200, seed=1):
 
 def _port(vols, inds, mu, sd, patch_shape):
     return gather_patches_normalized(
-        pad_volumes(vols, patch_shape), torch.from_numpy(inds),
-        torch.from_numpy(mu), torch.from_numpy(sd), patch_shape,
-        SHAPE).numpy()
+        pad_volumes(vols, patch_shape, device="cpu"),
+        torch.from_numpy(inds), torch.from_numpy(mu), torch.from_numpy(sd),
+        patch_shape, SHAPE).numpy()
 
 
 def test_pad_volumes_matches_jax():
     vols, _, _, _ = _inputs((5, 5, 3))
-    np.testing.assert_array_equal(pad_volumes(vols, (5, 5, 3)).numpy(),
-                                  np.asarray(j_pad(vols, (5, 5, 3))))
-    assert pad_volumes(vols, (5, 5, 3)).dtype == torch.float32
+    np.testing.assert_array_equal(
+        pad_volumes(vols, (5, 5, 3), device="cpu").numpy(),
+        np.asarray(j_pad(vols, (5, 5, 3))))
+    assert pad_volumes(vols, (5, 5, 3), device="cpu").dtype == torch.float32
 
 
 # d3 = 1 and d3 = 3; even dims (4, 6, 2) exercise the clamped window
@@ -89,7 +90,7 @@ def test_cpu_gather_uses_plain_version_and_counts_nothing():
 
 
 def test_wrapper_rejects_bad_inputs():
-    padded = pad_volumes(_inputs((5, 5, 1))[0], (5, 5, 1))
+    padded = pad_volumes(_inputs((5, 5, 1))[0], (5, 5, 1), device="cpu")
     mu = sd = torch.ones(2)
     with pytest.raises(ValueError, match="int64"):
         gather_patches_normalized(padded, torch.zeros(3, dtype=torch.int32),
@@ -114,3 +115,42 @@ def test_gather_labels_reads_the_host_mask():
     inds = np.array([0, 1, 5, 17])
     np.testing.assert_array_equal(gather_labels(mask, inds, SHAPE),
                                   inds % 2)
+
+
+# --- the y-contiguous copy (m, D1p, D3p, D2p) that the kernel reads
+
+
+@pytest.mark.parametrize("patch_shape", [(25, 25, 1), (25, 25, 3),
+                                         (24, 24, 1)])
+def test_plain_gather_through_y_copy_is_bit_equal(patch_shape):
+    vols, inds, mu, sd = _inputs(patch_shape)
+    padded = pad_volumes(vols, patch_shape, device="cpu")
+    args = (torch.from_numpy(inds), torch.from_numpy(mu),
+            torch.from_numpy(sd), patch_shape, SHAPE)
+    # the plain version read through the copy, viewed back as (m, D1p,
+    # D2p, D3p): the copy holds every voxel where the kernel looks for it
+    yvol = k2.y_contiguous(padded)
+    assert yvol.shape == (padded.shape[0], padded.shape[1],
+                          padded.shape[3], padded.shape[2])
+    got = k2.gather_patches_plain(yvol.permute(0, 1, 3, 2), *args).numpy()
+    np.testing.assert_array_equal(
+        got, k2.gather_patches_plain(padded, *args).numpy())
+    want = np.asarray(j_gather(j_pad(vols, patch_shape), jnp.asarray(inds),
+                               mu, sd, patch_shape, SHAPE))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_y_copy_is_made_once_per_volume_and_rebuilt_after_edits():
+    vols, _, _, _ = _inputs((5, 5, 1))
+    padded = pad_volumes(vols, (5, 5, 1), device="cpu")
+    y = k2.y_contiguous(padded)
+    assert y.is_contiguous() and y.shape == (2, 24, 8, 26)
+    assert torch.equal(y, padded.permute(0, 1, 3, 2))
+    assert k2.y_contiguous(padded) is y          # made once
+    padded.add_(1.0)                             # in-place edit
+    y2 = k2.y_contiguous(padded)
+    assert y2 is not y
+    assert torch.equal(y2, padded.permute(0, 1, 3, 2))
+    assert k2.y_contiguous(padded) is y2
+    other = pad_volumes(vols, (5, 5, 1), device="cpu")   # a new volume
+    assert k2.y_contiguous(other) is not y2

@@ -44,7 +44,7 @@ def _setup(d3, seed=0):
     jev = JGrid(spec, j_pad(vols, patch), mu, sd, patch, SHAPE,
                 grid_spacing=2, ntb=64, z_chunk=2)
     tev = TGrid(t_create_pw1(2, 0.5, (9, 9, 2 * d3)),
-                pad_volumes(vols, patch), mu, sd, patch, SHAPE,
+                pad_volumes(vols, patch, device="cpu"), mu, sd, patch, SHAPE,
                 grid_spacing=2, ntb=64, z_chunk=2)
     model = CNN(tev.spec)
     model.load_state_dict(from_jax_params(np_params))
@@ -115,7 +115,8 @@ def test_grid_evaluator_as_device_matches_jax(d3):
 def test_even_depth_takes_the_gather_path():
     vols, _ = synthetic_subject(shape=SHAPE, n_modalities=2, seed=3)
     spec = t_create_pw1(2, 0.5, (9, 9, 4))
-    tev = TGrid(spec, pad_volumes(vols, (9, 9, 2)), [0.0, 0.0], [1.0, 1.0],
+    tev = TGrid(spec, pad_volumes(vols, (9, 9, 2), device="cpu"),
+                [0.0, 0.0], [1.0, 1.0],
                 (9, 9, 2), SHAPE, grid_spacing=2)
     assert not tev._sweep_ok and tev._slices is None
 

@@ -131,3 +131,81 @@ def test_pad_helpers_match_jax():
     pj, nj = jrep.pad_rows(jnp.asarray(F), 4)
     assert n == nj == 5
     np.testing.assert_array_equal(p.numpy(), np.asarray(pj))
+
+
+# --- K1's split-precision TF32 arithmetic (the kernel's main path), fixed
+# here before the card sees it.  Error budget: each product loses at most
+# ~2^-21 |a_i||b_i| (lo rounded to TF32, lo.lo' dropped), so a dot of unit
+# rows is within 1e-6 of the truth; against the Pallas kernel the oracle's
+# own rtol 1e-5 / atol 1e-6 holds.
+
+@pytest.mark.parametrize("x, want", [
+    (1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10),            # tie: away from zero
+    (-(1.0 + 2.0 ** -11), -(1.0 + 2.0 ** -10)),
+    (1.0 + 2.0 ** -11 - 2.0 ** -23, 1.0),            # just below the tie
+    (1.0 + 3 * 2.0 ** -11, 1.0 + 2.0 ** -9),         # odd tie: away too
+    (0.0, 0.0),
+])
+def test_round_tf32_is_round_to_nearest_away(x, want):
+    got = k1.round_tf32(torch.tensor([x], dtype=torch.float32))
+    assert got.item() == np.float32(want)
+    assert int(got.view(torch.int32).item()) & 0x1FFF == 0
+
+
+def _boundary_rows(rng, n, d):
+    """Entries +-2^-5 (1 + k 2^-10 + 2^-11 + delta), delta in
+    {-1, 0, 1} ulp: each straddles a TF32 rounding boundary; rows are
+    within 1e-2 of unit norm at d = 1024."""
+    k = rng.integers(0, 4, size=(n, d))
+    delta = rng.integers(-1, 2, size=(n, d)) * 2.0 ** -23
+    sign = rng.choice([-1.0, 1.0], size=(n, d))
+    return (sign * 2.0 ** -5 * (1 + k * 2.0 ** -10 + 2.0 ** -11 + delta)
+            ).astype(np.float32)
+
+
+def _k1_case(name):
+    rng = np.random.default_rng(11)
+    if name == "random":
+        return (_unit(rng.normal(size=(200, 256))).astype(np.float32),
+                _unit(rng.normal(size=(70, 256))).astype(np.float32))
+    if name == "equal_entries":          # one row of 1/sqrt(d), d = 4096
+        P = np.full((1, 4096), 1 / 64, np.float32)
+        R = _unit(rng.normal(size=(40, 4096))).astype(np.float32)
+        return P, np.concatenate([R, P])
+    if name == "tf32_boundary":
+        P = _boundary_rows(rng, 64, 1024)
+        return P, np.concatenate([_boundary_rows(rng, 30, 1024), P[:3]])
+    # mixed magnitudes: entries of size 1e-3 and 1 in one row
+    mag = np.where(rng.random((96, 512)) < 0.5, 1e-3, 1.0)
+    F = _unit(mag * rng.choice([-1.0, 1.0], size=(96, 512)))
+    return F[:64].astype(np.float32), F[40:].astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["random", "equal_entries",
+                                  "tf32_boundary", "mixed_magnitude"])
+def test_3xtf32_emulation_error_budget(case):
+    P, R = _k1_case(case)
+    emu = k1.rowmax_similarity_3xtf32(torch.from_numpy(P),
+                                      torch.from_numpy(R)).numpy()
+    truth = (P.astype(np.float64) @ R.astype(np.float64).T).max(axis=1)
+    np.testing.assert_allclose(emu, truth, rtol=0, atol=1e-6)
+    want = np.asarray(max_similarity_pallas(jnp.asarray(P), jnp.asarray(R),
+                                            interpret=True))
+    np.testing.assert_allclose(emu, want, rtol=1e-5, atol=1e-6)
+    # the plain version (the CPU path) agrees as well
+    plain = k1.rowmax_similarity(torch.from_numpy(P),
+                                 torch.from_numpy(R)).numpy()
+    np.testing.assert_allclose(emu, plain, rtol=1e-5, atol=1e-6)
+    if case == "equal_entries":
+        assert emu[0] == 1.0             # hi = 1/64 exactly, lo = 0
+
+
+def test_3xtf32_needs_the_correction_terms():
+    """Plain TF32 (hi . hi' alone) misses the f32 oracle by far more than
+    the budget: the two cross terms are what carries the kernel."""
+    P, R = _k1_case("random")
+    ph, _ = k1.split_tf32(torch.from_numpy(P))
+    rh, _ = k1.split_tf32(torch.from_numpy(R))
+    tf32 = (ph.double() @ rh.double().T).amax(1).numpy()
+    truth = (P.astype(np.float64) @ R.astype(np.float64).T).max(axis=1)
+    assert np.abs(tf32 - truth).max() > 1e-5
