@@ -19,21 +19,50 @@ Phases, each of which passes or exits non-zero:
 4. K2 ``gather_patches_normalized`` vs its plain version on the card,
    bit-equal, for patch shapes (25,25,1), (25,25,3), (24,24,1) on a
    2-modality 128x128x32 subject, 4096 random indices, (64,64,2) on a
-   wider volume, 3 modalities, and at the campaign's 384; the
+   wider volume, 3 modalities, at the campaign's 384 and at fi's 200
+   candidates; the
    y-contiguous copy is made once per volume; device time (CUDA events
    behind a sleep kernel, and a ``torch.profiler`` window at 384) apart
    from the host's cost per call;
 5. PW1 25x25x2 posteriors on 1024 patches, and the evaluator's off-grid
    (per-patch gather) route on 256 voxels, card vs host, atol 1e-4;
-6. the campaign: ``do_expr(..., device="cuda")`` on a synthetic
+6. FIM parity, card vs host (the same port code with ``device="cpu"``):
+   ``pool_score_fused`` on 256 gathered PW1 25x25x2 patches (p1 atol
+   1e-4; shrunk per layer column within 1e-4 of the column's max |.|),
+   ``gather_shrunk_a_matrices`` at B = 200 (K2 must launch; A held the
+   same way), and the A-optimal solver on those A: ``lambda_ = 0`` with
+   and without ``cap_peak`` (q within 1e-4, objective within 1e-5) and
+   ``lambda_ = 0.5`` with refined features (objective within 1e-4), with
+   ``fi/sdp`` seconds (CUDA-graph and eager loops) and iterations;
+7. the FIM sweep at ``bench.py``'s size: a synthetic 256x256x64
+   two-modality subject, grid spacing 2, PW1 25x25x2, f32 (1,048,576
+   patches): patches/s, seconds, peak memory, 64 rows checked against the
+   host, and a ``torch.profiler`` window over one z-chunk (top device ops,
+   the conv / fc / im2col split, the card's idle share, and no
+   weight-gradient kernel);
+8. the campaign: ``do_expr(..., device="cuda")`` on a synthetic
    128x128x32 subject (pool of 65,536 grid voxels), 2 rounds each of
-   ``entropy``, ``core-set`` and ``random`` (init 256, k 64, b 128, Adam
-   1e-3);
+   ``entropy``, ``core-set``, ``random`` and ``fi`` (init 256, k 64, b
+   128, Adam 1e-3; fi: B 200, lambda_ 0);
    launch counts are zeroed just before and read just after, and every
-   kernel must have launched;
-7. one ``phases`` JSON line (per-round seconds from ``phases.jsonl``,
-   build seconds, K1's SASS counts) and one ``kernels`` JSON line (times,
-   bounds, launches).
+   kernel must have launched (K2 at least 4 times in fi);
+9. one ``phases`` JSON line (per-round seconds from ``phases.jsonl``,
+   build seconds, K1's SASS counts, the FIM phases) and one ``kernels``
+   JSON line (times, bounds, launches).
+
+The row and column tolerance rules for shrunk gradients and A-matrices:
+the linear head's column is zero in exact arithmetic (a constant added to
+every logit leaves log-softmax unchanged), so it is held near zero
+(<= 1e-4 of the largest column), not relative to itself.  Class 0
+comes from the zero-sum identity g0 = -p1 g1 / p0, which divides f32
+rounding by p0: where p0 < 1e-3 it is left out of both rules.  A row may
+exceed 1e-4 only where its patch sits near a kink — a relu input, or the
+gap between a max-pool window's two largest inputs, within 3e-7 of the
+layer's largest value (13% of PW1 25x25x2 patches on the host; 1e-7 of
+it is about where the two devices' f32 sums part) — since rounding on
+the other device can then flip a gate or an argmax and move that unit's
+gradient; such rows are at most 5% and stay within 0.1 (the first card
+run had 4 of 256 beyond 1e-4, median 3.7e-7).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA the
 script exits non-zero and prints no result.  The campaign runs under
@@ -67,6 +96,11 @@ from nnal_tpu_torch.ops.gather import (
     gather_patches_normalized,
     gather_patches_plain,
 )
+from nnal_tpu_torch.ops.scoring_fused import pool_score_fused
+from nnal_tpu_torch.scoring import sdp
+from nnal_tpu_torch.scoring.fisher import refine_feature_matrix
+from nnal_tpu_torch.scoring.gradients import gather_shrunk_a_matrices
+from nnal_tpu_torch.scoring.grid_eval import extract_normalize
 from nnal_tpu_torch.ops.similarity import (
     normalize_rows,
     rowmax_similarity,
@@ -79,11 +113,17 @@ PEAK_F32_FLOPS = 67e12        # float32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12      # TF32 on the tensor cores, dense
 PEAK_HBM_BYTES = 3.35e12
 SHAPE = (128, 128, 32)
-METHODS = ("entropy", "core-set", "random")
+METHODS = ("entropy", "core-set", "random", "fi")
 OVERRIDES = ("patch_shape=[25,25,1],grid_spacing=2,k=64,B=128,b=128,"
              "epochs=1,init_size=256,learning_rate=1e-3,"
              "optimizer_name=Adam,ntb=4096,synthetic_shape=[128,128,32],"
              "seed=0")
+# fi: 200 candidates, and exactly 2 rounds (a round may return fewer than
+# k picks: the PMF is drawn with replacement and deduplicated)
+OVERRIDES_FI = OVERRIDES.replace("B=128", "B=200") + ",iter_k=[64,64,0]"
+FI_SUBS = {"fi/posteriors", "fi/gather_grads_A", "fi/sdp", "fi/pmf"}
+SWEEP_SHAPE = (256, 256, 64)        # bench.py's subject
+SWEEP_Z_CHUNK = 4
 
 
 class SmokeFailure(Exception):
@@ -418,6 +458,22 @@ def phase_k2(dev, n=4096):
     p384_ms = time_ms(lambda: gather_patches_plain(
         padded, small, mu, sd, ps, SHAPE), reps=50)
     host, prof_us = k2_profile(padded, small, mu, sd, ps)
+    # fi's candidate gather: B = 200 uncertainty-filtered voxels
+    cand = inds[-200:].contiguous()
+    check(torch.equal(
+        gather_patches_normalized(padded, cand, mu, sd, ps, SHAPE),
+        gather_patches_plain(padded, cand, mu, sd, ps, SHAPE)),
+        "K2 differs from its plain version at 200 patches")
+    at200 = {
+        "ms": time_ms(lambda: gather_patches_normalized(
+            padded, cand, mu, sd, ps, SHAPE), reps=50, queued=True),
+        "loop_ms": time_ms(lambda: gather_patches_normalized(
+            padded, cand, mu, sd, ps, SHAPE), reps=50),
+        "plain_ms": time_ms(lambda: gather_patches_plain(
+            padded, cand, mu, sd, ps, SHAPE), reps=50),
+        "bound_ms": k2_bound(padded, cand, ps)[0]}
+    at200["host_us"], at200["profiler_device_us"] = k2_profile(
+        padded, cand, mu, sd, ps)
     ops.gather.KERNEL.launches = base
     b_ms, b_by = k2_bound(padded, inds, ps)
     b384_ms, _ = k2_bound(padded, small, ps)
@@ -427,7 +483,7 @@ def phase_k2(dev, n=4096):
           f"({b_by}); at 384 patches device {k384_ms:.5f} ms (profiler "
           f"{prof_us} us), back-to-back loop {loop384_ms:.5f} ms, host "
           f"us per call {host}, plain {p384_ms:.4f} ms, bound "
-          f"{b384_ms:.5f} ms")
+          f"{b384_ms:.5f} ms; at fi's 200 candidates bit-equal, {at200}")
     return {"name": "gather_patches_normalized", "route": "cuda",
             "source": "nnal_tpu_torch/csrc/gather_patches.cu",
             "replaces": ops.gather.REPLACES, "max_abs_err": 0.0,
@@ -437,7 +493,8 @@ def phase_k2(dev, n=4096):
                        "patch": list(ps)},
             "at_384": {"ms": k384_ms, "profiler_device_us": prof_us,
                        "loop_ms": loop384_ms, "host_us": host,
-                       "plain_ms": p384_ms, "bound_ms": b384_ms}}
+                       "plain_ms": p384_ms, "bound_ms": b384_ms},
+            "at_200": at200}
 
 
 def phase_forward(dev, n=1024):
@@ -477,6 +534,371 @@ def phase_forward(dev, n=1024):
           f"max|delta| {err:.3g}; off-grid evaluator {err_off:.3g}")
 
 
+def kink_margins(model, x):
+    """Per patch (NHWC ``x``), how close its forward comes to a point where
+    f32 rounding on another device can change the gradient: the smallest
+    |relu input|, and the smallest nonzero gap between the two largest
+    positive inputs of a max-pool window, each relative to the largest
+    |value| of that layer for that patch."""
+    import torch.nn.functional as F
+
+    layers = model.spec.layers
+    zs = {}
+    hooks = [getattr(model, l.name).register_forward_hook(
+        lambda m, i, o, n=l.name: zs.__setitem__(n, o))
+        for l in layers if l.kind in ("conv", "fc") and "A" in l.op_order]
+    with torch.no_grad():
+        model(x)
+    for h in hooks:
+        h.remove()
+    n = len(x)
+    margin = torch.full((n,), float("inf"), device=x.device)
+    for z in zs.values():
+        zf = z.reshape(n, -1).abs()
+        margin = torch.minimum(margin, zf.amin(1)
+                               / zf.amax(1).clamp_min(1e-30))
+    for i, l in enumerate(layers):
+        if l.kind != "pool":
+            continue
+        h = model.act(zs[layers[i - 1].name])
+        hp = F.pad(h, model._pads[l.name], value=float("-inf"))
+        (kh, kw), (sh, sw) = l.ksize, l.strides
+        w = hp.unfold(2, kh, sh).unfold(3, kw, sw)
+        top = w.reshape(w.shape[:4] + (-1,)).topk(2, -1).values
+        gap = top[..., 0] - top[..., 1]
+        gap = torch.where((top[..., 0] > 0) & (gap > 0), gap, float("inf"))
+        margin = torch.minimum(margin, gap.reshape(n, -1).amin(1)
+                               / h.reshape(n, -1).amax(1).clamp_min(1e-30))
+    return margin.cpu().numpy()
+
+
+def row_errors(got, want, p1):
+    """Per row of (n, c, L) shrunk gradients, the largest |delta| over the
+    layer columns relative to each column's max |want|, and the head's
+    largest |value| over classes >= 1 relative to the largest column's.
+    Class 0 comes from the zero-sum identity ``g0 = -p1 g1 / p0``, which
+    divides f32 rounding (of ``1 - p1`` inside g1, and of the head's zero
+    column) by p0, so it is left out of both where p0 < 1e-3 (below that
+    a 6e-8 rounding already moves it by more than 6e-5)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    scale = np.abs(want[..., :-1]).max(axis=(0, 1))
+    rel = np.abs(got - want)[..., :-1] / scale
+    rel[np.asarray(p1) > 1 - 1e-3, 0] = 0.0
+    err = rel.max(axis=(1, 2))
+    head = max(np.abs(got[:, 1:, -1]).max(),
+               np.abs(want[:, 1:, -1]).max()) / scale.max()
+    return err, head
+
+
+def rows_verdict(name, err, margins, extra, p1, rtol=1e-4, loose=0.1,
+                 bad_frac=0.05, kink=3e-7):
+    """The row rule of the module docstring: rows beyond ``rtol`` must sit
+    near a relu or max-pool kink (margin < ``kink``), be at most
+    ``bad_frac`` of the rows, and stay within ``loose``."""
+    bad = np.nonzero(err > rtol)[0]
+    res = {"max_rel_err": float(err.max()),
+           "median_rel_err": float(np.median(err)), "rows": len(err),
+           "rows_beyond_tol": len(bad),
+           "beyond_tol_err_kink_margin_p1": [
+               [float(err[i]), float(margins[i]), float(p1[i])]
+               for i in bad],
+           "rows_near_a_kink": int((margins < kink).sum()), **extra}
+    check(len(bad) <= bad_frac * len(err) and err.max() <= loose
+          and all(margins[i] < kink for i in bad),
+          f"{name} card vs host: {res}")
+    return res
+
+
+def shrunk_check(name, got, want, p1, margins):
+    err, head = row_errors(got, want, p1)
+    check(head <= 1e-4, f"{name}: head column {head} is not near zero")
+    p1 = np.asarray(p1)
+    return rows_verdict(name, err, margins, {
+        "head_rel": float(head),
+        "rows_p0_below_1e-3": int((p1 > 1 - 1e-3).sum())}, p1)
+
+
+def a_check(name, got, want, diag_load, p1, margins):
+    """(n, L, L) A-matrices, card vs host: the layers' block per sample and
+    column by the row rule; the head's row and column (products with its
+    rounding noise) near zero, its diagonal at the load."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    blk_g, blk_w = got[:, :-1, :-1], want[:, :-1, :-1]
+    scale = np.abs(blk_w).max(axis=(0, 1))
+    err = (np.abs(blk_g - blk_w) / scale).max(axis=(1, 2))
+    off = max(np.abs(a[:, -1, :-1]).max() for a in (got, want)) / \
+        np.abs(want).max()
+    diag = max(np.abs(a[:, -1, -1] / diag_load - 1).max()
+               for a in (got, want))
+    check(off <= 1e-4 and diag <= 1e-3,
+          f"{name}: head row/column {off}, head diagonal {diag}")
+    return rows_verdict(name, err, margins,
+                        {"head_offdiag_rel": float(off),
+                         "head_diag_vs_load": float(diag)}, np.asarray(p1))
+
+
+def sdp_kwargs(A, lambda_, X, cap_peak, k=64):
+    """``solve_a_optimal``'s arguments as ``fi_query_distribution`` builds
+    them."""
+    kw = {"cap": 1.0 / k if cap_peak else 1.0, "tol": 1e-4}
+    if lambda_ > 0:
+        F = torch.as_tensor(X, dtype=torch.float32, device=A.device)
+        kw.update(lin=-lambda_ * (F ** 2).sum(0), F=F, rho=10.0)
+    return kw
+
+
+def objective64(q, A, kw):
+    q = np.asarray(q, np.float64)
+    f = np.trace(np.linalg.inv(np.einsum(
+        "n,nab->ab", q, A.cpu().numpy().astype(np.float64))))
+    if "F" in kw:
+        F = kw["F"].cpu().numpy().astype(np.float64)
+        f += kw["lin"].cpu().numpy().astype(np.float64) @ q
+        f += 0.5 * kw["rho"] * np.sum((F @ q) ** 2)
+    return f
+
+
+def timed_solve(A, kw, graph=None):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = sdp.solve_a_optimal(A, graph=graph, **kw)
+    q = sol.q.cpu().numpy()
+    return q, float(sol.rel_gap), sol.iters, time.perf_counter() - t0
+
+
+def phase_fim_parity(dev, n=256, B=200, diag_load=1e-5):
+    """The fused scorer, the candidate tail and the solver, card vs host."""
+    ps = (25, 25, 1)
+    spec = create_pw1(2, 0.5, (25, 25, 2))
+    models = {"card": init_cnn(spec, seed=0, device=dev),
+              "host": init_cnn(spec, seed=0, device="cpu")}
+    vols, _ = synthetic_subject(shape=SHAPE, n_modalities=2, seed=1)
+    inds = np.random.default_rng(3).integers(0, int(np.prod(SHAPE)), n)
+    on = {}
+    for side, d in (("card", dev), ("host", "cpu")):
+        on[side] = (pad_volumes(vols, ps, d), torch.tensor([60.0, 75.0],
+                    device=d), torch.tensor([30.0, 31.0], device=d))
+    x = gather_patches_normalized(on["card"][0], torch.as_tensor(inds).to(
+        dev), on["card"][1], on["card"][2], ps, SHAPE)
+    out = {"card": pool_score_fused(models["card"], x),
+           "host": pool_score_fused(models["host"], x.cpu())}
+    p1_err = float((out["card"]["p1"].cpu() - out["host"]["p1"]).abs().max())
+    check(p1_err <= 1e-4, f"pool_score_fused p1 card vs host {p1_err}")
+    margins = kink_margins(models["card"], x)
+    res = {"p1_max_abs_err": p1_err,
+           "shrunk": shrunk_check("pool_score_fused shrunk",
+                                  out["card"]["shrunk"].cpu(),
+                                  out["host"]["shrunk"],
+                                  out["host"]["p1"], margins)}
+    # fi's tail at B = 200: the most uncertain candidates, gathered by K2
+    p1 = out["card"]["p1"]
+    sel = torch.sort((p1 - 0.5).abs(), stable=True).indices[:B]
+    cand = torch.as_tensor(inds).to(dev)[sel].contiguous()
+    k2_0 = ops.gather.KERNEL.launches
+    A = {"card": gather_shrunk_a_matrices(models["card"], on["card"][0],
+                                          cand, *on["card"][1:], ps, SHAPE,
+                                          p1[sel], diag_load)}
+    check(ops.gather.KERNEL.launches == k2_0 + 1,
+          "gather_shrunk_a_matrices did not launch K2 on the card")
+    A["host"] = gather_shrunk_a_matrices(models["host"], on["host"][0],
+                                         cand.cpu(), *on["host"][1:], ps,
+                                         SHAPE, p1[sel].cpu(), diag_load)
+    res["A"] = a_check("gather_shrunk_a_matrices", A["card"].cpu(),
+                       A["host"], diag_load, p1[sel].cpu().numpy(),
+                       margins[sel.cpu().numpy()])
+    # the solver on the card's A, card vs host
+    with torch.no_grad():
+        feats = models["card"](x[sel]).feature.cpu().numpy()
+    ref = refine_feature_matrix(feats.T, B)
+    X = ref - ref.mean(axis=1, keepdims=True)
+    res["sdp"] = {}
+    for case, lam, cap_peak in (("lambda0", 0.0, False),
+                                ("lambda0_cap_peak", 0.0, True),
+                                ("lambda0.5", 0.5, False)):
+        kw_c = sdp_kwargs(A["card"], lam, X, cap_peak)
+        kw_h = sdp_kwargs(A["card"].cpu(), lam, X, cap_peak)
+        q_c, gap_c, it_c, s_cold = timed_solve(A["card"], kw_c)
+        q_c2, _, _, s_warm = timed_solve(A["card"], kw_c)
+        q_e, _, it_e, s_eager = timed_solve(A["card"], kw_c, graph=False)
+        q_h, gap_h, it_h, s_host = timed_solve(A["card"].cpu(), kw_h)
+        f_c, f_h = objective64(q_c, A["card"], kw_c), \
+            objective64(q_h, A["card"], kw_c)
+        r = {"max_abs_dq": float(np.abs(q_c - q_h).max()),
+             "objective_rel": float(abs(f_c - f_h) / abs(f_h)),
+             "iters_card": it_c, "iters_host": it_h,
+             "rel_gap_card": gap_c, "rel_gap_host": gap_h,
+             "graph_s_first": s_cold, "graph_s_again": s_warm,
+             "eager_s": s_eager, "host_s": s_host, "eager_iters": it_e,
+             "graph_vs_eager_max_abs_dq": float(np.abs(q_c - q_e).max()),
+             "repeat_identical": bool(np.array_equal(q_c, q_c2))}
+        res["sdp"][case] = r
+        check(np.isfinite(q_c).all() and abs(q_c.astype(np.float64).sum()
+                                             - 1) < 1e-4,
+              f"SDP {case}: card q is not a PMF")
+        if lam == 0:
+            check(r["max_abs_dq"] <= 1e-4 and r["objective_rel"] <= 1e-5,
+                  f"SDP {case} card vs host: {r}")
+        else:
+            check(r["objective_rel"] <= 1e-4,
+                  f"SDP {case} card vs host: {r}")
+        check(r["graph_vs_eager_max_abs_dq"] == 0.0 and it_e == it_c,
+              f"SDP {case}: the CUDA graph and the eager loop differ: {r}")
+        print(f"SDP {case}: {json.dumps(r)}")
+    print(f"FIM parity ok: p1 {p1_err:.3g}, shrunk {res['shrunk']}, "
+          f"A {res['A']}")
+    return res
+
+
+def fim_flops_per_patch(spec):
+    """Operations of the eps-injected forward (with the ones-filter
+    convs) plus its input-gradient backward: every conv and fc again,
+    except the first conv (the patches need no gradient)."""
+    h, w, c = spec.input_shape
+    fwd = ones = first = 0.0
+    for layer in spec.layers:
+        if layer.kind == "conv":
+            kk = float(np.prod(layer.ksize))
+            fwd += 2 * h * w * layer.out * c * kk
+            ones += 2 * h * w * c * kk
+            first = first or 2 * h * w * layer.out * c * kk
+            c = layer.out
+        elif layer.kind == "pool":
+            h, w = -(-h // layer.strides[0]), -(-w // layer.strides[1])
+        else:
+            fwd += 2 * h * w * c * layer.out
+            h, w, c = 1, 1, layer.out
+    return 2 * fwd - first + ones
+
+
+def sweep_profile(model, ev):
+    """``torch.profiler`` window over one z-chunk (extraction included):
+    top device kernels, device time by aten op, the card's idle share
+    between the first and last kernel, and the weight-gradient check."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    z = SWEEP_Z_CHUNK
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        x = extract_normalize(ev._slices[z:2 * z], 25, 25, ev.grid_spacing,
+                              ev._mu_c, ev._sd_c)
+        pool_score_fused(model, x, nchw=True)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_kernel = {}
+    for e in kernels:
+        by_kernel[e.name] = by_kernel.get(e.name, 0.0) + \
+            e.time_range.elapsed_us()
+    busy = sum(by_kernel.values())
+    span = (max(e.time_range.end for e in kernels)
+            - min(e.time_range.start for e in kernels))
+    by_op, calls = {}, {}
+    for ev_ in prof.key_averages():
+        if ev_.key.startswith("aten::"):
+            t = getattr(ev_, "self_device_time_total", None)
+            if t is None:
+                t = getattr(ev_, "self_cuda_time_total", 0.0)
+            if t:
+                by_op[ev_.key] = t
+            calls[ev_.key] = ev_.count
+    wgrad = sorted(k for k in by_kernel if "wgrad" in k.lower())
+    dgrad = sorted(k for k in by_kernel if "dgrad" in k.lower())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    n_conv = sum(1 for l in model.spec.layers if l.kind == "conv")
+    n_fc = sum(1 for l in model.spec.layers if l.kind == "fc")
+    res = {"device_busy_us": busy, "span_us": span,
+           "idle_share": 1.0 - busy / span,
+           "top_kernels_us": top,
+           "aten_self_device_us": dict(sorted(by_op.items(),
+                                              key=lambda kv: -kv[1])),
+           "calls": {k: calls.get(k, 0) for k in (
+               "aten::convolution_backward", "aten::mm", "aten::addmm",
+               "aten::cudnn_convolution", "aten::im2col")},
+           "wgrad_kernels": wgrad, "dgrad_kernels": dgrad}
+    # no weight gradient: no cuDNN wgrad kernel, one convolution backward
+    # per conv but the first (the patches need no gradient), and one mm
+    # per fc layer (its input gradient)
+    check(not wgrad, f"weight-gradient kernels ran: {wgrad}")
+    check(res["calls"]["aten::convolution_backward"] == n_conv - 1
+          and res["calls"]["aten::mm"] == n_fc,
+          f"backward op counts {res['calls']} (expected {n_conv - 1} conv "
+          f"backward, {n_fc} mm)")
+    return res
+
+
+def phase_fim_sweep(dev, n_check=64):
+    """``GridPoolEvaluator.fim_sweep`` over bench.py's 1,048,576-patch
+    pool, timed on the card after a one-chunk warm-up."""
+    ps = (25, 25, 1)
+    spec = create_pw1(2, 0.5, (25, 25, 2))
+    model = init_cnn(spec, seed=0, device=dev)
+    t0 = time.perf_counter()
+    vols, _ = synthetic_subject(shape=SWEEP_SHAPE, n_modalities=2, seed=3)
+    setup_s = time.perf_counter() - t0
+    mu = np.array([v.mean() for v in vols])
+    sd = np.array([v.std() for v in vols])
+    ev = GridPoolEvaluator(spec, pad_volumes(vols, ps, dev), mu, sd, ps,
+                           SWEEP_SHAPE, grid_spacing=2,
+                           z_chunk=SWEEP_Z_CHUNK)
+    n = ev.nz * ev.nx * ev.ny
+    s1, s2, s3 = SWEEP_SHAPE
+    check(n == (s1 // 2) * (s2 // 2) * s3, f"sweep pool has {n} patches")
+    x = extract_normalize(ev._slices[:SWEEP_Z_CHUNK], 25, 25, 2, ev._mu_c,
+                          ev._sd_c)
+    pool_score_fused(model, x, nchw=True)
+    del x
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = ev.fim_sweep(model, as_device=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(res["p1"].shape == (n,) and res["shrunk"].shape == (n, 2, 7)
+          and bool(torch.isfinite(res["shrunk"]).all())
+          and bool(torch.isfinite(res["p1"]).all()),
+          "fim_sweep output shape or values")
+    # rows of the sweep against the host's gather route
+    rows = np.sort(np.random.default_rng(4).choice(n, n_check,
+                                                   replace=False))
+    z, rem = rows // (ev.nx * ev.ny), rows % (ev.nx * ev.ny)
+    vox = np.ravel_multi_index((rem // ev.ny * 2, rem % ev.ny * 2, z),
+                               SWEEP_SHAPE)
+    host = init_cnn(spec, seed=0, device="cpu")
+    xh = gather_patches_normalized(
+        pad_volumes(vols, ps, "cpu"), torch.as_tensor(vox),
+        torch.as_tensor(mu, dtype=torch.float32),
+        torch.as_tensor(sd, dtype=torch.float32), ps, SWEEP_SHAPE)
+    want = pool_score_fused(host, xh)
+    rows_t = torch.as_tensor(rows).to(dev)
+    p1_err = float((res["p1"][rows_t].cpu() - want["p1"]).abs().max())
+    check(p1_err <= 1e-4, f"fim_sweep p1 vs host {p1_err}")
+    rows_res = shrunk_check("fim_sweep rows", res["shrunk"][rows_t].cpu(),
+                            want["shrunk"], want["p1"],
+                            kink_margins(host, xh))
+    del res
+    flops = fim_flops_per_patch(spec) * n
+    out = {"patches": n, "seconds": secs, "patches_per_s": n / secs,
+           "z_chunk": ev.z_chunk, "patches_per_chunk":
+           ev.z_chunk * ev.nx * ev.ny, "max_memory_allocated": peak,
+           "flop_per_patch": flops / n, "tflop_per_s": flops / secs / 1e12,
+           "bound_s": bound(flops, 0.0)[0] / 1e3, "subject_setup_s": setup_s,
+           "host_rows": {"p1_max_abs_err": p1_err, **rows_res}}
+    print(f"FIM sweep: {n} patches in {secs:.3f} s, "
+          f"{n / secs:.1f} patches/s, z_chunk {ev.z_chunk}, peak "
+          f"{peak / 2**30:.2f} GiB, {out['tflop_per_s']:.2f} TFLOP/s; "
+          f"rows vs host {out['host_rows']}")
+    out["profile"] = prof = sweep_profile(model, ev)
+    print(f"FIM sweep profile ok: idle share {prof['idle_share']:.4f}, "
+          f"op calls {prof['calls']}, top kernels "
+          f"{prof['top_kernels_us'][:8]}, by aten op "
+          f"{list(prof['aten_self_device_us'].items())[:10]}")
+    del ev
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_campaign(dev):
     """Each method in its own experiment directory (a reloaded
     ``parameters.txt`` does not carry ``synthetic_shape``); the
@@ -493,23 +915,38 @@ def _campaign(dev, top):
     counts = {}
     seconds = {}
     phases = {}
+    by_method = {}
     ops.reset_launch_counts()
     for method in METHODS:
         root = os.path.join(top, method)
         k1_0 = ops.similarity.KERNEL.launches
         k2_0 = ops.gather.KERNEL.launches
         t0 = time.perf_counter()
-        res = do_expr(root, method, 128, OVERRIDES, synthetic=True,
-                      device=str(dev))
+        res = do_expr(root, method, 128,
+                      OVERRIDES_FI if method == "fi" else OVERRIDES,
+                      synthetic=True, device=str(dev))
         seconds[method] = time.perf_counter() - t0
         init_pool = np.loadtxt(os.path.join(root, "init_pool_inds.txt"),
                                dtype=np.int64)
         train, pool = res["train_inds"], res["pool_inds"]
+        picks = [np.atleast_1d(np.loadtxt(
+            os.path.join(root, method, "queries", f"{i}.txt"),
+            dtype=np.int64)) for i in range(len(res["perf"]))]
         check(len(init_pool) == 65536, f"pool size {len(init_pool)}")
-        check(res["n_queries"] == 128 and len(res["perf"]) == 2,
+        check(len(res["perf"]) == 2 and res["n_queries"]
+              == sum(len(q) for q in picks),
               f"{method}: {res['n_queries']} queries, "
               f"{len(res['perf'])} rounds")
-        check(len(train) == 256 + 128 and len(set(train.tolist())) == 384,
+        if method == "fi":
+            # the PMF is drawn with replacement and deduplicated
+            check(all(1 <= len(q) <= 64 and len(set(q.tolist())) == len(q)
+                      for q in picks),
+                  f"fi: picks per round {[len(q) for q in picks]}")
+        else:
+            check(res["n_queries"] == 128, f"{method}: "
+                  f"{res['n_queries']} queries")
+        n_lab = 256 + res["n_queries"]
+        check(len(train) == n_lab and len(set(train.tolist())) == n_lab,
               f"{method}: labeled set has {len(train)} entries")
         check(not set(train.tolist()) & set(pool.tolist())
               and set(train.tolist()) | set(pool.tolist())
@@ -518,17 +955,27 @@ def _campaign(dev, top):
               f"{method}: non-finite F {res['perf']}")
         dk1 = ops.similarity.KERNEL.launches - k1_0
         dk2 = ops.gather.KERNEL.launches - k2_0
+        by_method[method] = {"rowmax_similarity": dk1,
+                             "gather_patches_normalized": dk2}
         check(dk2 >= 2, f"{method}: K2 launched {dk2} times in finetune")
         if method == "core-set":
             check(dk1 >= 2, f"core-set: K1 launched {dk1} times")
-        print(f"campaign {method}: F per round {res['perf'].tolist()}, "
-              f"{seconds[method]:.3f} s, K1 +{dk1}, K2 +{dk2}")
         with open(os.path.join(root, method, "phases.jsonl")) as f:
             phases[method] = [json.loads(line) for line in f]
+        if method == "fi":
+            # 2 candidate gathers and 2 finetunes
+            check(dk2 >= 4, f"fi: K2 launched {dk2} times")
+            check(all(FI_SUBS <= set(r.get("sub", {}))
+                      for r in phases[method]),
+                  f"fi: sub spans missing from phases.jsonl: "
+                  f"{[r.get('sub') for r in phases[method]]}")
+        print(f"campaign {method}: F per round {res['perf'].tolist()}, "
+              f"picks per round {[len(q) for q in picks]}, "
+              f"{seconds[method]:.3f} s, K1 +{dk1}, K2 +{dk2}")
     for k in ops.KERNELS:
         counts[k.name] = k.launches
         check(k.launches > 0, f"{k.name} never launched in the campaign")
-    return counts, phases, seconds
+    return counts, phases, seconds, by_method
 
 
 def main() -> int:
@@ -558,15 +1005,20 @@ def main() -> int:
 
     rows = [phase_k1(dev), phase_k2(dev)]
     phase_forward(dev)
-    counts, phases, seconds = phase_campaign(dev)
+    fim = phase_fim_parity(dev)
+    sweep = phase_fim_sweep(dev)
+    counts, phases, seconds, by_method = phase_campaign(dev)
     for r in rows:
         r["launches"] = counts[r["name"]]
+        r["launches_by_method"] = {m: c[r["name"]]
+                                   for m, c in by_method.items()}
         r["kernel_ms"], r["max_err"] = r["ms"], r["max_abs_err"]
     print(json.dumps({"phases": phases, "campaign_s": seconds,
                       "build_s": build_s,
                       "build_s_per_kernel": {k.name: k.build_s
                                              for k in ops.KERNELS},
-                      "k1_sass": sass}))
+                      "k1_sass": sass, "fim_parity": fim,
+                      "fim_sweep": sweep}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -282,6 +282,8 @@ class PWExperiment:
             qrng = self.rng.fold(f"query-{method_name}-{round_id}")
             ctx = QueryContext(spec=spec, params=model, evaluator=evaluator,
                                pool_inds=pool_inds, k=k, rng=qrng.host,
+                               B=cfg.query.B, lambda_=cfg.query.lambda_,
+                               diag_load=float(cfg.query.diag_load),
                                train_inds=train_inds)
             with timer.phase("score_select"):
                 q_pos = cnn_query(ctx, method_name)

@@ -1,7 +1,9 @@
 """Hand-written Hopper kernels (CUDA C++ in ``nnal_tpu_torch/csrc``).
 
-This layer imports nothing else of the package; ``data.patches`` and
-``scoring.representative`` call into it.
+The kernel modules import nothing else of the package; ``data.patches``
+and ``scoring.representative`` call into them.  ``ops.scoring_fused`` (the
+fused posterior + diag-FIM scorer, which holds no kernel) sits above
+``scoring.gradients``, as in the JAX package, and is not imported here.
 """
 
 from nnal_tpu_torch.ops import gather, similarity

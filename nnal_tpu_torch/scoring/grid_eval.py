@@ -9,8 +9,9 @@ asked for; off-grid indices route to a stride-1 slab sweep when that is
 cheaper, else to the per-patch gather of :class:`PoolEvaluator` (kernel K2
 on the card).  Multi-slice patches (``d3 > 1``, odd) ride the same 2-D
 im2col by stacking each voxel's z-neighbours as channels, modality-major
-like the gather's ``(b, d1, d2, m*d3)`` layout.  ``fim_sweep`` and
-``perturb_sweep`` are not ported yet.
+like the gather's ``(b, d1, d2, m*d3)`` layout.  ``fim_sweep`` scores the
+whole grid with the fused posterior + diag-FIM pass; ``perturb_sweep`` is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from nnal_tpu_torch.ops.scoring_fused import pool_score_fused
 from nnal_tpu_torch.scoring.pool_eval import (
     PoolEvaluator,
     select_output,
@@ -178,3 +180,24 @@ class GridPoolEvaluator(PoolEvaluator):
         rows_d = torch.as_tensor(np.asarray(rows, np.int64)).to(self.device)
         return to_host({op: o[rows_d] for op, o in zip(ops, outs)},
                        as_device)
+
+    def fim_sweep(self, model, compute_dtype=None, as_device: bool = False
+                  ) -> Dict:
+        """Posterior + diag-FIM ingredients for the WHOLE grid, one z-chunk
+        at a time (extract -> normalize -> ``pool_score_fused``).  Returns
+        ``{"p1", "uncertainty", "shrunk"}`` of length nz*nx*ny in grid
+        order (z-major), as host arrays or, with ``as_device``, tensors."""
+        if not self._sweep_ok:
+            raise ValueError(
+                f"d3={self.patch_shape[2]} is even: the channel-stacked "
+                "sweep cannot reproduce the clamped gather at the volume "
+                "border")
+        d1, d2, _ = self.patch_shape
+        parts = []
+        for z0 in range(0, self.nz, self.z_chunk):
+            x = extract_normalize(self._slices[z0:z0 + self.z_chunk], d1, d2,
+                                  self.grid_spacing, self._mu_c, self._sd_c)
+            parts.append(pool_score_fused(model, x, True, compute_dtype,
+                                          nchw=True))
+        return to_host({k: torch.cat([p[k] for p in parts])
+                        for k in ("p1", "uncertainty", "shrunk")}, as_device)

@@ -2,8 +2,8 @@
 ``nnal_tpu/scoring/strategies.py:87-229``).
 
 Each strategy consumes a :class:`QueryContext` and returns positions into
-``ctx.pool_inds``.  This slice ports ``random``, ``entropy`` and
-``core-set``; any other name raises the dispatch's ``ValueError``.
+``ctx.pool_inds``.  The port has ``random``, ``entropy``, ``core-set`` and
+``fi``; any other name raises the dispatch's ``ValueError``.
 """
 
 from __future__ import annotations
@@ -14,6 +14,10 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from nnal_tpu_torch.core.profiling import subphase
+from nnal_tpu_torch.scoring.fisher import refine_feature_matrix
+from nnal_tpu_torch.scoring.gradients import gather_shrunk_a_matrices
+from nnal_tpu_torch.scoring.pmf import sample_query_pmf
 from nnal_tpu_torch.scoring.pool_eval import PoolEvaluator
 from nnal_tpu_torch.scoring.representative import (
     ROW_BUCKET,
@@ -22,6 +26,7 @@ from nnal_tpu_torch.scoring.representative import (
     normalize_rows,
     pad_inds_repeat,
 )
+from nnal_tpu_torch.scoring.sdp import fi_query_distribution
 from nnal_tpu_torch.scoring.uncertainty import binary_uncertainty_filter
 
 
@@ -35,6 +40,9 @@ class QueryContext:
     pool_inds: np.ndarray                 # raveled voxel indices
     k: int
     rng: np.random.Generator              # host sampling
+    B: int = 200                          # fi's uncertainty-filter size
+    lambda_: float = 0.0                  # fi's representativeness weight
+    diag_load: float = 1e-5               # fi's A-matrix diagonal load
     train_inds: Optional[np.ndarray] = None
 
 
@@ -58,6 +66,21 @@ def cnn_query(ctx: QueryContext, method_name: str) -> np.ndarray:
     return np.asarray(q, dtype=np.int64)
 
 
+def _require_patch_evaluator(ev, method: str) -> None:
+    """Per-patch gradient methods need the patch evaluator's device volume
+    (``ev.padded``); dense (fcn) evaluators have none.  Fail with a clear
+    message at strategy entry instead of an AttributeError mid-way."""
+    if not hasattr(ev, "padded"):
+        raise NotImplementedError(
+            f"{method} needs per-patch gradients: the dense-spec (fcn) "
+            "branch is not ported yet (ROADMAP Queue 1 item 9)")
+
+
+def _posteriors(ctx: QueryContext) -> np.ndarray:
+    return ctx.evaluator.evaluate(ctx.params, ctx.pool_inds,
+                                  ("posteriors",))["posteriors"]
+
+
 @register_strategy("random")
 def _random(ctx: QueryContext):
     return ctx.rng.permutation(len(ctx.pool_inds))[:ctx.k]
@@ -65,9 +88,7 @@ def _random(ctx: QueryContext):
 
 @register_strategy("entropy")
 def _entropy(ctx: QueryContext):
-    p1 = ctx.evaluator.evaluate(ctx.params, ctx.pool_inds,
-                                ("posteriors",))["posteriors"]
-    return binary_uncertainty_filter(p1, ctx.k)
+    return binary_uncertainty_filter(_posteriors(ctx), ctx.k)
 
 
 @register_strategy("core-set")
@@ -94,3 +115,38 @@ def _core_set(ctx: QueryContext):
     valid = torch.arange(F_u.shape[0], device=F_u.device) < n_u
     sims0 = torch.where(valid, sims0, torch.full_like(sims0, float("inf")))
     return core_set_select(Fn, sims0, min(ctx.k, n_u))
+
+
+@register_strategy("fi")
+def _fi(ctx: QueryContext):
+    """Fisher-information querying (reference PW_NNAL.py:89-163): the B
+    most uncertain pool voxels -> candidate gather (K2 on the card) ->
+    shrunk class gradients -> A-matrices -> the A-optimal SDP, all on the
+    evaluator's device -> PMF draws on the host (with replacement, then
+    deduplicated, so a round may return fewer than k)."""
+    ev = ctx.evaluator
+    _require_patch_evaluator(ev, "fi")
+    with subphase("fi/posteriors"):
+        p1 = _posteriors(ctx)
+    B = min(ctx.B, len(ctx.pool_inds))
+    sel = binary_uncertainty_filter(p1, B)
+    cand_inds = ctx.pool_inds[sel]
+    with subphase("fi/gather_grads_A"):
+        A = gather_shrunk_a_matrices(
+            ctx.params, ev.padded,
+            torch.as_tensor(np.asarray(cand_inds, np.int64)).to(ev.device),
+            ev.mu, ev.sd, ev.patch_shape, ev.orig_shape,
+            torch.as_tensor(np.asarray(p1[sel], np.float32)).to(ev.device),
+            ctx.diag_load)
+    X_pool = None
+    if ctx.lambda_ > 0:
+        with subphase("fi/features"):
+            feats = ev.evaluate(ctx.params, cand_inds,
+                                ("feature_layer",))["feature_layer"]
+        ref_F = refine_feature_matrix(np.asarray(feats).T, len(sel))
+        X_pool = ref_F - ref_F.mean(axis=1, keepdims=True)
+    with subphase("fi/sdp"):
+        q = fi_query_distribution(A, ctx.lambda_, X_pool, ctx.k)
+    with subphase("fi/pmf"):
+        picks = sample_query_pmf(q, ctx.k, ctx.rng, replacement=True)
+    return sel[picks]
