@@ -46,9 +46,33 @@ Phases, each of which passes or exits non-zero:
    128, Adam 1e-3; fi: B 200, lambda_ 0);
    launch counts are zeroed just before and read just after, and every
    kernel must have launched (K2 at least 4 times in fi);
-9. one ``phases`` JSON line (per-round seconds from ``phases.jsonl``,
-   build seconds, K1's SASS counts, the FIM phases) and one ``kernels``
-   JSON line (times, bounds, launches).
+9. bf16 (``model.dtype`` bfloat16): PW1 posteriors on 1024 patches card
+   vs host (max 2e-2, mean 2e-3: the card rounds each conv's sum before
+   the bias) and against f32, plus the fcs' f32-output bf16 GEMM and its
+   hand-written backward against autograd on upcast operands;
+10. the bf16 FIM sweep on phase 7's pool through ``make_pool_scorer``'s
+   compute dtype: patches/s, TFLOP/s and the bound at 989 TFLOP/s, peak
+   memory, a profiler window, 64 rows against the host (p1 2e-2; shrunk
+   correlation > 0.995, max |delta| < 0.1 of max |host|) and the top-1024
+   uncertainty overlap with the f32 sweep;
+11. the checkpoint codecs on the f32 campaign's entropy state (Adam
+   moments included): ``round_trip_bf16`` / ``round_trip_int8`` on the
+   card bit-equal to the numpy encode, the card's file encode equal to
+   the host's, and the seconds and bytes of one save at f32, bf16, int8;
+12. the bf16 campaign: 2 rounds each of entropy, core-set (bf16 anchors)
+   and fi (int8 anchors), bf16 sweeps and finetunes, ``ckpt_full_every``
+   2, ``async_checkpoint``; its launch counts are zeroed before and read
+   after it, and K1 and K2 must launch;
+13. resume == continue: a 4-round random campaign with int8 anchors every
+   3 rounds, run uninterrupted and then crashed after round 3 and
+   resumed by replay in a fresh ``PWExperiment``: the final
+   ``curr_weights.npz``, the query journal and ``perf_evals.txt`` must be
+   bit-identical; and the finetune's seconds with and without
+   deterministic cuDNN, interleaved in one process;
+14. one ``phases`` JSON line (per-round seconds from ``phases.jsonl`` of
+   both campaigns, build seconds, K1's SASS counts, the FIM, bf16, codec
+   and resume phases) and one ``kernels`` JSON line (times, bounds,
+   launches in both campaigns).
 
 The row and column tolerance rules for shrunk gradients and A-matrices:
 the linear head's column is zero in exact arithmetic (a constant added to
@@ -85,18 +109,37 @@ import torch
 
 from nnal_tpu_torch import ops
 from nnal_tpu_torch.ops._build import stream_ptr
-from nnal_tpu_torch.cli.expr_handler import do_expr
-from nnal_tpu_torch.core.device import set_precision
+from nnal_tpu_torch.cli.expr_handler import DEFAULT_PARS, do_expr
+from nnal_tpu_torch.core.config import ExperimentConfig, set_parameters
+from nnal_tpu_torch.core.device import deterministic_cudnn, set_precision
 from nnal_tpu_torch.data.io import synthetic_subject
 from nnal_tpu_torch.data.patches import pad_volumes
-from nnal_tpu_torch.models.cnn import init_cnn
+from nnal_tpu_torch.engine import pw_experiment
+from nnal_tpu_torch.models import checkpoint as ckpt
+from nnal_tpu_torch.models.bridge import (
+    from_jax_params,
+    to_jax_params,
+    to_jax_tensors,
+)
+from nnal_tpu_torch.models.cnn import CNN, init_cnn, linear_f32acc
+from nnal_tpu_torch.models.optim import (
+    load_opt_state,
+    make_optimizer,
+    opt_state_leaves,
+    opt_state_tensors,
+)
 from nnal_tpu_torch.models.specs import create_pw1
+from nnal_tpu_torch.models.train import (
+    build_batch_index_matrix,
+    finetune_steps,
+    init_train_state,
+)
 from nnal_tpu_torch.scoring.grid_eval import GridPoolEvaluator
 from nnal_tpu_torch.ops.gather import (
     gather_patches_normalized,
     gather_patches_plain,
 )
-from nnal_tpu_torch.ops.scoring_fused import pool_score_fused
+from nnal_tpu_torch.ops.scoring_fused import make_pool_scorer, pool_score_fused
 from nnal_tpu_torch.scoring import sdp
 from nnal_tpu_torch.scoring.fisher import refine_feature_matrix
 from nnal_tpu_torch.scoring.gradients import gather_shrunk_a_matrices
@@ -111,6 +154,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12        # float32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12      # TF32 on the tensor cores, dense
+PEAK_BF16_FLOPS = 989e12     # bf16 on the tensor cores, dense
 PEAK_HBM_BYTES = 3.35e12
 SHAPE = (128, 128, 32)
 METHODS = ("entropy", "core-set", "random", "fi")
@@ -122,6 +166,18 @@ OVERRIDES = ("patch_shape=[25,25,1],grid_spacing=2,k=64,B=128,b=128,"
 # k picks: the PMF is drawn with replacement and deduplicated)
 OVERRIDES_FI = OVERRIDES.replace("B=128", "B=200") + ",iter_k=[64,64,0]"
 FI_SUBS = {"fi/posteriors", "fi/gather_grads_A", "fi/sdp", "fi/pmf"}
+# the bf16 campaign: sweeps and finetunes in bf16, bf16 anchors (int8 for
+# fi) every 2 rounds, written from the checkpoint thread
+BF16 = (",dtype=bfloat16,train_dtype=bfloat16,ckpt_full_every=2,"
+        "async_checkpoint=true")
+BF16_RUNS = (("entropy", OVERRIDES + BF16 + ",ckpt_dtype=bfloat16"),
+             ("core-set", OVERRIDES + BF16 + ",ckpt_dtype=bfloat16"),
+             ("fi", OVERRIDES_FI + BF16 + ",ckpt_dtype=int8"))
+F32_RUNS = tuple((m, OVERRIDES_FI if m == "fi" else OVERRIDES)
+                 for m in METHODS)
+# resume == continue: 4 rounds of random, int8 anchors every 3 rounds
+RESUME_OVERRIDES = OVERRIDES + ",ckpt_full_every=3,ckpt_dtype=int8"
+TOP_B = 1024
 SWEEP_SHAPE = (256, 256, 64)        # bench.py's subject
 SWEEP_Z_CHUNK = 4
 
@@ -534,6 +590,67 @@ def phase_forward(dev, n=1024):
           f"max|delta| {err:.3g}; off-grid evaluator {err_off:.3g}")
 
 
+def phase_bf16_forward(dev, n=1024):
+    """PW1 25x25x2 at bf16: card vs host (the host upcasts each conv and
+    fc, one rounding; the card rounds each conv's sum before the bias),
+    bf16 vs f32 on the card, and the card's f32-output fc GEMM with its
+    hand-written backward against autograd on upcast operands."""
+    spec = create_pw1(2, 0.5, (25, 25, 2))
+    model_c = init_cnn(spec, seed=0, device="cpu")
+    model_g = init_cnn(spec, seed=0, device=dev)
+    vols, _ = synthetic_subject(shape=SHAPE, n_modalities=2, seed=1)
+    padded = pad_volumes(vols, (25, 25, 1), dev)
+    inds = torch.as_tensor(np.random.default_rng(1).integers(
+        0, int(np.prod(SHAPE)), size=n)).to(dev)
+    x = gather_patches_normalized(padded, inds,
+                                  torch.tensor([60.0, 75.0], device=dev),
+                                  torch.tensor([30.0, 31.0], device=dev),
+                                  (25, 25, 1), SHAPE)
+    with torch.no_grad():
+        p16 = model_g(x.bfloat16()).posteriors[:, 1].cpu()
+        p32 = model_g(x).posteriors[:, 1].cpu()
+        h16 = model_c(x.cpu().bfloat16()).posteriors[:, 1]
+    err = float((p16 - h16).abs().max())
+    err_mean = float((p16 - h16).abs().mean())
+    err32 = float((p16 - p32).abs().max())
+    top = [set(torch.argsort((p - 0.5).abs(), stable=True)[:64].tolist())
+           for p in (p16, h16, p32)]
+    # the GEMM route of the fcs (fc1's shapes) and its backward
+    gen = torch.Generator(device=dev).manual_seed(6)
+    h = torch.randn(256, 1536, device=dev, generator=gen).bfloat16()
+    W = (torch.randn(4096, 1536, device=dev, generator=gen)
+         * 0.03).bfloat16()
+    g = torch.randn(256, 4096, device=dev, generator=gen).bfloat16().float()
+    hs, Ws = h.clone().requires_grad_(), W.clone().requires_grad_()
+    y = linear_f32acc(hs, Ws)
+    y.backward(g)
+    hu, Wu = h.float().requires_grad_(), W.float().requires_grad_()
+    yu = hu @ Wu.t()
+    yu.backward(g)
+    y, yu = y.detach(), yu.detach()
+    mm = {"out_rel": float((y - yu).abs().max() / yu.abs().max()),
+          "dh_rel": float((hs.grad.float() - hu.grad).abs().max()
+                          / hu.grad.abs().max()),
+          "dW_rel": float((Ws.grad.float() - Wu.grad).abs().max()
+                          / Wu.grad.abs().max()),
+          "dtypes": [str(y.dtype), str(hs.grad.dtype), str(Ws.grad.dtype)]}
+    res = {"p1_card_vs_host_max": err, "p1_card_vs_host_mean": err_mean,
+           "p1_bf16_vs_f32_card_max": err32,
+           "top64_overlap_card_host": len(top[0] & top[1]),
+           "top64_overlap_bf16_f32": len(top[0] & top[2]),
+           "fc_gemm_f32acc": mm}
+    check(bool(torch.isfinite(p16).all()) and err <= 2e-2
+          and err_mean <= 2e-3, f"bf16 forward card vs host: {res}")
+    # f32 accumulation: the output within f32 summation order; each
+    # gradient is one bf16 GEMM, so within one bf16 rounding (2^-8)
+    check(mm["out_rel"] <= 1e-5 and mm["dh_rel"] <= 2 ** -8
+          and mm["dW_rel"] <= 2 ** -8 and mm["dtypes"] == [
+              "torch.float32", "torch.bfloat16", "torch.bfloat16"],
+          f"f32-output bf16 GEMM vs upcast autograd: {mm}")
+    print(f"bf16 forward ok: {json.dumps(res)}")
+    return res
+
+
 def kink_margins(model, x):
     """Per patch (NHWC ``x``), how close its forward comes to a point where
     f32 rounding on another device can change the gradient: the smallest
@@ -750,16 +867,17 @@ def phase_fim_parity(dev, n=256, B=200, diag_load=1e-5):
 
 
 def fim_flops_per_patch(spec):
-    """Operations of the eps-injected forward (with the ones-filter
-    convs) plus its input-gradient backward: every conv and fc again,
-    except the first conv (the patches need no gradient)."""
+    """Operations of the eps-injected forward (with each conv's window
+    sum: a channel sum, then a 1 -> 1 channel ones conv) plus its
+    input-gradient backward: every conv and fc again, except the first
+    conv (the patches need no gradient)."""
     h, w, c = spec.input_shape
     fwd = ones = first = 0.0
     for layer in spec.layers:
         if layer.kind == "conv":
             kk = float(np.prod(layer.ksize))
             fwd += 2 * h * w * layer.out * c * kk
-            ones += 2 * h * w * c * kk
+            ones += h * w * c + 2 * h * w * kk
             first = first or 2 * h * w * layer.out * c * kk
             c = layer.out
         elif layer.kind == "pool":
@@ -770,7 +888,7 @@ def fim_flops_per_patch(spec):
     return 2 * fwd - first + ones
 
 
-def sweep_profile(model, ev):
+def sweep_profile(model, ev, cd=None):
     """``torch.profiler`` window over one z-chunk (extraction included):
     top device kernels, device time by aten op, the card's idle share
     between the first and last kernel, and the weight-gradient check."""
@@ -783,7 +901,7 @@ def sweep_profile(model, ev):
                              ProfilerActivity.CUDA]) as prof:
         x = extract_normalize(ev._slices[z:2 * z], 25, 25, ev.grid_spacing,
                               ev._mu_c, ev._sd_c)
-        pool_score_fused(model, x, nchw=True)
+        pool_score_fused(model, x, True, cd, nchw=True)
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     by_kernel = {}
@@ -820,16 +938,39 @@ def sweep_profile(model, ev):
     # per conv but the first (the patches need no gradient), and one mm
     # per fc layer (its input gradient)
     check(not wgrad, f"weight-gradient kernels ran: {wgrad}")
-    check(res["calls"]["aten::convolution_backward"] == n_conv - 1
-          and res["calls"]["aten::mm"] == n_fc,
+    check(res["calls"]["aten::convolution_backward"] == n_conv - 1,
           f"backward op counts {res['calls']} (expected {n_conv - 1} conv "
-          f"backward, {n_fc} mm)")
+          f"backward)")
+    # f32: the forward fcs are addmm, so each mm is an fc input gradient;
+    # bf16: the forward fcs are f32-output mms too
+    n_mm = n_fc if cd is None else 2 * n_fc
+    check(res["calls"]["aten::mm"] == n_mm,
+          f"mm calls {res['calls']['aten::mm']} (expected {n_mm})")
     return res
 
 
-def phase_fim_sweep(dev, n_check=64):
+def bf16_rows(got, want, p1):
+    """bf16 rows against a reference (the JAX package's own bf16 rule,
+    ``tests/test_bf16_fim.py``): correlation and max |delta| relative to
+    the reference's max |.|, over every layer column but the head's (zero
+    in exact arithmetic) and without class 0 where p0 < 1e-3."""
+    got = np.asarray(got, np.float64)[..., :-1]
+    want = np.asarray(want, np.float64)[..., :-1]
+    keep = np.ones(got.shape[:2], bool)
+    keep[:, 0] = np.asarray(p1) < 1 - 1e-3
+    g, w = got[keep], want[keep]
+    return {"corr": float(np.corrcoef(g.ravel(), w.ravel())[0, 1]),
+            "max_rel": float(np.abs(g - w).max() / np.abs(w).max())}
+
+
+def phase_fim_sweep(dev, n_check=64, cd=None, ref_unc=None):
     """``GridPoolEvaluator.fim_sweep`` over bench.py's 1,048,576-patch
-    pool, timed on the card after a one-chunk warm-up."""
+    pool, timed on the card after a one-chunk warm-up.  With ``cd`` the
+    sweep runs at ``make_pool_scorer``'s compute dtype and its top
+    ``TOP_B`` uncertainties are compared with ``ref_unc`` (the f32
+    sweep's)."""
+    scorer = make_pool_scorer(cd) if cd is not None else None
+    cd = scorer.compute_dtype if scorer is not None else None
     ps = (25, 25, 1)
     spec = create_pw1(2, 0.5, (25, 25, 2))
     model = init_cnn(spec, seed=0, device=dev)
@@ -846,12 +987,12 @@ def phase_fim_sweep(dev, n_check=64):
     check(n == (s1 // 2) * (s2 // 2) * s3, f"sweep pool has {n} patches")
     x = extract_normalize(ev._slices[:SWEEP_Z_CHUNK], 25, 25, 2, ev._mu_c,
                           ev._sd_c)
-    pool_score_fused(model, x, nchw=True)
+    (scorer or pool_score_fused)(model, x, nchw=True)
     del x
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = ev.fim_sweep(model, as_device=True)
+    res = ev.fim_sweep(model, compute_dtype=cd, as_device=True)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -870,62 +1011,96 @@ def phase_fim_sweep(dev, n_check=64):
         pad_volumes(vols, ps, "cpu"), torch.as_tensor(vox),
         torch.as_tensor(mu, dtype=torch.float32),
         torch.as_tensor(sd, dtype=torch.float32), ps, SWEEP_SHAPE)
-    want = pool_score_fused(host, xh)
+    want = pool_score_fused(host, xh, True, cd)
     rows_t = torch.as_tensor(rows).to(dev)
     p1_err = float((res["p1"][rows_t].cpu() - want["p1"]).abs().max())
-    check(p1_err <= 1e-4, f"fim_sweep p1 vs host {p1_err}")
-    rows_res = shrunk_check("fim_sweep rows", res["shrunk"][rows_t].cpu(),
-                            want["shrunk"], want["p1"],
-                            kink_margins(host, xh))
+    if cd is None:
+        check(p1_err <= 1e-4, f"fim_sweep p1 vs host {p1_err}")
+        rows_res = shrunk_check("fim_sweep rows",
+                                res["shrunk"][rows_t].cpu(), want["shrunk"],
+                                want["p1"], kink_margins(host, xh))
+    else:
+        rows_res = bf16_rows(res["shrunk"][rows_t].cpu(), want["shrunk"],
+                             want["p1"])
+        check(p1_err <= 2e-2 and rows_res["corr"] > 0.995
+              and rows_res["max_rel"] < 0.1,
+              f"bf16 fim_sweep rows vs host: p1 {p1_err}, {rows_res}")
+    unc = res["uncertainty"]
+    overlap = None
+    if ref_unc is not None:
+        top = [torch.argsort(u, stable=True)[:TOP_B] for u in (unc, ref_unc)]
+        # tie-aware: f32 picks whose bf16 uncertainty is no worse than
+        # the bf16 B-th (bf16 logits take few distinct values)
+        kth = unc[top[0][-1]]
+        overlap = {"B": TOP_B, "overlap": len(set(top[0].tolist())
+                                               & set(top[1].tolist())),
+                   "f32_picks_within_bf16_cut": int(
+                       (unc[top[1]] <= kth).sum()),
+                   "distinct_bf16_uncertainties_in_top": int(
+                       torch.unique(unc[top[0]]).numel())}
     del res
     flops = fim_flops_per_patch(spec) * n
-    out = {"patches": n, "seconds": secs, "patches_per_s": n / secs,
+    peak_flops = PEAK_F32_FLOPS if cd is None else PEAK_BF16_FLOPS
+    out = {"dtype": str(cd or torch.float32), "patches": n, "seconds": secs,
+           "patches_per_s": n / secs,
            "z_chunk": ev.z_chunk, "patches_per_chunk":
            ev.z_chunk * ev.nx * ev.ny, "max_memory_allocated": peak,
            "flop_per_patch": flops / n, "tflop_per_s": flops / secs / 1e12,
-           "bound_s": bound(flops, 0.0)[0] / 1e3, "subject_setup_s": setup_s,
-           "host_rows": {"p1_max_abs_err": p1_err, **rows_res}}
-    print(f"FIM sweep: {n} patches in {secs:.3f} s, "
+           "bound_s": bound(flops, 0.0, peak_flops)[0] / 1e3,
+           "bound_peak_tflop_per_s": peak_flops / 1e12,
+           "subject_setup_s": setup_s,
+           "host_rows": {"p1_max_abs_err": p1_err, **rows_res},
+           "top_b_vs_f32": overlap}
+    print(f"FIM sweep {out['dtype']}: {n} patches in {secs:.3f} s, "
           f"{n / secs:.1f} patches/s, z_chunk {ev.z_chunk}, peak "
           f"{peak / 2**30:.2f} GiB, {out['tflop_per_s']:.2f} TFLOP/s; "
           f"rows vs host {out['host_rows']}")
-    out["profile"] = prof = sweep_profile(model, ev)
+    print(f"FIM sweep {out['dtype']} bound {out['bound_s']:.4f} s at "
+          f"{peak_flops / 1e12:.0f} TFLOP/s; top-{TOP_B} vs f32 {overlap}")
+    out["profile"] = prof = sweep_profile(model, ev, cd)
     print(f"FIM sweep profile ok: idle share {prof['idle_share']:.4f}, "
           f"op calls {prof['calls']}, top kernels "
           f"{prof['top_kernels_us'][:8]}, by aten op "
           f"{list(prof['aten_self_device_us'].items())[:10]}")
     del ev
     torch.cuda.empty_cache()
-    return out
+    return out, unc
 
 
 def phase_campaign(dev):
     """Each method in its own experiment directory (a reloaded
-    ``parameters.txt`` does not carry ``synthetic_shape``); the
-    directories, with their ~0.4 GB checkpoints, are removed at the end."""
+    ``parameters.txt`` does not carry ``synthetic_shape``): the f32
+    campaign, the checkpoint codecs on its entropy state, then the bf16
+    campaign, each with the launch counts zeroed just before it and read
+    just after.  The directories, with their ~0.2-0.4 GB checkpoints, are
+    removed at the end."""
     top = os.path.join(ROOT, "_smoke_expr")
     shutil.rmtree(top, ignore_errors=True)
     try:
-        return _campaign(dev, top)
+        f32 = _campaign(dev, top, F32_RUNS, "")
+        codecs = phase_ckpt_codecs(
+            dev, os.path.join(top, "entropy", "entropy", "curr_weights.npz"),
+            top)
+        bf16 = _campaign(dev, os.path.join(top, "bf16"), BF16_RUNS, "bf16/")
+        return f32, bf16, codecs
     finally:
         shutil.rmtree(top, ignore_errors=True)
 
 
-def _campaign(dev, top):
+def _campaign(dev, top, runs, tag):
     counts = {}
     seconds = {}
     phases = {}
     by_method = {}
     ops.reset_launch_counts()
-    for method in METHODS:
+    for method, overrides in runs:
         root = os.path.join(top, method)
         k1_0 = ops.similarity.KERNEL.launches
         k2_0 = ops.gather.KERNEL.launches
         t0 = time.perf_counter()
-        res = do_expr(root, method, 128,
-                      OVERRIDES_FI if method == "fi" else OVERRIDES,
-                      synthetic=True, device=str(dev))
-        seconds[method] = time.perf_counter() - t0
+        res = do_expr(root, method, 128, overrides, synthetic=True,
+                      device=str(dev))
+        seconds[tag + method] = time.perf_counter() - t0
         init_pool = np.loadtxt(os.path.join(root, "init_pool_inds.txt"),
                                dtype=np.int64)
         train, pool = res["train_inds"], res["pool_inds"]
@@ -935,47 +1110,274 @@ def _campaign(dev, top):
         check(len(init_pool) == 65536, f"pool size {len(init_pool)}")
         check(len(res["perf"]) == 2 and res["n_queries"]
               == sum(len(q) for q in picks),
-              f"{method}: {res['n_queries']} queries, "
+              f"{tag}{method}: {res['n_queries']} queries, "
               f"{len(res['perf'])} rounds")
         if method == "fi":
             # the PMF is drawn with replacement and deduplicated
             check(all(1 <= len(q) <= 64 and len(set(q.tolist())) == len(q)
                       for q in picks),
-                  f"fi: picks per round {[len(q) for q in picks]}")
+                  f"{tag}fi: picks per round {[len(q) for q in picks]}")
         else:
-            check(res["n_queries"] == 128, f"{method}: "
+            check(res["n_queries"] == 128, f"{tag}{method}: "
                   f"{res['n_queries']} queries")
         n_lab = 256 + res["n_queries"]
         check(len(train) == n_lab and len(set(train.tolist())) == n_lab,
-              f"{method}: labeled set has {len(train)} entries")
+              f"{tag}{method}: labeled set has {len(train)} entries")
         check(not set(train.tolist()) & set(pool.tolist())
               and set(train.tolist()) | set(pool.tolist())
-              == set(init_pool.tolist()), f"{method}: membership broken")
+              == set(init_pool.tolist()), f"{tag}{method}: membership broken")
         check(bool(np.isfinite(res["perf"]).all()),
-              f"{method}: non-finite F {res['perf']}")
+              f"{tag}{method}: non-finite F {res['perf']}")
         dk1 = ops.similarity.KERNEL.launches - k1_0
         dk2 = ops.gather.KERNEL.launches - k2_0
-        by_method[method] = {"rowmax_similarity": dk1,
-                             "gather_patches_normalized": dk2}
-        check(dk2 >= 2, f"{method}: K2 launched {dk2} times in finetune")
+        by_method[tag + method] = {"rowmax_similarity": dk1,
+                                   "gather_patches_normalized": dk2}
+        check(dk2 >= 2, f"{tag}{method}: K2 launched {dk2} times in "
+              "finetune")
         if method == "core-set":
-            check(dk1 >= 2, f"core-set: K1 launched {dk1} times")
+            check(dk1 >= 2, f"{tag}core-set: K1 launched {dk1} times")
         with open(os.path.join(root, method, "phases.jsonl")) as f:
-            phases[method] = [json.loads(line) for line in f]
+            phases[tag + method] = [json.loads(line) for line in f]
+        rounds = [r for r in phases[tag + method] if not r.get("tail")]
+        check(len(rounds) == 2, f"{tag}{method}: phases rows {rounds}")
         if method == "fi":
             # 2 candidate gathers and 2 finetunes
-            check(dk2 >= 4, f"fi: K2 launched {dk2} times")
-            check(all(FI_SUBS <= set(r.get("sub", {}))
-                      for r in phases[method]),
-                  f"fi: sub spans missing from phases.jsonl: "
-                  f"{[r.get('sub') for r in phases[method]]}")
-        print(f"campaign {method}: F per round {res['perf'].tolist()}, "
+            check(dk2 >= 4, f"{tag}fi: K2 launched {dk2} times")
+            check(all(FI_SUBS <= set(r.get("sub", {})) for r in rounds),
+                  f"{tag}fi: sub spans missing from phases.jsonl: "
+                  f"{[r.get('sub') for r in rounds]}")
+        if tag:
+            # anchors every 2 rounds: the round-2 save, no loop-end save
+            with np.load(os.path.join(root, method, "curr_weights.npz")) \
+                    as z:
+                al = json.loads(z["__al_state__"].tobytes().decode())
+                mark = "@i8" if "ckpt_dtype=int8" in overrides else "@bf16"
+                check(al["round"] == 2 and any(k.endswith(mark)
+                                               for k in z.files),
+                      f"{tag}{method}: anchor {al}, keys {z.files[:4]}")
+        print(f"campaign {tag}{method}: F per round {res['perf'].tolist()}, "
               f"picks per round {[len(q) for q in picks]}, "
-              f"{seconds[method]:.3f} s, K1 +{dk1}, K2 +{dk2}")
+              f"{seconds[tag + method]:.3f} s, K1 +{dk1}, K2 +{dk2}")
     for k in ops.KERNELS:
         counts[k.name] = k.launches
-        check(k.launches > 0, f"{k.name} never launched in the campaign")
+        check(k.launches > 0,
+              f"{k.name} never launched in the {tag or 'f32/'} campaign")
     return counts, phases, seconds, by_method
+
+
+def numpy_bf16_round_trip(a):
+    """f32 -> bf16 (round to nearest even) -> f32 in numpy integer ops."""
+    b = a.view(np.uint32).astype(np.uint64)
+    return ((((b + 0x7FFF + ((b >> 16) & 1)) >> 16) << 16)
+            .astype(np.uint32).view(np.float32))
+
+
+def numpy_int8_round_trip(a):
+    """The JAX package's host int8 encode (``checkpoint.py:119-127``, per
+    last axis of the JAX layout), decoded."""
+    s = (np.max(np.abs(a), axis=tuple(range(a.ndim - 1)), keepdims=True)
+         / np.float32(127.0)).astype(np.float32)
+    safe = np.where(s > 0, s, np.float32(1.0))
+    q = np.clip(np.round(a / safe), -127, 127).astype(np.int8)
+    return q.astype(np.float32) * s
+
+
+def phase_ckpt_codecs(dev, path, top):
+    """The anchor codecs on the f32 campaign's PW1 state, Adam moments
+    included: ``round_trip_bf16`` / ``round_trip_int8`` on the card
+    (port layout) bit-equal to the numpy encode-decode (JAX layout), the
+    card's file encode bit-equal to the host's, and the seconds and bytes
+    of one engine-style save (device snapshot, encode, pull, write) at
+    f32, bf16 and int8."""
+    params, _, _, _ = ckpt.load_checkpoint(path)
+    spec = create_pw1(2, 0.5, (25, 25, 2))
+    model = CNN(spec)
+    model.load_state_dict(from_jax_params(params))
+    model = model.to(dev)
+    opt = make_optimizer("Adam", 1e-3, model.parameters())
+    load_opt_state(opt, model, ckpt.load_opt_leaves(path))
+    check(len(opt.state) == len(list(model.parameters())),
+          "the campaign's checkpoint carries no Adam moments")
+    mism = []
+    for name, p in model.named_parameters():
+        tensors = {"": p.detach()}
+        tensors.update({k: opt.state[p][k] for k in ("exp_avg",
+                                                     "exp_avg_sq")})
+        for what, t in tensors.items():
+            host = to_jax_params({name: t.cpu()})
+            (layer, kv), = host.items()
+            (kind, arr), = kv.items()
+            card = to_jax_params({name: ckpt.round_trip_bf16(t)})
+            want = numpy_bf16_round_trip(arr)
+            if not np.array_equal(card[layer][kind].view(np.uint32),
+                                  want.view(np.uint32)):
+                mism.append(f"bf16 {name} {what}")
+            if what == "" and t.dim() >= 2:
+                card = to_jax_params({name: ckpt.round_trip_int8(t, 0)})
+                want = numpy_int8_round_trip(arr)
+                if not np.array_equal(card[layer][kind].view(np.uint32),
+                                      want.view(np.uint32)):
+                    mism.append(f"int8 {name}")
+    check(not mism, f"codec round trips card vs numpy differ: {mism}")
+    res = {}
+    sd = model.state_dict()
+    for dt in ("float32", "bfloat16", "int8"):
+        f = os.path.join(top, f"codec_{dt}.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(f, to_jax_tensors(sd), al_state={"round": 1},
+                             opt_state=opt_state_tensors(opt, model),
+                             dtype=dt)
+        res[dt] = {"seconds": time.perf_counter() - t0,
+                   "bytes": os.path.getsize(f)}
+        if dt != "float32":
+            h = os.path.join(top, f"codec_{dt}_host.npz")
+            ckpt.save_checkpoint(h, to_jax_params(sd),
+                                 al_state={"round": 1},
+                                 opt_state=opt_state_leaves(opt, model),
+                                 dtype=dt)
+            with np.load(f) as a, np.load(h) as b:
+                check(sorted(a.files) == sorted(b.files) and all(
+                    np.array_equal(a[k], b[k]) for k in a.files),
+                      f"{dt}: the card's file encode differs from the host's")
+            os.remove(h)
+        os.remove(f)
+    f = os.path.join(top, "codec_int8_noopt.npz")
+    t0 = time.perf_counter()
+    ckpt.save_checkpoint(f, to_jax_tensors(sd), dtype="int8")
+    res["int8_opt_reset_per_round"] = {"seconds": time.perf_counter() - t0,
+                                       "bytes": os.path.getsize(f)}
+    os.remove(f)
+    print(f"ckpt codecs ok: round trips card == numpy on "
+          f"{len(list(model.parameters()))} tensors and their moments; "
+          f"saves {json.dumps(res)}")
+    return res
+
+
+def phase_determinism_cost(dev, n=384, reps=7):
+    """What the finetune's deterministic cuDNN costs: one campaign
+    round's finetune (384 labeled PW1 25x25x2 patches, b 128, Adam, the
+    bucket's step count) timed with ``deterministic_cudnn()`` and with
+    cuDNN's default choice, interleaved, f32 and bf16; medians of the
+    repetitions after the first."""
+    spec = create_pw1(2, 0.5, (25, 25, 2))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(n, 25, 25, 2, device=dev, generator=gen)
+    y = torch.eye(2, device=dev)[torch.randint(0, 2, (n,), device=dev,
+                                               generator=gen)]
+    idx_mat, w_mat = build_batch_index_matrix(n, 128, 1,
+                                              np.random.default_rng(0))
+    res = {}
+    for cd in (None, torch.bfloat16):
+        states = {det: init_train_state(init_cnn(spec, 0, dev), "Adam",
+                                        1e-3) for det in (False, True)}
+        times = {False: [], True: []}
+        for _ in range(reps):
+            for det in (False, True):
+                ctx = (deterministic_cudnn() if det else
+                       torch.backends.cudnn.flags(
+                           enabled=True, benchmark=False,
+                           deterministic=False, allow_tf32=False))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with ctx:
+                    finetune_steps(states[det], x, y, idx_mat, w_mat,
+                                   torch.ones(2, device=dev), gen,
+                                   compute_dtype=cd)
+                torch.cuda.synchronize()
+                times[det].append(time.perf_counter() - t0)
+        name = "float32" if cd is None else "bfloat16"
+        res[name] = {"default_s": float(np.median(times[False][1:])),
+                     "deterministic_s": float(np.median(times[True][1:])),
+                     "steps": int((w_mat.sum(1) > 0).sum())}
+    print(f"finetune determinism cost: {json.dumps(res)}")
+    return res
+
+
+def _suppressed_resume_writes(orig):
+    """``save_checkpoint`` with the resume point's writes dropped — what a
+    crash before them leaves on disk."""
+    dropped = []
+
+    def patched(path, *a, **kw):
+        if os.path.basename(path) == "curr_weights.npz":
+            dropped.append(path)
+            return None
+        return orig(path, *a, **kw)
+
+    return patched, dropped
+
+
+def phase_resume(dev):
+    """resume == continue on the card (``tests/test_ckpt_every.py``): a
+    4-round random campaign with int8 anchors every 3 rounds runs once
+    uninterrupted; a second run loses its resume-point writes for 3
+    rounds (the round-3 anchor was adopted live but never landed), then a
+    fresh ``PWExperiment`` replays from the initial weights to round 4.
+    The final ``curr_weights.npz``, the query journal and
+    ``perf_evals.txt`` must be bit-identical."""
+    top = os.path.join(ROOT, "_smoke_expr", "resume")
+    shutil.rmtree(top, ignore_errors=True)
+    vols, mask = synthetic_subject(shape=SHAPE, n_modalities=2, n_blobs=3,
+                                   seed=0)
+    cfg_pars = set_parameters(DEFAULT_PARS, RESUME_OVERRIDES)
+
+    def fresh(root):
+        expr = pw_experiment.PWExperiment(
+            root, ExperimentConfig.from_pars(cfg_pars), device=dev)
+        expr.attach_subject(vols, mask)
+        return expr
+
+    def artifacts(root):
+        mdir = os.path.join(root, "random")
+        qdir = os.path.join(mdir, "queries")
+        with np.load(os.path.join(mdir, "curr_weights.npz")) as z:
+            w = {k: z[k] for k in z.files}
+        with open(os.path.join(mdir, "perf_evals.txt")) as f:
+            ev = f.read()
+        q = {n: open(os.path.join(qdir, n)).read()
+             for n in sorted(os.listdir(qdir))}
+        return w, q, ev
+
+    try:
+        t0 = time.perf_counter()
+        a = fresh(os.path.join(top, "a"))
+        a.prep_data()
+        a.add_method("random")
+        a.run_method("random", 256)
+        a_s = time.perf_counter() - t0
+        b = fresh(os.path.join(top, "b"))
+        b.prep_data()
+        b.add_method("random")
+        orig = pw_experiment.save_checkpoint
+        pw_experiment.save_checkpoint, dropped = \
+            _suppressed_resume_writes(orig)
+        try:
+            b.run_method("random", 192)
+        finally:
+            pw_experiment.save_checkpoint = orig
+        check(len(dropped) == 1, f"resume: dropped writes {dropped}")
+        t0 = time.perf_counter()
+        fresh(os.path.join(top, "b")).run_method("random", 256)
+        resume_s = time.perf_counter() - t0
+        wa, qa, ea = artifacts(os.path.join(top, "a"))
+        wb, qb, eb = artifacts(os.path.join(top, "b"))
+        diff = sorted(k for k in set(wa) | set(wb)
+                      if k not in wa or k not in wb
+                      or wa[k].dtype != wb[k].dtype
+                      or not np.array_equal(wa[k], wb[k]))
+        res = {"rounds": 4, "ckpt_full_every": 3, "ckpt_dtype": "int8",
+               "entries": len(wa), "differing_entries": diff,
+               "queries_equal": qa == qb, "perf_evals_equal": ea == eb,
+               "uninterrupted_s": a_s, "resume_with_replay_s": resume_s,
+               "al_state": json.loads(wa["__al_state__"].tobytes().decode())}
+        check(not diff and qa == qb and ea == eb and len(qa) == 4
+              and any(k.endswith("@i8") for k in wa),
+              f"resume != continue on the card: {res}")
+        print(f"resume == continue ok: {json.dumps(res)}")
+        return res
+    finally:
+        shutil.rmtree(top, ignore_errors=True)
 
 
 def main() -> int:
@@ -1005,11 +1407,23 @@ def main() -> int:
 
     rows = [phase_k1(dev), phase_k2(dev)]
     phase_forward(dev)
+    bf16_fwd = phase_bf16_forward(dev)
     fim = phase_fim_parity(dev)
-    sweep = phase_fim_sweep(dev)
-    counts, phases, seconds, by_method = phase_campaign(dev)
+    sweep, unc32 = phase_fim_sweep(dev)
+    sweep16, _ = phase_fim_sweep(dev, cd=torch.bfloat16, ref_unc=unc32)
+    del unc32
+    f32, bf16, codecs = phase_campaign(dev)
+    resume = phase_resume(dev)
+    determinism = phase_determinism_cost(dev)
+    phases, seconds, by_method = {}, {}, {}
+    for _, ph, sec, bym in (f32, bf16):
+        phases.update(ph)
+        seconds.update(sec)
+        by_method.update(bym)
     for r in rows:
-        r["launches"] = counts[r["name"]]
+        r["launches"] = f32[0][r["name"]] + bf16[0][r["name"]]
+        r["launches_f32_campaign"] = f32[0][r["name"]]
+        r["launches_bf16_campaign"] = bf16[0][r["name"]]
         r["launches_by_method"] = {m: c[r["name"]]
                                    for m, c in by_method.items()}
         r["kernel_ms"], r["max_err"] = r["ms"], r["max_abs_err"]
@@ -1018,7 +1432,10 @@ def main() -> int:
                       "build_s_per_kernel": {k.name: k.build_s
                                              for k in ops.KERNELS},
                       "k1_sass": sass, "fim_parity": fim,
-                      "fim_sweep": sweep}))
+                      "fim_sweep": sweep, "fim_sweep_bf16": sweep16,
+                      "bf16_forward": bf16_fwd, "ckpt_codecs": codecs,
+                      "resume": resume,
+                      "finetune_determinism": determinism}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

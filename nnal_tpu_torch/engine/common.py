@@ -4,7 +4,11 @@ The resume arithmetic (``replay_prefix_lens``, ``reconcile_membership``)
 is copied as is, so a crash-resumed port campaign replays exactly like a
 JAX one.  ``check_slice_config`` rejects the configuration keys whose
 code paths this slice of the port does not carry, naming the key, rather
-than ignoring them.
+than ignoring them, and dtype strings the JAX package rejects.  The anchor
+levers (``anchor_dtype``, ``adopt_anchor_rounding``,
+``anchor_save_kwargs``) are ``engine/common.py:52-111`` on the port's
+``TrainState`` (an ``nn.Module`` and a ``torch.optim`` optimizer, updated
+in place).
 """
 
 from __future__ import annotations
@@ -13,13 +17,21 @@ import os
 from typing import List
 
 import numpy as np
+import torch
 
 from nnal_tpu_torch.core.journal import load_inds
+from nnal_tpu_torch.models.bridge import to_jax_tensors
+from nnal_tpu_torch.models.checkpoint import round_trip_bf16, round_trip_int8
+from nnal_tpu_torch.models.optim import opt_state_tensors
+from nnal_tpu_torch.scoring.pool_eval import eval_compute_dtype
+
+ANCHOR_DTYPES = ("float32", "bfloat16", "int8")
 
 
 def check_slice_config(cfg) -> None:
     """Raise ``NotImplementedError`` naming the first config key that
-    selects a path the port does not have yet."""
+    selects a path the port does not have yet, and ``ValueError`` for a
+    ``dtype`` / ``train_dtype`` / ``ckpt_dtype`` the JAX package rejects."""
     m, q = cfg.model, cfg.query
     unsupported = [
         ("data_parallel", int(getattr(q, "data_parallel", 1)) > 1),
@@ -28,20 +40,18 @@ def check_slice_config(cfg) -> None:
         ("lwf_lambda (LwF)", float(getattr(m, "lwf_lambda", 0.0)) > 0.0),
         ("aleatoric", bool(getattr(m, "aleatoric", False))),
         ("train_layers", bool(getattr(m, "train_layers", None))),
-        ("ckpt_dtype", str(getattr(m, "ckpt_dtype", "float32"))
-         != "float32"),
-        ("ckpt_full_every", int(getattr(m, "ckpt_full_every", 1)) > 1),
         ("model_name (dense fcn specs)",
          m.model_name in ("Tiramisu", "FCDenseNet103")),
-        ("dtype", str(getattr(m, "dtype", "float32")) != "float32"),
-        ("train_dtype", str(getattr(m, "train_dtype", "float32"))
-         != "float32"),
         ("tb_logdir", bool(getattr(cfg, "tb_logdir", None))),
     ]
     for key, bad in unsupported:
         if bad:
             raise NotImplementedError(
                 f"config key {key} is not supported by the PyTorch port yet")
+    # the dtype strings: raise where the JAX package would, but up front
+    eval_compute_dtype(getattr(m, "dtype", None))
+    eval_compute_dtype(getattr(m, "train_dtype", None))
+    anchor_dtype(m)
 
 
 def replay_prefix_lens(j, al_state, round_id: int, n_train: int) -> List[int]:
@@ -62,6 +72,56 @@ def replay_prefix_lens(j, al_state, round_id: int, n_train: int) -> List[int]:
         n += c
         lens.append(n)
     return lens[anchor:round_id]
+
+
+def anchor_dtype(model_cfg) -> str:
+    """``ckpt_dtype``: the storage dtype of the resume-point saves."""
+    dt = str(getattr(model_cfg, "ckpt_dtype", "float32"))
+    if dt not in ANCHOR_DTYPES:
+        raise ValueError(f"unsupported ckpt_dtype {dt!r}")
+    return dt
+
+
+@torch.no_grad()
+def adopt_anchor_rounding(state, model_cfg) -> bool:
+    """Round the live parameters (and, unless ``opt_reset_per_round``, the
+    Adam moments) in place to what the anchor stores, right before a full
+    save at ``ckpt_dtype`` bfloat16 or int8: the file then decodes to
+    exactly the state the uninterrupted process trains on, so resume ==
+    continue bit for bit.  bfloat16 rounds every tensor; int8
+    quantize-dequantizes each weight matrix per output channel or feature
+    (axis 0 here, the JAX layout's last axis) and rounds biases and moments
+    to bf16, the save encoder's per-group rule.  Capture the save's payload
+    first (:func:`anchor_save_kwargs`): int8's encode is not idempotent, so
+    the save must encode the originals.  Returns True when it rounded."""
+    dt = anchor_dtype(model_cfg)
+    if dt == "float32":
+        return False
+    for p in state.model.parameters():
+        if dt == "int8" and p.dim() >= 2:
+            p.copy_(round_trip_int8(p, 0))
+        else:
+            p.copy_(round_trip_bf16(p))
+    if not getattr(model_cfg, "opt_reset_per_round", False):
+        for st in state.optimizer.state.values():
+            for key in ("exp_avg", "exp_avg_sq"):
+                if key in st:
+                    st[key].copy_(round_trip_bf16(st[key]))
+    return True
+
+
+def anchor_save_kwargs(model_cfg, state) -> dict:
+    """The resume-point save's payload under the anchor levers, captured
+    now (before :func:`adopt_anchor_rounding`): JAX-layout copies of the
+    parameters and, unless ``opt_reset_per_round``, the Adam state, on the
+    model's device, plus the storage dtype.  The copies are a snapshot, so
+    a background writer may encode and pull them while the next round
+    updates the live tensors."""
+    include_opt = not getattr(model_cfg, "opt_reset_per_round", False)
+    return {"params": to_jax_tensors(state.model.state_dict()),
+            "opt_state": (opt_state_tensors(state.optimizer, state.model)
+                          if include_opt else None),
+            "dtype": anchor_dtype(model_cfg)}
 
 
 def reconcile_membership(j, train_inds, pool_inds):

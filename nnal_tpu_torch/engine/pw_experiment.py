@@ -9,7 +9,18 @@ and ``curr_weights.npz`` — the JAX package's layout, so either package can
 read the other's experiment directories.  The AL loop per round: query ->
 move queries from pool to train -> finetune -> predict test -> append
 F-measure -> checkpoint.  Resume replays the ``queries/`` journal plus
-``state.json``.  Checkpoints are written synchronously.
+``state.json``.
+
+``model.dtype`` / ``train_dtype`` bfloat16 run the sweeps / the finetune in
+bf16 (f32 accumulation, f32 master weights); fi's A-matrices stay f32.
+The resume point is written every ``ckpt_full_every`` rounds (and at the
+end of a run) at ``ckpt_dtype``, after adopting that dtype's rounding into
+the live state; a crash between anchors replays the journaled finetunes,
+re-adopting at the anchor rounds.  ``async_checkpoint`` writes from a
+background thread a device snapshot taken at the save, and waits for it
+right after the next round's ``score_select`` (nothing before that point
+mutates the weights).  The card's finetune runs with deterministic cuDNN
+algorithms, which replay's bit-identity needs.
 
 Runs on ``device`` (default: the card; CUDA missing raises).
 """
@@ -24,7 +35,11 @@ import numpy as np
 import torch
 
 from nnal_tpu_torch.core.config import ExperimentConfig
-from nnal_tpu_torch.core.device import resolve_device, set_precision
+from nnal_tpu_torch.core.device import (
+    deterministic_cudnn,
+    resolve_device,
+    set_precision,
+)
 from nnal_tpu_torch.core.journal import MethodJournal, load_inds, save_inds
 from nnal_tpu_torch.core.profiling import PhaseTimer
 from nnal_tpu_torch.core.rng import RngStream
@@ -40,6 +55,8 @@ from nnal_tpu_torch.data.samplers import (
 )
 from nnal_tpu_torch.data.stats import multimg_stats
 from nnal_tpu_torch.engine.common import (
+    adopt_anchor_rounding,
+    anchor_save_kwargs,
     check_slice_config,
     inverse_frequency_weights,
     reconcile_membership,
@@ -48,12 +65,13 @@ from nnal_tpu_torch.engine.common import (
 from nnal_tpu_torch.evaluation.metrics import f_measure
 from nnal_tpu_torch.models.bridge import from_jax_params, to_jax_params
 from nnal_tpu_torch.models.checkpoint import (
+    AsyncCheckpointWriter,
     load_checkpoint,
     load_opt_leaves,
     save_checkpoint,
 )
 from nnal_tpu_torch.models.cnn import CNN, init_cnn
-from nnal_tpu_torch.models.optim import load_opt_state, opt_state_leaves
+from nnal_tpu_torch.models.optim import load_opt_state
 from nnal_tpu_torch.models.specs import create_model
 from nnal_tpu_torch.models.train import (
     TrainState,
@@ -62,6 +80,7 @@ from nnal_tpu_torch.models.train import (
     init_train_state,
 )
 from nnal_tpu_torch.scoring.grid_eval import GridPoolEvaluator
+from nnal_tpu_torch.scoring.pool_eval import eval_compute_dtype
 from nnal_tpu_torch.scoring.strategies import QueryContext, cnn_query
 
 
@@ -150,7 +169,8 @@ class PWExperiment:
             spec, self.padded(), mu, sd, tuple(self.config.model.patch_shape),
             tuple(self._load_subject()[0][0].shape),
             grid_spacing=self.config.data.grid_spacing,
-            ntb=self.config.query.ntb)
+            ntb=self.config.query.ntb,
+            compute_dtype=eval_compute_dtype(self.config.model.dtype))
 
     def _load_model(self, spec, params) -> CNN:
         model = CNN(spec)
@@ -218,15 +238,58 @@ class PWExperiment:
         cw_vec = (torch.ones(m.nclass) if cw is None
                   else torch.as_tensor(np.asarray(cw, np.float32))).to(dev)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        finetune_steps(state, x_all, y_all, idx_mat, w_mat, cw_vec, gen)
+        with deterministic_cudnn():
+            finetune_steps(state, x_all, y_all, idx_mat, w_mat, cw_vec, gen,
+                           compute_dtype=eval_compute_dtype(m.train_dtype))
         return state
 
     def _replay_to_round(self, j, state, al_state, train_inds, round_id):
         """Re-run the finetunes of journaled rounds the checkpoint does not
-        hold yet (a crash between the query journal and the save)."""
-        for ln in replay_prefix_lens(j, al_state, round_id, len(train_inds)):
+        hold (an anchor from an earlier round, or a crash between the query
+        journal and the save).  The live process adopted the anchor dtype's
+        rounding at every anchor round, so replay re-applies it at the same
+        rounds (``pw_experiment.py:515-540``)."""
+        K = max(1, int(getattr(self.config.model, "ckpt_full_every", 1)))
+        anchor = (0 if al_state is None
+                  else int(al_state.get("round", round_id)))
+        for i, ln in enumerate(replay_prefix_lens(j, al_state, round_id,
+                                                  len(train_inds))):
             state = self.finetune(state, train_inds[:ln])
+            if (anchor + i + 1) % K == 0:
+                adopt_anchor_rounding(state, self.config.model)
         return state
+
+    def _save_resume_point(self, ckpt, state, round_id, writer=None):
+        """Capture the payload, adopt the anchor rounding into the live
+        state, then save the captured originals (``:695-733``) — from
+        ``writer``'s thread when given.  On the card the thread pulls on a
+        stream of its own, after an event that orders it behind the
+        snapshot's copies."""
+        m = self.config.model
+        akw = anchor_save_kwargs(m, state)
+        adopt_anchor_rounding(state, m)
+        al = {"step": int(state.step), "round": int(round_id)}
+
+        def _save():
+            save_checkpoint(ckpt, akw["params"], al_state=al,
+                            opt_state=akw["opt_state"], dtype=akw["dtype"])
+
+        if writer is None:
+            _save()
+            return
+        if self.device.type != "cuda":
+            writer.submit(_save)
+            return
+        ready = torch.cuda.Event()
+        ready.record()
+
+        def _save_on_side_stream():
+            side = torch.cuda.Stream(self.device)
+            side.wait_event(ready)
+            with torch.cuda.stream(side):
+                _save()
+
+        writer.submit(_save_on_side_stream)
 
     # ------------------------------------------------------------- AL loop
     def run_method(self, method_name: str, max_queries: int) -> Dict:
@@ -268,6 +331,11 @@ class PWExperiment:
                                       round_id)
 
         timer = PhaseTimer(j.path("phases.jsonl"), self.device)
+        writer = (AsyncCheckpointWriter()
+                  if getattr(cfg.model, "async_checkpoint", False) else None)
+        K = max(1, int(getattr(cfg.model, "ckpt_full_every", 1)))
+        # the entry state is reproducible as is (anchor or replay above)
+        last_full_round = round_id
         # pool guard: an exhausted pool would yield k=0 rounds forever
         while n_queries < max_queries and len(pool_inds) > 0:
             t0 = time.time()
@@ -287,6 +355,11 @@ class PWExperiment:
                                train_inds=train_inds)
             with timer.phase("score_select"):
                 q_pos = cnn_query(ctx, method_name)
+            if writer is not None:
+                with timer.phase("checkpoint"):
+                    # the previous round's save overlapped the scoring; it
+                    # must be durable before this round writes any state
+                    writer.wait()
             q_inds = pool_inds[q_pos]
 
             # bookkeeping: journal then membership (replayable order)
@@ -310,15 +383,27 @@ class PWExperiment:
                 f.write(f"{round_id - 1} {dt:.3f}\n")
 
             with timer.phase("checkpoint"):
-                save_checkpoint(ckpt, to_jax_params(model.state_dict()),
-                                al_state={"step": int(state.step),
-                                          "round": round_id},
-                                opt_state=opt_state_leaves(state.optimizer,
-                                                           model))
+                # anchor rounds write the full resume point; in between,
+                # ckpt_full_every > 1 skips the save (resume replays the
+                # journaled finetunes from the anchor)
+                if round_id % K == 0:
+                    self._save_resume_point(ckpt, state, round_id, writer)
+                    last_full_round = round_id
             timer.commit_round(round_id - 1, n_train=len(train_inds),
                                n_pool=len(pool_inds), f_measure=fm)
             j.save_state(round_id=round_id, rng_state=self.rng.state(),
                          n_train=len(train_inds), n_pool=len(pool_inds))
+
+        with timer.phase("checkpoint"):
+            if writer is not None:
+                writer.wait()     # the last round's save must land
+            if last_full_round != round_id:
+                # a finished run always leaves a full resume point, so
+                # readers see the final weights and a later run_method
+                # resumes without replay
+                self._save_resume_point(ckpt, state, round_id)
+        if timer.current:
+            timer.commit_round(round_id - 1, tail=True)
         return {
             "n_queries": n_queries,
             "train_inds": train_inds,

@@ -24,14 +24,6 @@ def _w_to_port(w: np.ndarray) -> np.ndarray:
     raise ValueError(f"unsupported weight rank {w.ndim}")
 
 
-def _w_to_jax(w: np.ndarray) -> np.ndarray:
-    if w.ndim == 4:                      # OIHW -> HWIO
-        return w.transpose(2, 3, 1, 0)
-    if w.ndim == 2:
-        return w.T
-    raise ValueError(f"unsupported weight rank {w.ndim}")
-
-
 def from_jax_params(np_params: Mapping[str, Mapping[str, np.ndarray]]
                     ) -> Dict[str, torch.Tensor]:
     """JAX-layout params -> a ``state_dict`` for :class:`models.cnn.CNN`."""
@@ -50,19 +42,32 @@ def from_jax_params(np_params: Mapping[str, Mapping[str, np.ndarray]]
     return out
 
 
-def to_jax_params(state: Mapping[str, torch.Tensor]
-                  ) -> Dict[str, Dict[str, np.ndarray]]:
-    """A port ``state_dict`` (or any mapping shaped like one, e.g. Adam
-    moments keyed the same way) -> JAX-layout numpy params."""
-    out: Dict[str, Dict[str, np.ndarray]] = {}
+def to_jax_tensors(state: Mapping[str, torch.Tensor]
+                   ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Like :func:`to_jax_params`, but each leaf stays a tensor where it
+    lives: a contiguous JAX-layout copy, detached — a snapshot that later
+    in-place updates of ``state`` do not reach."""
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
     for key, t in state.items():
         layer, _, kind = key.rpartition(".")
-        a = t.detach().to("cpu", torch.float32).numpy()
+        t = t.detach()
         if kind == "weight":
-            out.setdefault(layer, {})["W"] = np.ascontiguousarray(
-                _w_to_jax(a))
+            w = (t.permute(2, 3, 1, 0) if t.dim() == 4 else t.t()
+                 if t.dim() == 2 else None)
+            if w is None:
+                raise ValueError(f"unsupported weight rank {t.dim()}")
+            out.setdefault(layer, {})["W"] = w.contiguous()
         elif kind == "bias":
-            out.setdefault(layer, {})["b"] = a.copy()
+            out.setdefault(layer, {})["b"] = t.clone()
         else:
             raise ValueError(f"unexpected state key {key!r}")
     return out
+
+
+def to_jax_params(state: Mapping[str, torch.Tensor]
+                  ) -> Dict[str, Dict[str, np.ndarray]]:
+    """A port ``state_dict`` (or any mapping shaped like one, e.g. Adam
+    moments keyed the same way) -> JAX-layout float32 numpy params."""
+    return {layer: {k: v.to("cpu", torch.float32).numpy()
+                    for k, v in d.items()}
+            for layer, d in to_jax_tensors(state).items()}

@@ -16,7 +16,13 @@ Semantics kept from the JAX package:
   channels-last before the first fc;
 * dropout (drop probability) follows every layer with ``dropout > 0`` —
   for PW1 fc1, fc2 and the linear head fc3 — when ``train`` and a
-  generator are given; ``feature`` is the feature layer's output after it.
+  generator are given; ``feature`` is the feature layer's output after it;
+* the compute dtype is the input's (``apply_cnn(compute_dtype=...)`` casts
+  the input, ``cnn.py:193-194``).  A bf16 input runs every conv and fc on
+  bf16 operands (weights and biases cast per call) with an f32 result, adds
+  the bias in f32 and rounds once to bf16 (``_main_op``, ``cnn.py:329-367``);
+  activations, max-pool and dropout run in bf16, and the logits are upcast
+  to f32 before softmax and argmax (``cnn.py:247``).
 """
 
 from __future__ import annotations
@@ -43,6 +49,53 @@ class CNNOutput:
 
 _ACTS = {"relu": F.relu, "elu": F.elu, "tanh": torch.tanh, "gelu": F.gelu,
          "identity": lambda x: x}
+
+
+def conv2d_f32acc(h, W, stride, padding) -> torch.Tensor:
+    """``conv(h, W)`` of same-dtype low-precision operands with an f32
+    result — ``make_conv_f32acc`` (``cnn.py:265-300``).  That custom VJP
+    exists only to make JAX's transpose legal; here the backward is
+    autograd's, and it gets a bf16 cotangent as that VJP arranges.  On the
+    host the operands are upcast: bf16 x bf16 products are exact in f32,
+    so this is f32 accumulation rounded once, the JAX semantics.  On the
+    card cuDNN runs bf16 on the tensor cores with f32 accumulation and
+    returns bf16, so the sum is rounded before the caller adds its bias
+    (a second rounding; ROADMAP Queue 3)."""
+    if h.device.type == "cuda":
+        return F.conv2d(h, W, None, stride, padding).float()
+    return F.conv2d(h.float(), W.float(), None, stride, padding)
+
+
+class _MmF32Acc(torch.autograd.Function):
+    """``torch.mm(h, W.T, out_dtype=f32)`` — bf16 operands, cuBLAS's f32
+    accumulator written out, one rounding fewer than a bf16 GEMM plus an
+    f32 bias — with the backward that op lacks in torch 2.11.  The
+    cotangent is cast to the operands' dtype first, as ``make_conv_f32acc``
+    does (``cnn.py:294-297``), then each gradient is one bf16 GEMM; only
+    the gradients autograd asks for are formed."""
+
+    @staticmethod
+    def forward(ctx, h, W):
+        ctx.save_for_backward(h, W)
+        return torch.mm(h, W.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, W = ctx.saved_tensors
+        g = g.to(h.dtype)
+        gh = g @ W if ctx.needs_input_grad[0] else None
+        gW = g.t() @ h if ctx.needs_input_grad[1] else None
+        return gh, gW
+
+
+def linear_f32acc(h, W) -> torch.Tensor:
+    """``h @ W.T`` of same-dtype low-precision operands with an f32 result
+    (``jnp.dot(..., preferred_element_type=f32)``): on the card through
+    :class:`_MmF32Acc`, on the host by upcasting, as in
+    :func:`conv2d_f32acc`."""
+    if h.device.type == "cuda":
+        return _MmF32Acc.apply(h, W)
+    return h.float() @ W.float().t()
 
 
 def _conv_dim(n, k, s, padding):
@@ -114,6 +167,7 @@ class CNN(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 nchw: bool = False) -> CNNOutput:
         h = x if nchw else x.permute(0, 3, 1, 2)
+        dt = h.dtype
         flat = False
         feature = None
         use_dropout = train and generator is not None
@@ -123,7 +177,12 @@ class CNN(nn.Module):
                 pad = self._pads.get(layer.name)
                 if pad is not None:
                     h = F.pad(h, pad)
-                h = mod(h)
+                if dt == torch.float32:
+                    h = mod(h)
+                else:
+                    h = (conv2d_f32acc(h, mod.weight.to(dt), mod.stride,
+                                       mod.padding)
+                         + mod.bias.to(dt)[:, None, None]).to(dt)
             elif layer.kind == "pool":
                 h = F.pad(h, self._pads[layer.name], value=float("-inf"))
                 h = F.max_pool2d(h, layer.ksize, layer.strides)
@@ -131,7 +190,11 @@ class CNN(nn.Module):
                 if not flat:
                     h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
                     flat = True
-                h = mod(h)
+                if dt == torch.float32:
+                    h = mod(h)
+                else:
+                    h = (linear_f32acc(h, mod.weight.to(dt))
+                         + mod.bias.to(dt)).to(dt)
             if layer.kind != "pool" and "A" in layer.op_order:
                 h = self.act(h)
             if layer.dropout > 0 and use_dropout:

@@ -14,7 +14,11 @@ from typing import List
 import numpy as np
 import torch
 
-from nnal_tpu_torch.models.bridge import from_jax_params, to_jax_params
+from nnal_tpu_torch.models.bridge import (
+    from_jax_params,
+    to_jax_params,
+    to_jax_tensors,
+)
 
 
 def make_optimizer(name: str, learning_rate: float, params
@@ -35,10 +39,12 @@ def _ordered(tree):
             for k in sorted(tree[layer])]
 
 
-def opt_state_leaves(optimizer: torch.optim.Optimizer,
-                     model: torch.nn.Module) -> List[np.ndarray]:
+def opt_state_tensors(optimizer: torch.optim.Optimizer,
+                      model: torch.nn.Module) -> list:
     """Optimizer state as optax's leaves: ``[]`` for SGD; for Adam
-    ``[count, *mu, *nu]`` with the moments in JAX layout."""
+    ``[count, *mu, *nu]`` with the moments as JAX-layout copies on the
+    parameters' device (``bridge.to_jax_tensors``) and ``count`` an int32
+    numpy scalar."""
     if isinstance(optimizer, torch.optim.SGD):
         return []
     named = dict(model.named_parameters())
@@ -49,8 +55,15 @@ def opt_state_leaves(optimizer: torch.optim.Optimizer,
     for key in ("exp_avg", "exp_avg_sq"):
         sd = {name: s[key] if key in s else torch.zeros_like(named[name])
               for name, s in st.items()}
-        moments += _ordered(to_jax_params(sd))
+        moments += _ordered(to_jax_tensors(sd))
     return [np.asarray(count, np.int32)] + moments
+
+
+def opt_state_leaves(optimizer: torch.optim.Optimizer,
+                     model: torch.nn.Module) -> List[np.ndarray]:
+    """:func:`opt_state_tensors` pulled to host numpy arrays."""
+    return [v if isinstance(v, np.ndarray) else v.cpu().numpy()
+            for v in opt_state_tensors(optimizer, model)]
 
 
 def load_opt_state(optimizer: torch.optim.Optimizer, model: torch.nn.Module,

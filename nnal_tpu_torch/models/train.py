@@ -9,6 +9,13 @@ step is class-weighted CE, weighted-mean over the batch rows
 steps) are skipped outright — the scan computes them and then discards the
 update, so in both the parameters, Adam's step count and its moments do
 not move.
+
+``compute_dtype=torch.bfloat16`` (``model.train_dtype``) trains mixed
+precision (``train.py:51-62``): f32 master weights and f32 Adam state; each
+step's bf16 copies are made inside the differentiated function
+(``torch.func.functional_call`` over ``p.to(bf16)``), so the gradients
+reach the f32 parameters as f32.  ``torch.autocast`` is not used: it picks
+its own cast points, which would not mirror the JAX casts.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from nnal_tpu_torch.data.batching import gen_batch_inds
 from nnal_tpu_torch.models.losses import masked_cross_entropy
@@ -61,11 +69,22 @@ def build_batch_index_matrix(n: int, batch_size: int, epochs: int, rng,
     return np.stack(rows), np.stack(weights)
 
 
+def cast_for_forward(compute_dtype, model, x):
+    """The forward at ``compute_dtype`` (``_cast_for_forward``): a callable
+    that runs ``model`` on bf16 copies of its parameters and of ``x``, or
+    the model itself at f32."""
+    if compute_dtype is None:
+        return model, x
+    params = {k: p.to(compute_dtype) for k, p in model.named_parameters()}
+    return (lambda xx, **kw: functional_call(model, params, (xx,), kw),
+            x.to(compute_dtype))
+
+
 def finetune_steps(state: TrainState, x_all: torch.Tensor,
                    y_all: torch.Tensor, idx_mat: np.ndarray,
                    w_mat: np.ndarray, class_weights: torch.Tensor,
-                   generator: Optional[torch.Generator] = None
-                   ) -> List[float]:
+                   generator: Optional[torch.Generator] = None,
+                   compute_dtype=None) -> List[float]:
     """Run the index matrix's steps on ``state`` in place.  ``x_all``
     (N, d1, d2, C) and ``y_all`` (N, nclass) one-hots live on the model's
     device; ``generator`` (on that device) drives dropout.  Returns the
@@ -78,7 +97,8 @@ def finetune_steps(state: TrainState, x_all: torch.Tensor,
     losses = []
     for i in np.flatnonzero(w_mat.sum(axis=1) > 0):
         idx = idx_t[i]
-        out = model(x_all[idx], train=True, generator=generator)
+        fwd, x = cast_for_forward(compute_dtype, model, x_all[idx])
+        out = fwd(x, train=True, generator=generator)
         loss = masked_cross_entropy(out.logits, y_all[idx], class_weights,
                                     w_t[i])
         opt.zero_grad(set_to_none=True)

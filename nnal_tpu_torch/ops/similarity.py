@@ -110,6 +110,9 @@ def normalize_rows(F: torch.Tensor) -> torch.Tensor:
 def max_similarity(pool: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     """Normalize + row max: the counterpart of the TPU wrapper
     ``max_similarity``, except that zero rows give 0 here (the clamp of
-    the XLA path) where the TPU wrapper divides by a zero norm."""
-    return rowmax_similarity(normalize_rows(pool.float()).contiguous(),
-                             normalize_rows(ref.float()).contiguous())
+    the XLA path) where the TPU wrapper divides by a zero norm.  Rows are
+    normalized in their own dtype (bf16 features under ``model.dtype:
+    bfloat16``) and handed to K1 as f32, the JAX order
+    (``similarity_pallas.py:111-123``, ``:89-90``)."""
+    return rowmax_similarity(normalize_rows(pool).float().contiguous(),
+                             normalize_rows(ref).float().contiguous())

@@ -20,6 +20,12 @@ ones-filter sees the same SAME padding as the conv, asymmetric where XLA's
 is).  Not ported: the opt-in ``NNAL_CONV1_MM`` first-conv lowering (a TPU
 matrix-unit workaround), ``per_sample_grads``, ``diagonal_fisher`` and
 ``shrink_gradient_pytree`` (ROADMAP Queue 1).
+
+``compute_dtype=torch.bfloat16`` keeps activations in bf16 between layers
+(``gradients.py:85-233``): each layer casts its weight to the activation's
+dtype, the bias stays f32, ``z = conv(h, W) + b + E * (wsum + 1)`` is formed
+in f32 and cast to bf16 before a relu (after any other activation), and
+``wsum`` and the fc row sum are f32.
 """
 
 from __future__ import annotations
@@ -32,9 +38,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from nnal_tpu_torch.data.patches import gather_patches_normalized
-
-_BF16_TODO = ("compute_dtype: bf16 scoring is not ported yet (ROADMAP "
-              "Queue 1 item 2); the port scores in float32")
+from nnal_tpu_torch.models.cnn import conv2d_f32acc, linear_f32acc
 
 
 def grad_param_layers(model) -> List[str]:
@@ -51,13 +55,29 @@ def layer_sizes(model) -> np.ndarray:
                      for n in grad_param_layers(model)])
 
 
-def _eps_layer(model, layer, h, E, li):
+def _cast_act(model, layer, z, cd):
+    """``layer``'s activation with the compute-dtype cast where the JAX
+    package puts it (``gradients.py:85-100``): before a relu (rounding
+    keeps the sign, so relu∘round == round∘relu and the saved residual is
+    bf16), after any other activation."""
+    act = "A" in layer.op_order
+    if cd is None:
+        return model.act(z) if act else z
+    if model.spec.activation == "relu":
+        z = z.to(cd)
+        return model.act(z) if act else z
+    return (model.act(z) if act else z).to(cd)
+
+
+def _eps_layer(model, layer, h, E, li, cd=None):
     """One eps-injected layer on NCHW ``h``; returns ``(h_out, li_out)``.
 
     ``wsum`` (the ones-filter conv, or the row sum of an fc input) is
     computed without autograd: its only path into the gradient is
     ``E * d wsum / dh``, which is exactly zero at E = 0, so dropping it
-    drops one input-gradient conv per layer and changes no value.  The
+    drops one input-gradient conv per layer and changes no value.  It is
+    accumulated in f32 whatever the activations' dtype, as the JAX
+    package's ``preferred_element_type=f32`` ones-filter conv is.  The
     activation is ``model.act``; ``torch.relu``'s backward already keeps
     its output, not its input, which is what the JAX package's
     ``_relu_save_output`` custom VJP arranges."""
@@ -70,25 +90,35 @@ def _eps_layer(model, layer, h, E, li):
         pad = model._pads.get(layer.name)
         if pad is not None:
             h = F.pad(h, pad)
-        z = F.conv2d(h, W, b, mod.stride, mod.padding)
+        if cd is None:
+            z = F.conv2d(h, W, b, mod.stride, mod.padding)
+        else:
+            z = (conv2d_f32acc(h, W.to(h.dtype), mod.stride, mod.padding)
+                 + b[:, None, None])
         with torch.no_grad():
-            ones = torch.ones((1,) + tuple(W.shape[1:]), dtype=h.dtype,
-                              device=h.device)
-            wsum = F.conv2d(h, ones, None, mod.stride, mod.padding)
+            # the window sum over every input channel: the f32 channel sum,
+            # then one 1 -> 1 channel ones conv (a C_in -> 1 conv runs as
+            # an implicit GEMM that wastes almost all of its tile)
+            ones = torch.ones((1, 1) + tuple(W.shape[2:]),
+                              dtype=torch.float32, device=h.device)
+            wsum = F.conv2d(h.sum(1, keepdim=True, dtype=torch.float32),
+                            ones, None, mod.stride, mod.padding)
         z = z + E[:, li].view(-1, 1, 1, 1) * (wsum + 1.0)
     elif layer.kind == "fc":
         if h.dim() > 2:
             # fc layers flatten channels-last, as models/cnn.py does
             h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
-        z = F.linear(h, W, b)
-        s = h.detach().sum(1, keepdim=True)
+        if cd is None:
+            z = F.linear(h, W, b)
+        else:
+            z = linear_f32acc(h, W.to(h.dtype)) + b
+        s = h.detach().float().sum(1, keepdim=True)
         z = z + E[:, li:li + 1] * (s + 1.0)
     else:
         raise NotImplementedError(
             f"eps-injected forward does not support {layer.kind!r}; use "
             "shrunk_class_grads_persample")
-    h = model.act(z) if "A" in layer.op_order else z
-    return h, li + 1
+    return _cast_act(model, layer, z, cd), li + 1
 
 
 def _segments(layers):
@@ -104,16 +134,19 @@ def _segments(layers):
     return segs
 
 
-def _apply_with_eps(model, h, E, remat: bool = False) -> torch.Tensor:
-    """Logits of the eps-injected forward on NCHW ``h`` (see the module
+def _apply_with_eps(model, h, E, remat: bool = False, compute_dtype=None
+                    ) -> torch.Tensor:
+    """f32 logits of the eps-injected forward on NCHW ``h`` (see the module
     docstring).  ``remat=True`` checkpoints each segment that ends at a
     pool, so the backward keeps only the segment inputs and recomputes the
     convolutions inside."""
+    cd = compute_dtype
+    h = h if cd is None else h.to(cd)
     li = 0
     for seg in _segments(model.spec.layers):
         def run(hh, EE, _seg=tuple(seg), _li=li):
             for layer in _seg:
-                hh, _li = _eps_layer(model, layer, hh, EE, _li)
+                hh, _li = _eps_layer(model, layer, hh, EE, _li, cd)
             return hh
 
         h = checkpoint(run, h, E, use_reentrant=False) if remat \
@@ -134,8 +167,6 @@ def shrunk_class_grads_with_logits(model, x: torch.Tensor,
     softmax zero-sum identity ``sum_c p_c grad(log p_c) = 0``, which holds
     per sample: ``g0 = -sum_{c>=1} p_c g_c / max(p0, 1e-12)``.  ``x`` is
     channels-last ``(b, d1, d2, C)`` unless ``nchw``."""
-    if compute_dtype is not None:
-        raise NotImplementedError(_BF16_TODO)
     h = x if nchw else x.permute(0, 3, 1, 2)
     nclass = model.spec.nclass
     sizes = torch.as_tensor(layer_sizes(model), dtype=torch.float32,
@@ -144,7 +175,7 @@ def shrunk_class_grads_with_logits(model, x: torch.Tensor,
                     device=x.device, requires_grad=True)
     rest = []
     with torch.enable_grad():
-        logits = _apply_with_eps(model, h, E, remat)
+        logits = _apply_with_eps(model, h, E, remat, compute_dtype)
         logp = torch.log_softmax(logits, dim=-1)
         for c in range(1, nclass):
             # the sum over samples: d/dE[i, l] touches only sample i

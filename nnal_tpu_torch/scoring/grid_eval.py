@@ -11,7 +11,8 @@ on the card).  Multi-slice patches (``d3 > 1``, odd) ride the same 2-D
 im2col by stacking each voxel's z-neighbours as channels, modality-major
 like the gather's ``(b, d1, d2, m*d3)`` layout.  ``fim_sweep`` scores the
 whole grid with the fused posterior + diag-FIM pass; ``perturb_sweep`` is
-not ported yet.
+not ported yet.  im2col and normalization stay f32 and a bf16
+``compute_dtype`` cast follows them (``grid_eval.py:72-76``).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch.nn.functional as F
 from nnal_tpu_torch.ops.scoring_fused import pool_score_fused
 from nnal_tpu_torch.scoring.pool_eval import (
     PoolEvaluator,
+    cast_input,
     select_output,
     to_host,
 )
@@ -53,9 +55,10 @@ class GridPoolEvaluator(PoolEvaluator):
     """Pool evaluator specialized for grid-sampled pools."""
 
     def __init__(self, spec, padded, mu, sd, patch_shape, orig_shape,
-                 grid_spacing: int, ntb: int = 4096, z_chunk: int = 4):
+                 grid_spacing: int, ntb: int = 4096, z_chunk: int = 4,
+                 compute_dtype=None):
         super().__init__(spec, padded, mu, sd, patch_shape, orig_shape,
-                         ntb=ntb)
+                         ntb=ntb, compute_dtype=compute_dtype)
         self.grid_spacing = int(grid_spacing)
         self.z_chunk = int(z_chunk)
         s1, s2, s3 = self.orig_shape
@@ -85,7 +88,7 @@ class GridPoolEvaluator(PoolEvaluator):
         d1, d2, _ = self.patch_shape
         x = extract_normalize(block, d1, d2, self.grid_spacing, self._mu_c,
                               self._sd_c)
-        out = model(x, nchw=True)
+        out = model(cast_input(x, self.compute_dtype), nchw=True)
         return [select_output(out, op, self.spec.nclass) for op in ops]
 
     def _grid_rows(self, inds: np.ndarray):
@@ -186,18 +189,20 @@ class GridPoolEvaluator(PoolEvaluator):
         """Posterior + diag-FIM ingredients for the WHOLE grid, one z-chunk
         at a time (extract -> normalize -> ``pool_score_fused``).  Returns
         ``{"p1", "uncertainty", "shrunk"}`` of length nz*nx*ny in grid
-        order (z-major), as host arrays or, with ``as_device``, tensors."""
+        order (z-major), as host arrays or, with ``as_device``, tensors.
+        ``compute_dtype=None`` takes the evaluator's own (``:286-287``)."""
         if not self._sweep_ok:
             raise ValueError(
                 f"d3={self.patch_shape[2]} is even: the channel-stacked "
                 "sweep cannot reproduce the clamped gather at the volume "
                 "border")
+        cd = (compute_dtype if compute_dtype is not None
+              else self.compute_dtype)
         d1, d2, _ = self.patch_shape
         parts = []
         for z0 in range(0, self.nz, self.z_chunk):
             x = extract_normalize(self._slices[z0:z0 + self.z_chunk], d1, d2,
                                   self.grid_spacing, self._mu_c, self._sd_c)
-            parts.append(pool_score_fused(model, x, True, compute_dtype,
-                                          nchw=True))
+            parts.append(pool_score_fused(model, x, True, cd, nchw=True))
         return to_host({k: torch.cat([p[k] for p in parts])
                         for k in ("p1", "uncertainty", "shrunk")}, as_device)

@@ -5,7 +5,11 @@ Each chunk of ``ntb`` indices is gathered and normalized on the device
 (kernel K2 on a CUDA volume, see ``ops/gather.py``) and run through the
 model; only the requested outputs are kept.  The ragged last chunk is just
 shorter: PyTorch runs eagerly, so the JAX package's pad-and-mask (which
-keeps one compiled shape) would only add work.
+keeps one compiled shape) would only add work.  With a bf16
+``compute_dtype`` the patches are gathered in f32, then cast, and the
+forward casts the weights per call (``pool_eval.py:28-59``): no bf16 copy
+of the weights outlives a call, so none can be older than the last
+finetune.
 """
 
 from __future__ import annotations
@@ -16,6 +20,21 @@ import numpy as np
 import torch
 
 from nnal_tpu_torch.data.patches import gather_patches_normalized
+
+
+def eval_compute_dtype(name):
+    """The config's ``model.dtype`` / ``train_dtype`` string -> a compute
+    dtype (``pool_eval.py:78-86``): f32 -> None; bf16 -> ``torch.bfloat16``;
+    anything else raises, as in the JAX package."""
+    if name in (None, "float32", "f32"):
+        return None
+    if name in ("bfloat16", "bf16"):
+        return torch.bfloat16
+    raise ValueError(f"unsupported eval dtype {name!r}")
+
+
+def cast_input(x: torch.Tensor, compute_dtype) -> torch.Tensor:
+    return x if compute_dtype is None else x.to(compute_dtype)
 
 
 def select_output(out, op: str, nclass: int) -> torch.Tensor:
@@ -44,7 +63,7 @@ class PoolEvaluator:
     the padded device-resident volumes and normalization constants."""
 
     def __init__(self, spec, padded: torch.Tensor, mu, sd, patch_shape,
-                 orig_shape, ntb: int = 4096):
+                 orig_shape, ntb: int = 4096, compute_dtype=None):
         self.spec = spec
         self.padded = padded
         self.device = padded.device
@@ -53,6 +72,8 @@ class PoolEvaluator:
         self.patch_shape = tuple(int(v) for v in patch_shape)
         self.orig_shape = tuple(int(v) for v in orig_shape)
         self.ntb = int(ntb)
+        # None = f32; torch.bfloat16 for the bf16 sweeps (model.dtype)
+        self.compute_dtype = compute_dtype
 
     @torch.no_grad()
     def evaluate(self, model, pool_inds, ops: Sequence[str] = ("posteriors",),
@@ -66,7 +87,7 @@ class PoolEvaluator:
             x = gather_patches_normalized(self.padded, inds[lo:lo + self.ntb],
                                           self.mu, self.sd, self.patch_shape,
                                           self.orig_shape)
-            out = model(x)
+            out = model(cast_input(x, self.compute_dtype))
             for op in ops:
                 chunks[op].append(select_output(out, op, self.spec.nclass))
         return to_host({op: torch.cat(c) for op, c in chunks.items()},

@@ -5,7 +5,8 @@ Greedy k-center over cosine similarity (reference PW_NNAL.py:353-451):
 track each pool sample's max similarity to the labeled set — kernel K1 on
 the card (``ops/similarity.py``), for every CUDA input whatever its size —
 then repeatedly query the argmin and raise the similarities with the new
-query's row.
+query's row.  bf16 features (``model.dtype: bfloat16``) are normalized in
+bf16 and their similarities accumulate in f32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -70,7 +71,10 @@ def core_set_select(Fu_normed: torch.Tensor, sims0: torch.Tensor,
     """Greedy k-center (reference PW_NNAL.py:416-447): ``k`` steps of
     ``q = argmin(sims)`` (the first minimum, as ``jnp.argmin``), then
     ``sims = max(sims, Fu @ Fu[q])`` and ``sims[q] = +inf``.  Everything
-    stays on the device; the picks are pulled once at the end."""
+    stays on the device; the picks are pulled once at the end.  bf16 rows
+    are upcast once: their products are exact in f32, so each step is the
+    JAX ``preferred_element_type=f32`` dot."""
+    Fu_normed = Fu_normed.float()
     sims = sims0.clone()
     chosen = []
     for _ in range(int(k)):

@@ -114,10 +114,13 @@ def test_rounds_membership_and_pick_counts(campaigns, name):
 @pytest.mark.parametrize("name", list(RUNS))
 def test_phases_carry_the_jax_sub_spans(campaigns, name):
     jdir, tdir, _, _ = campaigns[name]
-    # the JAX engine appends a "tail" record (its async checkpoint's final
-    # wait), which the port's synchronous checkpoints do not need
-    jp = [r for r in _phases(jdir) if not r.get("tail")]
-    tp = _phases(tdir)
+    # both engines append a "tail" record (the loop end's checkpoint
+    # phase: the last async write's wait and the final save)
+    jp, tp = _phases(jdir), _phases(tdir)
+    assert [bool(r.get("tail")) for r in jp] == \
+        [bool(r.get("tail")) for r in tp]
+    jp = [r for r in jp if not r.get("tail")]
+    tp = [r for r in tp if not r.get("tail")]
     assert len(jp) == len(tp) == RUNS[name][1]
     for j, t in zip(jp, tp):
         assert set(t["sub"]) == set(j["sub"])

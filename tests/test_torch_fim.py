@@ -229,12 +229,24 @@ def test_remat_equals_plain(kind):
 
 
 def test_bf16_compute_dtype_raises():
+    """bf16 scoring is ported: it runs in bf16 (never dropping silently to
+    f32), and a dtype string the JAX package rejects raises as there."""
+    from nnal_tpu.scoring.pool_eval import eval_compute_dtype as j_ecd
+    from nnal_tpu_torch.scoring.pool_eval import eval_compute_dtype
+
     _, _, model = _models("narrow2")
     x = torch.from_numpy(_x(2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        tg.shrunk_class_grads(model, x, compute_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        pool_score_fused(model, x, compute_dtype=torch.bfloat16)
+    g16 = tg.shrunk_class_grads(model, x, compute_dtype=torch.bfloat16)
+    g32 = tg.shrunk_class_grads(model, x)
+    assert g16.dtype == torch.float32 and bool(torch.isfinite(g16).all())
+    assert not torch.equal(g16, g32)
+    p16 = pool_score_fused(model, x, False, torch.bfloat16)["p1"]
+    assert not torch.equal(p16, pool_score_fused(model, x, False)["p1"])
+    for name in ("float16", "int8"):
+        with pytest.raises(ValueError, match="unsupported eval dtype"):
+            j_ecd(name)
+        with pytest.raises(ValueError, match="unsupported eval dtype"):
+            eval_compute_dtype(name)
 
 
 def _posts_with_snaps(n, seed):

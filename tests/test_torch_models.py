@@ -144,7 +144,12 @@ def test_port_checkpoint_loads_into_jax_with_adam_moments(tmp_path):
 
 
 def test_unsupported_checkpoint_dtype_raises(tmp_path):
+    """bf16 and int8 anchors are ported (tests/test_torch_anchors.py); a
+    storage dtype the JAX package rejects raises the same way."""
+    from nnal_tpu.models.checkpoint import save_checkpoint as j_save
+
     _, params = _jax_params((9, 9, 2))
-    with pytest.raises(NotImplementedError, match="float32"):
-        tck.save_checkpoint(str(tmp_path / "w.npz"), params,
-                            dtype="bfloat16")
+    for save in (tck.save_checkpoint, j_save):
+        with pytest.raises(ValueError, match="unsupported checkpoint dtype"):
+            save(str(tmp_path / "w.npz"), params, dtype="float16")
+    assert not os.listdir(tmp_path)
