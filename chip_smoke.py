@@ -26,6 +26,15 @@ Phases, each of which passes or exits non-zero:
    from the host's cost per call;
 5. PW1 25x25x2 posteriors on 1024 patches, and the evaluator's off-grid
    (per-patch gather) route on 256 voxels, card vs host, atol 1e-4;
+   then the stochastic pieces, card vs host with the same draws fed to
+   both through the port's draw functions (``HostDraws``): MC dropout on
+   1024 patches (1e-4; rate 0 under ``mc_dropout`` bit-equal to the
+   deterministic forward), the MC grid sweep's keying on the campaign
+   subject (slab rows == whole-sweep rows bit for bit) and its rate (10
+   passes over 131,072 rows, f32 and bf16), ``rotate_2d`` (1e-5 at 0.3
+   rad and pi/2), AU_4U's CE and L2 (1e-4) and the perturb sweep's
+   rows/s, and BatchBALD (T 10 x 200), rep-entropy and BADGE (200
+   candidates of 1024 patches) with identical picks;
 6. FIM parity, card vs host (the same port code with ``device="cpu"``):
    ``pool_score_fused`` on 256 gathered PW1 25x25x2 patches (p1 atol
    1e-4; shrunk per layer column within 1e-4 of the column's max |.|),
@@ -43,9 +52,14 @@ Phases, each of which passes or exits non-zero:
 8. the campaign: ``do_expr(..., device="cuda")`` on a synthetic
    128x128x32 subject (pool of 65,536 grid voxels), 2 rounds each of
    ``entropy``, ``core-set``, ``random`` and ``fi`` (init 256, k 64, b
-   128, Adam 1e-3; fi: B 200, lambda_ 0);
-   launch counts are zeroed just before and read just after, and every
-   kernel must have launched (K2 at least 4 times in fi);
+   128, Adam 1e-3; fi: B 200, lambda_ 0), and of ``MC-entropy``,
+   ``BALD``, ``BatchBALD``, ``ensemble``, ``QBC-JS``, ``AU_4U`` (and
+   once more with a 0.3 rad rotation), ``rep-entropy`` and ``BADGE`` at
+   the JAX package's defaults (MC_iters 10, n_ensemble 5, B 200, noise
+   std 0.05, CE); launch counts are zeroed just before and read just
+   after, and every kernel must have launched (K2 at least 4 times in
+   fi, at least 2 x (n_ensemble + 1) in each committee method, whose
+   rounds must hold a ``committee`` phase);
 9. bf16 (``model.dtype`` bfloat16): PW1 posteriors on 1024 patches card
    vs host (max 2e-2, mean 2e-3: the card rounds each conv's sum before
    the bias) and against f32, plus the fcs' f32-output bf16 GEMM and its
@@ -59,9 +73,10 @@ Phases, each of which passes or exits non-zero:
    moments included): ``round_trip_bf16`` / ``round_trip_int8`` on the
    card bit-equal to the numpy encode, the card's file encode equal to
    the host's, and the seconds and bytes of one save at f32, bf16, int8;
-12. the bf16 campaign: 2 rounds each of entropy, core-set (bf16 anchors)
-   and fi (int8 anchors), bf16 sweeps and finetunes, ``ckpt_full_every``
-   2, ``async_checkpoint``; its launch counts are zeroed before and read
+12. the bf16 campaign: 2 rounds each of entropy, core-set, BALD and
+   QBC-JS (bf16 anchors) and fi (int8 anchors), bf16 sweeps (MC ones
+   too) and finetunes (the committee's too), ``ckpt_full_every`` 2,
+   ``async_checkpoint``; its launch counts are zeroed before and read
    after it, and K1 and K2 must launch;
 13. resume == continue: a 4-round random campaign with int8 anchors every
    3 rounds, run uninterrupted and then crashed after round 3 and
@@ -69,10 +84,12 @@ Phases, each of which passes or exits non-zero:
    ``curr_weights.npz``, the query journal and ``perf_evals.txt`` must be
    bit-identical; and the finetune's seconds with and without
    deterministic cuDNN, interleaved in one process;
-14. one ``phases`` JSON line (per-round seconds from ``phases.jsonl`` of
-   both campaigns, build seconds, K1's SASS counts, the FIM, bf16, codec
-   and resume phases) and one ``kernels`` JSON line (times, bounds,
-   launches in both campaigns).
+14. lines with the new methods' per-round seconds, the MC and perturb
+   sweeps' rates and the committee campaigns' peak memory, then one
+   ``phases`` JSON line (per-round seconds from ``phases.jsonl`` of both
+   campaigns, build seconds, K1's SASS counts, the FIM, bf16, codec,
+   resume, MC, perturbation and selection phases) and one ``kernels``
+   JSON line (times, bounds, launches in both campaigns).
 
 The row and column tolerance rules for shrunk gradients and A-matrices:
 the linear head's column is zero in exact arithmetic (a constant added to
@@ -110,12 +127,15 @@ import torch
 from nnal_tpu_torch import ops
 from nnal_tpu_torch.ops._build import stream_ptr
 from nnal_tpu_torch.cli.expr_handler import DEFAULT_PARS, do_expr
+from nnal_tpu_torch.core import rng as core_rng
 from nnal_tpu_torch.core.config import ExperimentConfig, set_parameters
 from nnal_tpu_torch.core.device import deterministic_cudnn, set_precision
 from nnal_tpu_torch.data.io import synthetic_subject
 from nnal_tpu_torch.data.patches import pad_volumes
 from nnal_tpu_torch.engine import pw_experiment
 from nnal_tpu_torch.models import checkpoint as ckpt
+from nnal_tpu_torch.models import cnn as cnn_mod
+from nnal_tpu_torch.models import perturb as perturb_mod
 from nnal_tpu_torch.models.bridge import (
     from_jax_params,
     to_jax_params,
@@ -140,7 +160,11 @@ from nnal_tpu_torch.ops.gather import (
     gather_patches_plain,
 )
 from nnal_tpu_torch.ops.scoring_fused import make_pool_scorer, pool_score_fused
+from nnal_tpu_torch.scoring import batchbald as bb_mod
+from nnal_tpu_torch.scoring import representative as rep_mod
 from nnal_tpu_torch.scoring import sdp
+from nnal_tpu_torch.scoring.pool_eval import mc_stack_posteriors
+from nnal_tpu_torch.scoring.uncertainty import binary_uncertainty_filter
 from nnal_tpu_torch.scoring.fisher import refine_feature_matrix
 from nnal_tpu_torch.scoring.gradients import gather_shrunk_a_matrices
 from nnal_tpu_torch.scoring.grid_eval import extract_normalize
@@ -166,15 +190,28 @@ OVERRIDES = ("patch_shape=[25,25,1],grid_spacing=2,k=64,B=128,b=128,"
 # k picks: the PMF is drawn with replacement and deduplicated)
 OVERRIDES_FI = OVERRIDES.replace("B=128", "B=200") + ",iter_k=[64,64,0]"
 FI_SUBS = {"fi/posteriors", "fi/gather_grads_A", "fi/sdp", "fi/pmf"}
+# the stochastic and batch-diverse strategies at the JAX package's
+# defaults: MC_iters 10, n_ensemble 5, B 200, noise std 0.05, measure CE
+NEW_METHODS = ("MC-entropy", "BALD", "BatchBALD", "ensemble", "QBC-JS",
+               "AU_4U", "rep-entropy", "BADGE")
+COMMITTEE = ("ensemble", "QBC-JS")
+OVERRIDES_NEW = (OVERRIDES.replace("B=128", "B=200")
+                 + ",MC_iters=10,n_ensemble=5")
+N_ENSEMBLE = 5
+MC_ITERS = 10
 # the bf16 campaign: sweeps and finetunes in bf16, bf16 anchors (int8 for
 # fi) every 2 rounds, written from the checkpoint thread
 BF16 = (",dtype=bfloat16,train_dtype=bfloat16,ckpt_full_every=2,"
         "async_checkpoint=true")
 BF16_RUNS = (("entropy", OVERRIDES + BF16 + ",ckpt_dtype=bfloat16"),
              ("core-set", OVERRIDES + BF16 + ",ckpt_dtype=bfloat16"),
-             ("fi", OVERRIDES_FI + BF16 + ",ckpt_dtype=int8"))
-F32_RUNS = tuple((m, OVERRIDES_FI if m == "fi" else OVERRIDES)
-                 for m in METHODS)
+             ("fi", OVERRIDES_FI + BF16 + ",ckpt_dtype=int8"),
+             ("BALD", OVERRIDES_NEW + BF16 + ",ckpt_dtype=bfloat16"),
+             ("QBC-JS", OVERRIDES_NEW + BF16 + ",ckpt_dtype=bfloat16"))
+F32_RUNS = (tuple((m, OVERRIDES_FI if m == "fi" else OVERRIDES)
+                  for m in METHODS)
+            + tuple((m, OVERRIDES_NEW) for m in NEW_METHODS)
+            + (("AU_4U@rotation", OVERRIDES_NEW + ",rotation_angle=0.3"),))
 # resume == continue: 4 rounds of random, int8 anchors every 3 rounds
 RESUME_OVERRIDES = OVERRIDES + ",ckpt_full_every=3,ckpt_dtype=int8"
 TOP_B = 1024
@@ -590,6 +627,17 @@ def phase_forward(dev, n=1024):
           f"max|delta| {err:.3g}; off-grid evaluator {err_off:.3g}")
 
 
+def _patches(dev, n, seed=1):
+    vols, _ = synthetic_subject(shape=SHAPE, n_modalities=2, seed=seed)
+    padded = pad_volumes(vols, (25, 25, 1), dev)
+    inds = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, int(np.prod(SHAPE)), size=n)).to(dev)
+    return gather_patches_normalized(padded, inds,
+                                     torch.tensor([60.0, 75.0], device=dev),
+                                     torch.tensor([30.0, 31.0], device=dev),
+                                     (25, 25, 1), SHAPE)
+
+
 def phase_bf16_forward(dev, n=1024):
     """PW1 25x25x2 at bf16: card vs host (the host upcasts each conv and
     fc, one rounding; the card rounds each conv's sum before the bias),
@@ -598,14 +646,7 @@ def phase_bf16_forward(dev, n=1024):
     spec = create_pw1(2, 0.5, (25, 25, 2))
     model_c = init_cnn(spec, seed=0, device="cpu")
     model_g = init_cnn(spec, seed=0, device=dev)
-    vols, _ = synthetic_subject(shape=SHAPE, n_modalities=2, seed=1)
-    padded = pad_volumes(vols, (25, 25, 1), dev)
-    inds = torch.as_tensor(np.random.default_rng(1).integers(
-        0, int(np.prod(SHAPE)), size=n)).to(dev)
-    x = gather_patches_normalized(padded, inds,
-                                  torch.tensor([60.0, 75.0], device=dev),
-                                  torch.tensor([30.0, 31.0], device=dev),
-                                  (25, 25, 1), SHAPE)
+    x = _patches(dev, n)
     with torch.no_grad():
         p16 = model_g(x.bfloat16()).posteriors[:, 1].cpu()
         p32 = model_g(x).posteriors[:, 1].cpu()
@@ -648,6 +689,231 @@ def phase_bf16_forward(dev, n=1024):
               "torch.float32", "torch.bfloat16", "torch.bfloat16"],
           f"f32-output bf16 GEMM vs upcast autograd: {mm}")
     print(f"bf16 forward ok: {json.dumps(res)}")
+    return res
+
+
+class HostDraws:
+    """Replace the port's draw functions with numpy draws keyed on what
+    the port passes them (the dropout layer, the fold tag, the shape), on
+    whichever device is asked: the card and the host then use the same
+    dropout uniforms, noise and samples, and their results can be held
+    to each other."""
+
+    def __init__(self, seed: int):
+        self.seed = seed
+
+    def _rng(self, *tag):
+        return np.random.default_rng((self.seed,) + tuple(int(t) for t in tag))
+
+    def __enter__(self):
+        self.saved = [(cnn_mod, "_dropout_uniform"),
+                      (perturb_mod, "_gaussian_noise"),
+                      (bb_mod, "_t_assign"), (bb_mod, "_uniform"),
+                      (core_rng, "gumbel"), (rep_mod, "_first_index")]
+        self.saved = [(m, n, getattr(m, n)) for m, n in self.saved]
+
+        def t(a, device, dtype=None):
+            return torch.from_numpy(np.asarray(a)).to(device, dtype)
+
+        def gumbel(shape, gen, device, tag):
+            u = np.maximum(self._rng(3, tag).random(tuple(shape),
+                                                    np.float32),
+                           np.finfo(np.float32).tiny)
+            return t(-np.log(-np.log(u)), device)
+
+        cnn_mod._dropout_uniform = lambda shape, gen, device, i: t(
+            self._rng(0, i, *shape).random(tuple(shape), np.float32), device)
+        perturb_mod._gaussian_noise = lambda shape, dtype, gen, device: t(
+            self._rng(1, *shape).standard_normal(tuple(shape), np.float32),
+            device, dtype)
+        bb_mod._t_assign = lambda M, T, gen, device, tag=0: t(
+            self._rng(2, tag).integers(0, T, M), device)
+        bb_mod._uniform = lambda M, gen, device, tag: t(
+            self._rng(2, tag).random(M, np.float32), device)
+        core_rng.gumbel = gumbel
+        rep_mod._first_index = lambda n, gen, device: t(
+            self._rng(4).integers(0, n), device)
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, f in self.saved:
+            setattr(m, n, f)
+
+
+def phase_mc_forward(dev, n=1024):
+    """MC dropout (fc1, fc2 and the logits layer) on 1024 PW1 25x25x2
+    patches, the same uniforms fed to card and host: posteriors within
+    1e-4; and at rate 0, ``mc_dropout`` is the deterministic forward bit
+    for bit on the card."""
+    spec = create_pw1(2, 0.5, (25, 25, 2))
+    model_c = init_cnn(spec, seed=0, device="cpu")
+    model_g = init_cnn(spec, seed=0, device=dev)
+    x = _patches(dev, n)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad(), HostDraws(11):
+        p_g = model_g(x, mc_dropout=True, generator=gen).posteriors.cpu()
+        p_c = model_c(x.cpu(), mc_dropout=True,
+                      generator=torch.Generator()).posteriors
+        det = model_g(x).posteriors.cpu()
+    err = float((p_g - p_c).abs().max())
+    moved = float((p_g - det).abs().max())
+    check(bool(torch.isfinite(p_g).all()) and err <= 1e-4 and moved > 1e-3,
+          f"MC forward card vs host max |delta| {err} (> 1e-4?), "
+          f"MC vs deterministic {moved}")
+    spec0 = create_pw1(2, 0.0, (25, 25, 2))
+    m0 = init_cnn(spec0, seed=0, device=dev)
+    with torch.no_grad():
+        same = torch.equal(m0(x, mc_dropout=True, generator=gen).posteriors,
+                           m0(x).posteriors)
+    check(same, "mc_dropout at rate 0 is not the deterministic forward")
+    res = {"patches": n, "p_card_vs_host_max": err,
+           "mc_vs_deterministic_max": moved, "rate0_bit_equal": same}
+    print(f"MC forward ok: {json.dumps(res)}")
+    return res
+
+
+def phase_mc_sweep(dev):
+    """On the campaign subject (grid 131,072 rows, z_chunk 4): slab rows
+    == whole-sweep rows bit for bit for one key, on the card; then the
+    MC sweep's rate, ``MC_ITERS`` passes over the whole grid, f32 and
+    bf16."""
+    ps = (25, 25, 1)
+    spec = create_pw1(2, 0.5, (25, 25, 2))
+    model = init_cnn(spec, seed=0, device=dev)
+    vols, _ = synthetic_subject(shape=SHAPE, n_modalities=2, seed=0)
+    padded = pad_volumes(vols, ps, dev)
+    stats = (np.array([v.mean() for v in vols]),
+             np.array([v.std() for v in vols]))
+    ev = GridPoolEvaluator(spec, padded, *stats, ps, SHAPE, grid_spacing=2)
+    g = np.arange(0, SHAPE[0], 2)
+    X, Y, Z = np.meshgrid(g, g, np.arange(SHAPE[2]), indexing="ij")
+    grid = np.ravel_multi_index((X.ravel(), Y.ravel(), Z.ravel()), SHAPE)
+    nz = SHAPE[2]
+    # rows of two z-chunks (the second and third quarter's last ones)
+    two_slabs = grid[np.isin(grid % nz, [nz // 2 - 2, nz // 2 - 1,
+                                         3 * nz // 4])]
+    key = 20251017
+    slab = ev.evaluate(model, two_slabs, ("posteriors",), mc_rng=key)
+    whole = ev.evaluate(model, two_slabs, ("posteriors",), as_device=True,
+                        mc_rng=key)["posteriors"].cpu().numpy()
+    det = ev.evaluate(model, two_slabs, ("posteriors",))["posteriors"]
+    check(np.array_equal(slab["posteriors"], whole)
+          and np.abs(whole - det).max() > 1e-3,
+          "MC slab rows differ from the whole sweep's (or dropout is off)")
+    res = {"slab_rows": len(two_slabs), "slab_equals_whole": True,
+           "grid_rows": len(grid), "mc_iters": MC_ITERS}
+    for cd in (None, torch.bfloat16):
+        ev.compute_dtype = cd
+        mc_stack_posteriors(ev, model, grid[:1], 1, key, as_device=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        mc = mc_stack_posteriors(ev, model, grid, MC_ITERS, key,
+                                 as_device=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(mc.shape == (MC_ITERS, len(grid))
+              and bool(torch.isfinite(mc).all()), "MC sweep output")
+        name = "float32" if cd is None else "bfloat16"
+        res[name] = {"seconds": secs,
+                     "rows_per_s": MC_ITERS * len(grid) / secs,
+                     "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        del mc
+    print(f"MC sweep ok: {json.dumps(res)}")
+    return res
+
+
+def phase_perturb(dev, n=1024):
+    """``rotate_2d`` card vs host at 0.3 rad and pi/2 (1e-5), AU_4U's CE
+    and L2 card vs host with the same noise (1e-4), and the perturb
+    sweep's rows/s over the campaign subject's grid, f32 and bf16."""
+    spec = create_pw1(2, 0.5, (25, 25, 2))
+    model_c = init_cnn(spec, seed=0, device="cpu")
+    model_g = init_cnn(spec, seed=0, device=dev)
+    x = _patches(dev, n, seed=2)
+    res = {}
+    for angle in (0.3, np.pi / 2):
+        err = float((perturb_mod.rotate_2d(x, angle).cpu()
+                     - perturb_mod.rotate_2d(x.cpu(), angle)).abs().max())
+        res[f"rotate_{angle:.4f}_max"] = err
+        check(err <= 1e-5, f"rotate_2d({angle}) card vs host {err}")
+    with HostDraws(12):
+        for measure, angle in (("CE", None), ("L2", None), ("CE", 0.3)):
+            kw = dict(measure=measure, gaussian_std=0.05,
+                      rotation_angle=angle)
+            got = perturb_mod.measure_output_perturbation(
+                model_g, x, None, **kw).cpu()
+            want = perturb_mod.measure_output_perturbation(
+                model_c, x.cpu(), None, **kw)
+            err = float((got - want).abs().max())
+            res[f"{measure}_rot{angle}_max"] = err
+            check(bool(torch.isfinite(got).all()) and err <= 1e-4,
+                  f"AU_4U {measure} (rotation {angle}) card vs host {err}")
+    vols, _ = synthetic_subject(shape=SHAPE, n_modalities=2, seed=0)
+    ev = GridPoolEvaluator(spec, pad_volumes(vols, (25, 25, 1), dev),
+                           np.array([60.0, 75.0]), np.array([30.0, 31.0]),
+                           (25, 25, 1), SHAPE, grid_spacing=2)
+    rows = ev.nz * ev.nx * ev.ny
+    for cd in (None, torch.bfloat16):
+        ev.compute_dtype = cd
+        ev.perturb_sweep(model_g, 1, as_device=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d = ev.perturb_sweep(model_g, 2, as_device=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(d.shape == (rows,) and bool(torch.isfinite(d).all()),
+              "perturb_sweep output")
+        res["sweep_" + ("float32" if cd is None else "bfloat16")] = {
+            "rows": rows, "seconds": secs, "rows_per_s": rows / secs}
+    print(f"perturbation ok: {json.dumps(res)}")
+    return res
+
+
+def phase_batch_select(dev, k=64, B=200):
+    """BatchBALD (T 10 x 200 candidates from a seeded stack), rep-entropy
+    and BADGE (features and posteriors of 1024 PW1 patches from the card,
+    200 uncertainty-filtered candidates), card vs host with the same
+    draws: identical picks."""
+    stack = np.random.default_rng(9).uniform(
+        0.02, 0.98, size=(MC_ITERS, B)).astype(np.float32)
+    spec = create_pw1(2, 0.5, (25, 25, 2))
+    model = init_cnn(spec, seed=0, device=dev)
+    with torch.no_grad():
+        out = model(_patches(dev, 1024, seed=3))
+    p1, F = out.posteriors[:, 1], out.feature
+    sel = binary_uncertainty_filter(p1, B)
+    rest = np.setdiff1d(np.arange(len(p1)), sel)
+    sel_t = torch.as_tensor(sel).to(dev)
+    picks, secs = {}, {}
+    with HostDraws(13):
+        for side, d in (("card", dev), ("host", torch.device("cpu"))):
+            gen = torch.Generator(device=d)
+            E = rep_mod.badge_embeddings(F[sel_t].to(d), p1[sel_t].to(d))
+            runs = {
+                "BatchBALD": lambda: bb_mod.batchbald_select(
+                    torch.from_numpy(stack).to(d), k, gen),
+                "rep-entropy": lambda: rep_mod.rep_entropy_from_features(
+                    F.to(d), rest, sel, k),
+                "BADGE": lambda: rep_mod.badge_kmeanspp(E, k, gen)}
+            for name, fn in runs.items():
+                t0 = time.perf_counter()
+                picks[(name, side)] = fn()
+                secs[(name, side)] = time.perf_counter() - t0
+    res = {}
+    for name in ("BatchBALD", "rep-entropy", "BADGE"):
+        a, b = picks[(name, "card")], picks[(name, "host")]
+        same = np.array_equal(a, b)
+        first = None if same else int(np.nonzero(a != b)[0][0])
+        res[name] = {"identical": same, "k": len(a),
+                     "distinct": len(set(a.tolist())),
+                     "first_difference": first,
+                     "card_s": secs[(name, "card")],
+                     "host_s": secs[(name, "host")]}
+        check(same and len(set(a.tolist())) == k,
+              f"{name} picks card vs host: {res[name]}, card {a.tolist()}, "
+              f"host {b.tolist()}")
+    print(f"batch selections ok: {json.dumps(res)}")
     return res
 
 
@@ -1072,8 +1338,9 @@ def phase_campaign(dev):
     ``parameters.txt`` does not carry ``synthetic_shape``): the f32
     campaign, the checkpoint codecs on its entropy state, then the bf16
     campaign, each with the launch counts zeroed just before it and read
-    just after.  The directories, with their ~0.2-0.4 GB checkpoints, are
-    removed at the end."""
+    just after.  A run's ~0.2-0.4 GB checkpoints are removed once it is
+    checked (the f32 entropy state after the codecs), the directories at
+    the end."""
     top = os.path.join(ROOT, "_smoke_expr")
     shutil.rmtree(top, ignore_errors=True)
     try:
@@ -1088,19 +1355,29 @@ def phase_campaign(dev):
 
 
 def _campaign(dev, top, runs, tag):
+    """Each run in its own directory; a run's name is its method, with an
+    ``@variant`` suffix for a second configuration of the same method.
+    Returns the launch counts, phases, seconds, per-run launches and each
+    run's peak device memory (``max_memory_allocated``)."""
     counts = {}
     seconds = {}
     phases = {}
     by_method = {}
+    peaks = {}
     ops.reset_launch_counts()
-    for method, overrides in runs:
-        root = os.path.join(top, method)
+    for name, overrides in runs:
+        method = name.split("@")[0]
+        key = tag + name
+        root = os.path.join(top, name)
         k1_0 = ops.similarity.KERNEL.launches
         k2_0 = ops.gather.KERNEL.launches
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res = do_expr(root, method, 128, overrides, synthetic=True,
                       device=str(dev))
-        seconds[tag + method] = time.perf_counter() - t0
+        seconds[key] = time.perf_counter() - t0
+        peaks[key] = torch.cuda.max_memory_allocated()
         init_pool = np.loadtxt(os.path.join(root, "init_pool_inds.txt"),
                                dtype=np.int64)
         train, pool = res["train_inds"], res["pool_inds"]
@@ -1110,41 +1387,48 @@ def _campaign(dev, top, runs, tag):
         check(len(init_pool) == 65536, f"pool size {len(init_pool)}")
         check(len(res["perf"]) == 2 and res["n_queries"]
               == sum(len(q) for q in picks),
-              f"{tag}{method}: {res['n_queries']} queries, "
+              f"{key}: {res['n_queries']} queries, "
               f"{len(res['perf'])} rounds")
         if method == "fi":
             # the PMF is drawn with replacement and deduplicated
             check(all(1 <= len(q) <= 64 and len(set(q.tolist())) == len(q)
                       for q in picks),
-                  f"{tag}fi: picks per round {[len(q) for q in picks]}")
+                  f"{key}: picks per round {[len(q) for q in picks]}")
         else:
-            check(res["n_queries"] == 128, f"{tag}{method}: "
+            check(res["n_queries"] == 128, f"{key}: "
                   f"{res['n_queries']} queries")
         n_lab = 256 + res["n_queries"]
         check(len(train) == n_lab and len(set(train.tolist())) == n_lab,
-              f"{tag}{method}: labeled set has {len(train)} entries")
+              f"{key}: labeled set has {len(train)} entries")
         check(not set(train.tolist()) & set(pool.tolist())
               and set(train.tolist()) | set(pool.tolist())
-              == set(init_pool.tolist()), f"{tag}{method}: membership broken")
+              == set(init_pool.tolist()), f"{key}: membership broken")
         check(bool(np.isfinite(res["perf"]).all()),
-              f"{tag}{method}: non-finite F {res['perf']}")
+              f"{key}: non-finite F {res['perf']}")
         dk1 = ops.similarity.KERNEL.launches - k1_0
         dk2 = ops.gather.KERNEL.launches - k2_0
-        by_method[tag + method] = {"rowmax_similarity": dk1,
-                                   "gather_patches_normalized": dk2}
-        check(dk2 >= 2, f"{tag}{method}: K2 launched {dk2} times in "
-              "finetune")
+        by_method[key] = {"rowmax_similarity": dk1,
+                          "gather_patches_normalized": dk2}
+        check(dk2 >= 2, f"{key}: K2 launched {dk2} times in finetune")
         if method == "core-set":
-            check(dk1 >= 2, f"{tag}core-set: K1 launched {dk1} times")
+            check(dk1 >= 2, f"{key}: K1 launched {dk1} times")
+        if method in COMMITTEE:
+            # every round: n_ensemble member finetunes and the main one
+            check(dk2 >= 2 * (N_ENSEMBLE + 1),
+                  f"{key}: K2 launched {dk2} times in the committee rounds")
         with open(os.path.join(root, method, "phases.jsonl")) as f:
-            phases[tag + method] = [json.loads(line) for line in f]
-        rounds = [r for r in phases[tag + method] if not r.get("tail")]
-        check(len(rounds) == 2, f"{tag}{method}: phases rows {rounds}")
+            phases[key] = [json.loads(line) for line in f]
+        rounds = [r for r in phases[key] if not r.get("tail")]
+        check(len(rounds) == 2, f"{key}: phases rows {rounds}")
+        check(all(("committee" in r) == (method in COMMITTEE)
+                  for r in rounds),
+              f"{key}: the committee phase where it does not belong, or "
+              f"missing: {rounds}")
         if method == "fi":
             # 2 candidate gathers and 2 finetunes
-            check(dk2 >= 4, f"{tag}fi: K2 launched {dk2} times")
+            check(dk2 >= 4, f"{key}: K2 launched {dk2} times")
             check(all(FI_SUBS <= set(r.get("sub", {})) for r in rounds),
-                  f"{tag}fi: sub spans missing from phases.jsonl: "
+                  f"{key}: sub spans missing from phases.jsonl: "
                   f"{[r.get('sub') for r in rounds]}")
         if tag:
             # anchors every 2 rounds: the round-2 save, no loop-end save
@@ -1154,15 +1438,35 @@ def _campaign(dev, top, runs, tag):
                 mark = "@i8" if "ckpt_dtype=int8" in overrides else "@bf16"
                 check(al["round"] == 2 and any(k.endswith(mark)
                                                for k in z.files),
-                      f"{tag}{method}: anchor {al}, keys {z.files[:4]}")
-        print(f"campaign {tag}{method}: F per round {res['perf'].tolist()}, "
+                      f"{key}: anchor {al}, keys {z.files[:4]}")
+        if tag or method != "entropy":
+            # the codecs phase reads the f32 entropy state; the rest of
+            # the ~0.4 GB checkpoints go now
+            _drop_checkpoints(root)
+        print(f"campaign {key}: F per round {res['perf'].tolist()}, "
               f"picks per round {[len(q) for q in picks]}, "
-              f"{seconds[tag + method]:.3f} s, K1 +{dk1}, K2 +{dk2}")
+              f"{seconds[key]:.3f} s, K1 +{dk1}, K2 +{dk2}, peak "
+              f"{peaks[key] / 2**30:.2f} GiB")
     for k in ops.KERNELS:
         counts[k.name] = k.launches
         check(k.launches > 0,
               f"{k.name} never launched in the {tag or 'f32/'} campaign")
-    return counts, phases, seconds, by_method
+    return counts, phases, seconds, by_method, peaks
+
+
+def _drop_checkpoints(root):
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".npz"):
+                os.remove(os.path.join(dirpath, f))
+
+
+def round_seconds(phases, names):
+    """Per-round phase seconds of the named runs (rounds 0 and 1)."""
+    keys = ("score_select", "committee", "train", "eval", "checkpoint")
+    return {n: [{k: r[k] for k in keys if k in r}
+                for r in phases[n] if not r.get("tail")]
+            for n in names if n in phases}
 
 
 def numpy_bf16_round_trip(a):
@@ -1408,6 +1712,10 @@ def main() -> int:
     rows = [phase_k1(dev), phase_k2(dev)]
     phase_forward(dev)
     bf16_fwd = phase_bf16_forward(dev)
+    mc_fwd = phase_mc_forward(dev)
+    mc_sweep = phase_mc_sweep(dev)
+    perturb = phase_perturb(dev)
+    batch_select = phase_batch_select(dev)
     fim = phase_fim_parity(dev)
     sweep, unc32 = phase_fim_sweep(dev)
     sweep16, _ = phase_fim_sweep(dev, cd=torch.bfloat16, ref_unc=unc32)
@@ -1415,11 +1723,25 @@ def main() -> int:
     f32, bf16, codecs = phase_campaign(dev)
     resume = phase_resume(dev)
     determinism = phase_determinism_cost(dev)
-    phases, seconds, by_method = {}, {}, {}
-    for _, ph, sec, bym in (f32, bf16):
+    phases, seconds, by_method, peaks = {}, {}, {}, {}
+    for _, ph, sec, bym, pk in (f32, bf16):
         phases.update(ph)
         seconds.update(sec)
         by_method.update(bym)
+        peaks.update(pk)
+    new_runs = ([n for n, _ in F32_RUNS if n.split("@")[0] in NEW_METHODS]
+                + ["bf16/BALD", "bf16/QBC-JS"])
+    print("per-round seconds of the new methods (NVIDIA card above): "
+          + json.dumps(round_seconds(phases, new_runs)))
+    print("MC sweep rate: " + json.dumps({
+        k: mc_sweep[k]["rows_per_s"] for k in ("float32", "bfloat16")})
+        + f" rows/s ({MC_ITERS} passes x {mc_sweep['grid_rows']} rows); "
+        "AU_4U perturb sweep: " + json.dumps({
+            k: perturb[k]["rows_per_s"]
+            for k in ("sweep_float32", "sweep_bfloat16")}) + " rows/s")
+    print("peak max_memory_allocated of the committee campaigns: "
+          + json.dumps({n: peaks[n] for n in peaks
+                        if n.split("/")[-1] in COMMITTEE}))
     for r in rows:
         r["launches"] = f32[0][r["name"]] + bf16[0][r["name"]]
         r["launches_f32_campaign"] = f32[0][r["name"]]
@@ -1435,7 +1757,11 @@ def main() -> int:
                       "fim_sweep": sweep, "fim_sweep_bf16": sweep16,
                       "bf16_forward": bf16_fwd, "ckpt_codecs": codecs,
                       "resume": resume,
-                      "finetune_determinism": determinism}))
+                      "finetune_determinism": determinism,
+                      "mc_forward": mc_fwd, "mc_sweep": mc_sweep,
+                      "perturbation": perturb,
+                      "batch_selections": batch_select,
+                      "campaign_peak_bytes": peaks}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

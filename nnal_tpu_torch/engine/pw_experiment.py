@@ -22,11 +22,22 @@ right after the next round's ``score_select`` (nothing before that point
 mutates the weights).  The card's finetune runs with deterministic cuDNN
 algorithms, which replay's bit-identity needs.
 
+``ensemble`` and ``QBC-JS`` build their committee before each round's
+scoring (the ``committee`` phase): with an empty labeled set the members
+come from ``pretrained_paths`` / ``ensemble_paths`` or ``n_ensemble``
+fresh inits; otherwise ``n_ensemble`` deep copies of the current model,
+each with a fresh optimizer at the main state's step, are finetuned on
+the labeled set with their own streams (``rng_tag``), so the main model
+and its Adam state never move.  Every stochastic draw of a round is keyed
+on (seed, method, round) and the optimizer step, so a resumed campaign
+draws the same masks, noise and member streams.
+
 Runs on ``device`` (default: the card; CUDA missing raises).
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import time
 from typing import Dict, List, Optional
@@ -104,6 +115,9 @@ class PWExperiment:
         self._vols: Optional[List[np.ndarray]] = None
         self._mask: Optional[np.ndarray] = None
         self._padded: Optional[torch.Tensor] = None
+        # ensemble/QBC-JS committee: checkpoint paths (reference
+        # pretrained_paths + model_holder)
+        self.ensemble_paths: List[str] = []
 
     # ------------------------------------------------------------- data
     def attach_subject(self, vols, mask) -> None:
@@ -205,10 +219,12 @@ class PWExperiment:
         return j
 
     # ------------------------------------------------------------- training
-    def finetune(self, state: TrainState, train_inds) -> TrainState:
+    def finetune(self, state: TrainState, train_inds,
+                 rng_tag: str = "") -> TrainState:
         """Finetune on the labeled set (reference ``finetune``): gather and
         normalize it once (kernel K2 on the card), then run the round's
-        batch-index matrix."""
+        batch-index matrix.  ``rng_tag`` names a committee member's own
+        batch and dropout streams (``pw_experiment.py:251-252``)."""
         m = self.config.model
         if getattr(m, "opt_reset_per_round", False):
             state.optimizer.state.clear()
@@ -223,8 +239,8 @@ class PWExperiment:
             cw = inverse_frequency_weights(labels_all, m.nclass)
         # streams keyed on the replay-stable optimizer step, as in the JAX
         # package, so a resumed campaign shuffles identically
-        host = self.rng.fold(f"finetune-{state.step}").host
-        seed = self.rng.fold(f"finetune-dropout-{state.step}").next()
+        host = self.rng.fold(f"finetune-{rng_tag}{state.step}").host
+        seed = self.rng.fold(f"finetune-dropout-{rng_tag}{state.step}").next()
         dev = self.device
         x_all = gather_patches_normalized(
             self.padded(), torch.as_tensor(np.asarray(train_inds, np.int64)
@@ -242,6 +258,40 @@ class PWExperiment:
             finetune_steps(state, x_all, y_all, idx_mat, w_mat, cw_vec, gen,
                            compute_dtype=eval_compute_dtype(m.train_dtype))
         return state
+
+    def _ensemble_params(self, spec):
+        """The committee of ``ensemble_paths`` (None when unset)."""
+        if not self.ensemble_paths:
+            return None
+        return [self._load_model(spec, load_checkpoint(p)[0])
+                for p in self.ensemble_paths]
+
+    def _build_committee(self, spec, state: TrainState, train_inds,
+                         round_id: int) -> List[CNN]:
+        """The committee of ensemble/QBC-JS (``pw_experiment.py:821-859``):
+        with an empty labeled set, ``pretrained_paths`` or
+        ``ensemble_paths`` if given, else ``n_ensemble`` fresh inits;
+        otherwise ``n_ensemble`` copies of the current model, each with a
+        fresh optimizer at the main state's step, finetuned with its own
+        streams.  The copies share no tensor with the main state."""
+        m, q = self.config.model, self.config.query
+        if len(train_inds) == 0:
+            paths = list(q.pretrained_paths) or list(self.ensemble_paths)
+            if paths:
+                return [self._load_model(spec, load_checkpoint(p)[0])
+                        for p in paths]
+            return [init_cnn(spec, self.rng.fold(f"ens-init-{i}").next(),
+                             device=self.device)
+                    for i in range(q.n_ensemble)]
+        members = []
+        for i in range(q.n_ensemble):
+            mstate = init_train_state(copy.deepcopy(state.model),
+                                      m.optimizer_name, m.learning_rate)
+            mstate.step = state.step
+            self.finetune(mstate, train_inds,
+                          rng_tag=f"ens-{round_id}-{i}-")
+            members.append(mstate.model)
+        return members
 
     def _replay_to_round(self, j, state, al_state, train_inds, round_id):
         """Re-run the finetunes of journaled rounds the checkpoint does not
@@ -348,13 +398,30 @@ class PWExperiment:
             # per-round stateless stream: replayable from (seed, method,
             # round) alone
             qrng = self.rng.fold(f"query-{method_name}-{round_id}")
+            if method_name in ("ensemble", "QBC-JS"):
+                with timer.phase("committee"):
+                    committee = self._build_committee(spec, state,
+                                                      train_inds, round_id)
+            else:
+                committee = self._ensemble_params(spec)
+            m = cfg.model
             ctx = QueryContext(spec=spec, params=model, evaluator=evaluator,
                                pool_inds=pool_inds, k=k, rng=qrng.host,
                                B=cfg.query.B, lambda_=cfg.query.lambda_,
                                diag_load=float(cfg.query.diag_load),
-                               train_inds=train_inds)
+                               train_inds=train_inds, seed=qrng.next(),
+                               MC_iters=cfg.query.MC_iters,
+                               ensemble_params=committee,
+                               extra={"gaussian_noise_std":
+                                      m.gaussian_noise_std,
+                                      "rotation_angle": m.rotation_angle,
+                                      "output_perturbation_measure":
+                                      m.output_perturbation_measure})
             with timer.phase("score_select"):
                 q_pos = cnn_query(ctx, method_name)
+            # the committee's weights (and the copies' device memory) go
+            # with the round's scoring
+            del ctx, committee
             if writer is not None:
                 with timer.phase("checkpoint"):
                     # the previous round's save overlapped the scoring; it

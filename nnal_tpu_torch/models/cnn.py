@@ -15,8 +15,14 @@ Semantics kept from the JAX package:
 * fc layers flatten in (h, w, c) order, so the activation is permuted to
   channels-last before the first fc;
 * dropout (drop probability) follows every layer with ``dropout > 0`` —
-  for PW1 fc1, fc2 and the linear head fc3 — when ``train`` and a
-  generator are given; ``feature`` is the feature layer's output after it;
+  for PW1 fc1, fc2 and the linear head fc3 — when ``train`` or
+  ``mc_dropout`` (dropout alone, for MC-dropout scoring passes,
+  ``cnn.py:181-193``) and a generator are given; ``feature`` is the
+  feature layer's output after it.  The mask is JAX's ``bernoulli``:
+  ``u < keep`` for ``u`` uniform in f32 and ``keep = 1 - rate``, then
+  ``where(mask, h / keep, 0)`` at ``h``'s dtype (bf16 on bf16 sweeps).
+  The uniforms come from :func:`_dropout_uniform`, the one place they are
+  drawn;
 * the compute dtype is the input's (``apply_cnn(compute_dtype=...)`` casts
   the input, ``cnn.py:193-194``).  A bf16 input runs every conv and fc on
   bf16 operands (weights and biases cast per call) with an f32 result, adds
@@ -125,6 +131,16 @@ def _check_supported(spec: CNNSpec) -> None:
                 "norm, which are not ported")
 
 
+def _dropout_uniform(shape, generator: torch.Generator, device,
+                     layer_index: int) -> torch.Tensor:
+    """The f32 uniforms of one dropout mask, drawn from ``generator`` in
+    layer order.  ``layer_index`` is the spec row, the tag JAX folds into
+    its dropout key (``fold_in(key, i)``, ``cnn.py:230``); the port's own
+    stream does not need it, a test that feeds JAX's draws does."""
+    return torch.rand(shape, generator=generator, device=device,
+                      dtype=torch.float32)
+
+
 class CNN(nn.Module):
     """Sequential conv/pool/fc network; submodules are named after the spec
     rows (``conv1``, ``fc1``, ...) so ``state_dict`` keys are
@@ -165,12 +181,12 @@ class CNN(nn.Module):
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                nchw: bool = False) -> CNNOutput:
+                nchw: bool = False, mc_dropout: bool = False) -> CNNOutput:
         h = x if nchw else x.permute(0, 3, 1, 2)
         dt = h.dtype
         flat = False
         feature = None
-        use_dropout = train and generator is not None
+        use_dropout = (train or mc_dropout) and generator is not None
         for i, layer in enumerate(self.spec.layers):
             mod = getattr(self, layer.name, None)
             if layer.kind == "conv":
@@ -199,9 +215,13 @@ class CNN(nn.Module):
                 h = self.act(h)
             if layer.dropout > 0 and use_dropout:
                 keep = 1.0 - layer.dropout
-                mask = torch.rand(h.shape, generator=generator,
-                                  device=h.device) < keep
-                h = torch.where(mask, h / keep, torch.zeros_like(h))
+                mask = _dropout_uniform(h.shape, generator, h.device,
+                                        i) < keep
+                # a tensor divisor at h's dtype: JAX divides by the weakly
+                # typed keep rounded to h's dtype, and torch would turn a
+                # Python-scalar divisor into a reciprocal multiply
+                div = h.new_full((), keep)
+                h = torch.where(mask, h / div, torch.zeros_like(h))
             if i == self.spec.feature_layer:
                 feature = h.reshape(h.shape[0], -1)
         logits = h.float()

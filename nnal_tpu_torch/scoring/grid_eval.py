@@ -10,9 +10,19 @@ cheaper, else to the per-patch gather of :class:`PoolEvaluator` (kernel K2
 on the card).  Multi-slice patches (``d3 > 1``, odd) ride the same 2-D
 im2col by stacking each voxel's z-neighbours as channels, modality-major
 like the gather's ``(b, d1, d2, m*d3)`` layout.  ``fim_sweep`` scores the
-whole grid with the fused posterior + diag-FIM pass; ``perturb_sweep`` is
-not ported yet.  im2col and normalization stay f32 and a bf16
-``compute_dtype`` cast follows them (``grid_eval.py:72-76``).
+whole grid with the fused posterior + diag-FIM pass and ``perturb_sweep``
+with AU_4U's output-perturbation divergence.  im2col and normalization
+stay f32 and a bf16 ``compute_dtype`` cast follows them
+(``grid_eval.py:72-76``).
+
+Stochastic sweeps (MC dropout, perturbation noise) key each z-chunk's
+generator on the chunk's global index, as the JAX package folds
+``step_base + step`` into its key (``grid_eval.py:78``): a slab
+evaluation that starts at chunk c draws what the whole sweep draws for
+chunk c, so both routes give the same rows bit for bit.  Their ragged last
+chunk is zero-padded to ``z_chunk`` slices, as JAX pads the slice stack,
+so every chunk's draws have one shape.  The stride-1 clone of the
+off-grid route keeps its own chunking, as in JAX.
 """
 
 from __future__ import annotations
@@ -23,6 +33,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from nnal_tpu_torch.core import rng as core_rng
+from nnal_tpu_torch.models.perturb import measure_output_perturbation
 from nnal_tpu_torch.ops.scoring_fused import pool_score_fused
 from nnal_tpu_torch.scoring.pool_eval import (
     PoolEvaluator,
@@ -84,12 +96,43 @@ class GridPoolEvaluator(PoolEvaluator):
         self._mu_c = self.mu.repeat_interleave(d3)
         self._sd_c = self.sd.repeat_interleave(d3)
 
-    def _sweep_block(self, model, block, ops):
+    def _block(self, step: int, stochastic: bool):
+        """Z-chunk ``step`` of the slice stack; a stochastic sweep's ragged
+        last chunk is zero-padded to ``z_chunk`` slices."""
+        z0 = step * self.z_chunk
+        block = self._slices[z0:z0 + self.z_chunk]
+        pad = self.z_chunk - block.shape[0]
+        if stochastic and pad:
+            block = torch.cat([block, block.new_zeros(
+                (pad,) + tuple(block.shape[1:]))])
+        return block
+
+    def _extract(self, block):
         d1, d2, _ = self.patch_shape
         x = extract_normalize(block, d1, d2, self.grid_spacing, self._mu_c,
                               self._sd_c)
-        out = model(cast_input(x, self.compute_dtype), nchw=True)
+        return cast_input(x, self.compute_dtype)
+
+    def _sweep_block(self, model, step, ops, mc_rng=None):
+        """Chunk ``step``'s outputs; with ``mc_rng`` dropout is on, drawn
+        from the chunk's own generator."""
+        mc = mc_rng is not None
+        gen = (core_rng.key_generator(mc_rng, step, self.device)
+               if mc else None)
+        out = model(self._extract(self._block(step, mc)), nchw=True,
+                    mc_dropout=mc, generator=gen)
         return [select_output(out, op, self.spec.nclass) for op in ops]
+
+    def _n_steps(self) -> int:
+        return -(-self.nz // self.z_chunk)
+
+    def _require_sweep(self) -> None:
+        """The whole-grid sweeps' guard: even depths cannot sweep."""
+        if not self._sweep_ok:
+            raise ValueError(
+                f"d3={self.patch_shape[2]} is even: the channel-stacked "
+                "sweep cannot reproduce the clamped gather at the volume "
+                "border")
 
     def _grid_rows(self, inds: np.ndarray):
         """Raveled voxel indices -> full-grid row ids, or None if any index
@@ -129,10 +172,12 @@ class GridPoolEvaluator(PoolEvaluator):
         return (len(inds) * _DENSE_OFFGRID_RATIO
                 > slabs * s1 * s2 * self.z_chunk)
 
-    def _eval_slabs(self, model, rows: np.ndarray, ops
+    def _eval_slabs(self, model, rows: np.ndarray, ops, mc_rng=None
                     ) -> Dict[str, np.ndarray]:
         """One z-chunk sweep per slab that holds requested rows; the rows
-        are selected on the device so only they reach the host."""
+        are selected on the device so only they reach the host.  MC keys
+        fold the slab's global chunk id, so the rows equal the whole
+        sweep's bit for bit."""
         rows = np.asarray(rows, np.int64)
         slab_rows = self.nx * self.ny * self.z_chunk
         slab_ids = rows // slab_rows
@@ -141,9 +186,7 @@ class GridPoolEvaluator(PoolEvaluator):
             sel = np.nonzero(slab_ids == slab)[0]
             local = torch.as_tensor(rows[sel] - slab * slab_rows).to(
                 self.device)
-            z0 = int(slab) * self.z_chunk
-            outs = self._sweep_block(model,
-                                     self._slices[z0:z0 + self.z_chunk], ops)
+            outs = self._sweep_block(model, int(slab), ops, mc_rng)
             for op, o in zip(ops, outs):
                 arr = o[local].cpu().numpy()
                 if op not in results:
@@ -152,34 +195,35 @@ class GridPoolEvaluator(PoolEvaluator):
                 results[op][sel] = arr
         return results
 
-    def _whole_sweep(self, model, ops):
+    def _whole_sweep(self, model, ops, mc_rng=None):
         """Every grid row, one z-chunk at a time; one tensor per op with
-        ``nz*nx*ny`` rows in grid order."""
-        parts = [self._sweep_block(model, self._slices[z0:z0 + self.z_chunk],
-                                   ops)
-                 for z0 in range(0, self.nz, self.z_chunk)]
+        ``nz*nx*ny`` rows in grid order (a padded MC chunk's extra rows
+        trail)."""
+        parts = [self._sweep_block(model, step, ops, mc_rng)
+                 for step in range(self._n_steps())]
         return [torch.cat([p[i] for p in parts]) for i in range(len(ops))]
 
     @torch.no_grad()
     def evaluate(self, model, pool_inds, ops: Sequence[str] = ("posteriors",),
-                 as_device: bool = False) -> Dict:
+                 as_device: bool = False, *, mc_rng=None) -> Dict:
         ops = tuple(ops)
         rows = self._grid_rows(pool_inds) if self._sweep_ok else None
         if rows is None:
             if not as_device and self._sweep_ok \
                     and self._offgrid_dense_worthwhile(pool_inds):
                 ev1 = self if self.grid_spacing == 1 else self.with_spacing(1)
-                return ev1.evaluate(model, pool_inds, ops)
-            return super().evaluate(model, pool_inds, ops, as_device)
+                return ev1.evaluate(model, pool_inds, ops, mc_rng=mc_rng)
+            return super().evaluate(model, pool_inds, ops, as_device,
+                                    mc_rng=mc_rng)
         if not as_device and len(rows):
-            n_slabs = -(-self.nz // self.z_chunk)
+            n_slabs = self._n_steps()
             needed = len(np.unique(np.asarray(rows, np.int64)
                                    // (self.nx * self.ny * self.z_chunk)))
             # wide ops always slab; narrow ones only when at least half the
             # slabs can be skipped
             if (set(ops) & _WIDE_OPS) or needed <= n_slabs // 2:
-                return self._eval_slabs(model, rows, ops)
-        outs = self._whole_sweep(model, ops)
+                return self._eval_slabs(model, rows, ops, mc_rng)
+        outs = self._whole_sweep(model, ops, mc_rng)
         rows_d = torch.as_tensor(np.asarray(rows, np.int64)).to(self.device)
         return to_host({op: o[rows_d] for op, o in zip(ops, outs)},
                        as_device)
@@ -191,11 +235,7 @@ class GridPoolEvaluator(PoolEvaluator):
         ``{"p1", "uncertainty", "shrunk"}`` of length nz*nx*ny in grid
         order (z-major), as host arrays or, with ``as_device``, tensors.
         ``compute_dtype=None`` takes the evaluator's own (``:286-287``)."""
-        if not self._sweep_ok:
-            raise ValueError(
-                f"d3={self.patch_shape[2]} is even: the channel-stacked "
-                "sweep cannot reproduce the clamped gather at the volume "
-                "border")
+        self._require_sweep()
         cd = (compute_dtype if compute_dtype is not None
               else self.compute_dtype)
         d1, d2, _ = self.patch_shape
@@ -206,3 +246,24 @@ class GridPoolEvaluator(PoolEvaluator):
             parts.append(pool_score_fused(model, x, True, cd, nchw=True))
         return to_host({k: torch.cat([p[k] for p in parts])
                         for k in ("p1", "uncertainty", "shrunk")}, as_device)
+
+    @torch.no_grad()
+    def perturb_sweep(self, model, rng, teacher=None, measure: str = "CE",
+                      gaussian_std=0.05, rotation_angle=None,
+                      as_device: bool = False):
+        """AU_4U divergence for the WHOLE grid (``_grid_perturb_sweep``):
+        one :func:`measure_output_perturbation` per z-chunk at the
+        evaluator's compute dtype, its noise drawn from the chunk's own
+        generator (key ``rng``, tag the chunk's index).  Length
+        ``nz*nx*ny``, grid order."""
+        self._require_sweep()
+        parts = []
+        for step in range(self._n_steps()):
+            x = self._extract(self._block(step, True))
+            gen = core_rng.key_generator(rng, step, self.device)
+            parts.append(measure_output_perturbation(
+                model, x, gen, teacher=teacher, measure=measure,
+                gaussian_std=gaussian_std, rotation_angle=rotation_angle,
+                nchw=True))
+        divs = torch.cat(parts)[:self.nz * self.nx * self.ny]
+        return divs if as_device else divs.cpu().numpy()

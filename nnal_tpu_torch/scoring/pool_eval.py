@@ -10,6 +10,14 @@ keeps one compiled shape) would only add work.  With a bf16
 forward casts the weights per call (``pool_eval.py:28-59``): no bf16 copy
 of the weights outlives a call, so none can be older than the last
 finetune.
+
+MC-dropout passes (``mc_rng``, an integer key) run the same forward with
+``mc_dropout`` on.  Each chunk draws from its own generator, keyed on the
+key and the chunk's start ``lo`` as the JAX package folds it
+(``pool_eval.py:143``), so a chunk's masks do not depend on what ran
+before it; MC chunks keep the full ``ntb`` rows, the ragged last one
+padded with index 0 and trimmed as in JAX, so a row's mask depends only
+on (key, chunk, row).
 """
 
 from __future__ import annotations
@@ -19,7 +27,9 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
+from nnal_tpu_torch.core import rng as core_rng
 from nnal_tpu_torch.data.patches import gather_patches_normalized
+from nnal_tpu_torch.scoring.uncertainty import running_average
 
 
 def eval_compute_dtype(name):
@@ -77,18 +87,53 @@ class PoolEvaluator:
 
     @torch.no_grad()
     def evaluate(self, model, pool_inds, ops: Sequence[str] = ("posteriors",),
-                 as_device: bool = False) -> Dict:
+                 as_device: bool = False, *, mc_rng=None) -> Dict:
         """Sweep ``pool_inds`` in ``ntb`` chunks; returns one array per op
-        (numpy, or device tensors with ``as_device``)."""
-        inds = torch.as_tensor(np.asarray(pool_inds, np.int64)).to(
-            self.device)
+        (numpy, or device tensors with ``as_device``).  ``mc_rng`` (a key)
+        turns MC dropout on (see the module docstring)."""
+        inds_np = np.asarray(pool_inds, np.int64)
+        n = len(inds_np)
+        mc = mc_rng is not None
+        if mc and n % self.ntb:
+            inds_np = np.concatenate(
+                [inds_np, np.zeros(-n % self.ntb, np.int64)])
+        inds = torch.as_tensor(inds_np).to(self.device)
         chunks: Dict[str, list] = {op: [] for op in ops}
         for lo in range(0, len(inds), self.ntb):
             x = gather_patches_normalized(self.padded, inds[lo:lo + self.ntb],
                                           self.mu, self.sd, self.patch_shape,
                                           self.orig_shape)
-            out = model(cast_input(x, self.compute_dtype))
+            gen = (core_rng.key_generator(mc_rng, lo, self.device)
+                   if mc else None)
+            out = model(cast_input(x, self.compute_dtype), mc_dropout=mc,
+                        generator=gen)
             for op in ops:
                 chunks[op].append(select_output(out, op, self.spec.nclass))
-        return to_host({op: torch.cat(c) for op, c in chunks.items()},
+        return to_host({op: torch.cat(c)[:n] for op, c in chunks.items()},
                        as_device)
+
+
+def mc_average_posteriors(evaluator: PoolEvaluator, model, pool_inds,
+                          mc_iters: int, base_rng, as_device: bool = False):
+    """Running-averaged MC-dropout posteriors over the pool: pass ``i``
+    is keyed ``fold_key(base_rng, i)``, and the passes are averaged in the
+    reference's order, ``(p + i*avg) / (i+1)`` (PW_NNAL.py:67-87)."""
+    avg = 0.0
+    for i in range(int(mc_iters)):
+        p = evaluator.evaluate(model, pool_inds, ("posteriors",), True,
+                               mc_rng=core_rng.fold_key(base_rng, i)
+                               )["posteriors"]
+        avg = running_average(p, avg, i)
+    return avg if as_device else avg.cpu().numpy()
+
+
+def mc_stack_posteriors(evaluator: PoolEvaluator, model, pool_inds,
+                        mc_iters: int, base_rng, as_device: bool = False):
+    """``(T, n)`` stack of MC-dropout pool posteriors (for BALD), pass
+    ``i`` keyed as in :func:`mc_average_posteriors`."""
+    rows = torch.stack([
+        evaluator.evaluate(model, pool_inds, ("posteriors",), True,
+                           mc_rng=core_rng.fold_key(base_rng, i)
+                           )["posteriors"]
+        for i in range(int(mc_iters))])
+    return rows if as_device else rows.cpu().numpy()

@@ -1,33 +1,59 @@
 """Query-strategy dispatch for patch-wise AL (counterpart of
-``nnal_tpu/scoring/strategies.py:87-229``).
+``nnal_tpu/scoring/strategies.py``).
 
 Each strategy consumes a :class:`QueryContext` and returns positions into
-``ctx.pool_inds``.  The port has ``random``, ``entropy``, ``core-set`` and
-``fi``; any other name raises the dispatch's ``ValueError``.
+``ctx.pool_inds``.  The port has ``random``, ``entropy``, ``core-set``,
+``fi``, the stochastic family (``MC-entropy``, ``BALD``, ``BatchBALD``,
+``AU_4U``), the committees (``ensemble``, ``QBC-JS``) and the
+batch-diverse ``rep-entropy`` and ``BADGE``; any other name raises the
+dispatch's ``ValueError``.  Stochastic strategies key their device draws
+on ``ctx.seed`` (the counterpart of the JAX context's ``jax_rng``: the
+round's ``qrng.next()``), with the JAX package's fold tags.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from nnal_tpu_torch.core import rng as core_rng
 from nnal_tpu_torch.core.profiling import subphase
+from nnal_tpu_torch.data.patches import gather_patches_normalized
+from nnal_tpu_torch.models.perturb import measure_output_perturbation
+from nnal_tpu_torch.scoring.batchbald import batchbald_select
 from nnal_tpu_torch.scoring.fisher import refine_feature_matrix
 from nnal_tpu_torch.scoring.gradients import gather_shrunk_a_matrices
+from nnal_tpu_torch.scoring.grid_eval import GridPoolEvaluator
 from nnal_tpu_torch.scoring.pmf import sample_query_pmf
-from nnal_tpu_torch.scoring.pool_eval import PoolEvaluator
+from nnal_tpu_torch.scoring.pool_eval import (
+    PoolEvaluator,
+    mc_average_posteriors,
+    mc_stack_posteriors,
+)
 from nnal_tpu_torch.scoring.representative import (
     ROW_BUCKET,
+    badge_embeddings,
+    badge_kmeanspp,
     core_set_select,
     cross_max_similarities,
     normalize_rows,
     pad_inds_repeat,
+    rep_entropy_from_features,
 )
 from nnal_tpu_torch.scoring.sdp import fi_query_distribution
-from nnal_tpu_torch.scoring.uncertainty import binary_uncertainty_filter
+from nnal_tpu_torch.scoring.uncertainty import (
+    bald_scores_bucketed,
+    binary_uncertainty_filter,
+    running_average,
+)
+
+# fold tags of the JAX package (``strategies.py:50-51``, ``:216``):
+# BatchBALD's configuration draws and BADGE's k-means++ draws
+_BB_CFG_FOLD = (1 << 20) + 13
+_BADGE_FOLD = 7
 
 
 @dataclass
@@ -44,6 +70,10 @@ class QueryContext:
     lambda_: float = 0.0                  # fi's representativeness weight
     diag_load: float = 1e-5               # fi's A-matrix diagonal load
     train_inds: Optional[np.ndarray] = None
+    seed: int = 0                         # device draws (JAX's jax_rng)
+    MC_iters: int = 10
+    ensemble_params: Optional[List[torch.nn.Module]] = None  # committee
+    extra: Dict = field(default_factory=dict)
 
 
 _STRATEGIES: Dict[str, Callable] = {}
@@ -150,3 +180,143 @@ def _fi(ctx: QueryContext):
     with subphase("fi/pmf"):
         picks = sample_query_pmf(q, ctx.k, ctx.rng, replacement=True)
     return sel[picks]
+
+
+@register_strategy("MC-entropy")
+def _mc_entropy(ctx: QueryContext):
+    avg = mc_average_posteriors(ctx.evaluator, ctx.params, ctx.pool_inds,
+                                ctx.MC_iters, ctx.seed, as_device=True)
+    return binary_uncertainty_filter(avg, ctx.k)
+
+
+def _mc_bald(ctx: QueryContext):
+    """The ``(T, n)`` MC stack on the device and its BALD scores on the
+    host."""
+    mc = mc_stack_posteriors(ctx.evaluator, ctx.params, ctx.pool_inds,
+                             ctx.MC_iters, ctx.seed, as_device=True)
+    return mc, bald_scores_bucketed(mc)
+
+
+@register_strategy("BALD")
+def _bald(ctx: QueryContext):
+    _, scores = _mc_bald(ctx)
+    return np.argsort(-scores, kind="stable")[:ctx.k]
+
+
+@register_strategy("BatchBALD")
+def _batchbald(ctx: QueryContext):
+    """Greedy joint MI over the top-B BALD candidates of the same MC
+    stack (``scoring/batchbald.py``), on the stack's device."""
+    mc, scores = _mc_bald(ctx)
+    B = min(ctx.B, len(ctx.pool_inds))
+    sel = np.argsort(-scores, kind="stable")[:B]
+    sel_t = torch.as_tensor(sel).to(mc.device)
+    chosen = batchbald_select(
+        mc[:, sel_t], min(ctx.k, B),
+        core_rng.key_generator(ctx.seed, _BB_CFG_FOLD, mc.device))
+    return sel[chosen]
+
+
+@register_strategy("rep-entropy")
+def _rep_entropy(ctx: QueryContext):
+    """Uncertainty filter to B, then greedy representativeness of the
+    candidates against the rest of the pool (reference
+    PW_NNAL.py:284-351), features on the device."""
+    n = len(ctx.pool_inds)
+    res = ctx.evaluator.evaluate(ctx.params, ctx.pool_inds,
+                                 ("posteriors", "feature_layer"),
+                                 as_device=True)
+    B = min(ctx.B, n)
+    sel = binary_uncertainty_filter(res["posteriors"], B)
+    rest = np.setdiff1d(np.arange(n), sel)
+    if len(rest) == 0:
+        return sel[:ctx.k]
+    return sel[rep_entropy_from_features(res["feature_layer"], rest, sel,
+                                         min(ctx.k, B))]
+
+
+@register_strategy("BADGE")
+def _badge(ctx: QueryContext):
+    """Uncertainty filter to B, then k-means++ over the candidates'
+    hallucinated last-layer gradient embeddings (f32, on the device)."""
+    res = ctx.evaluator.evaluate(ctx.params, ctx.pool_inds,
+                                 ("posteriors", "feature_layer"),
+                                 as_device=True)
+    p1 = res["posteriors"]
+    B = min(ctx.B, len(ctx.pool_inds))
+    sel = binary_uncertainty_filter(p1, B)
+    sel_t = torch.as_tensor(sel).to(p1.device)
+    E = badge_embeddings(res["feature_layer"][sel_t], p1[sel_t])
+    chosen = badge_kmeanspp(
+        E, min(ctx.k, len(sel)),
+        core_rng.key_generator(ctx.seed, _BADGE_FOLD, p1.device))
+    return sel[chosen]
+
+
+def _committee_posteriors(ctx: QueryContext) -> torch.Tensor:
+    """(E, n) pool posteriors across the committee (reference
+    PW_NNAL.py:453-545), on the evaluator's device."""
+    if not ctx.ensemble_params:
+        raise ValueError("ensemble methods need ensemble_params")
+    return torch.stack([
+        ctx.evaluator.evaluate(m, ctx.pool_inds, ("posteriors",),
+                               as_device=True)["posteriors"]
+        for m in ctx.ensemble_params])
+
+
+@register_strategy("ensemble")
+def _ensemble(ctx: QueryContext):
+    """Average the committee's posteriors in the reference's running
+    order, then the binary uncertainty filter."""
+    posts = _committee_posteriors(ctx)
+    avg = 0.0
+    for i in range(posts.shape[0]):
+        avg = running_average(posts[i], avg, i)
+    return binary_uncertainty_filter(avg, ctx.k)
+
+
+@register_strategy("QBC-JS")
+def _qbc_js(ctx: QueryContext):
+    scores = bald_scores_bucketed(_committee_posteriors(ctx))
+    return np.argsort(-scores, kind="stable")[:ctx.k]
+
+
+def _au_4u_scores(ctx: QueryContext) -> np.ndarray:
+    """Per-pool-voxel AU_4U divergence (higher = more unstable): the grid
+    sweep for grid pools, else ``ntb`` chunks through the per-patch
+    gather (K2 on the card), each chunk's noise keyed on its start, as
+    in JAX (``strategies.py:338-380``)."""
+    ev = ctx.evaluator
+    _require_patch_evaluator(ev, "AU_4U")
+    kw = dict(teacher=ctx.extra.get("teacher_params"),
+              measure=ctx.extra.get("output_perturbation_measure", "CE"),
+              gaussian_std=ctx.extra.get("gaussian_noise_std", 0.05),
+              rotation_angle=ctx.extra.get("rotation_angle"))
+    rows = (ev._grid_rows(ctx.pool_inds)
+            if isinstance(ev, GridPoolEvaluator) and ev._sweep_ok else None)
+    if rows is not None:
+        return ev.perturb_sweep(ctx.params, ctx.seed, **kw)[rows]
+    # the off-grid fallback runs f32, as in JAX; the ragged tail is padded
+    # to a whole chunk so every chunk's noise has one shape
+    n = len(ctx.pool_inds)
+    inds = np.concatenate([np.asarray(ctx.pool_inds, np.int64),
+                           np.zeros(-n % ev.ntb, np.int64)])
+    inds_t = torch.as_tensor(inds).to(ev.device)
+    scores = []
+    for lo in range(0, len(inds), ev.ntb):
+        x = gather_patches_normalized(ev.padded, inds_t[lo:lo + ev.ntb],
+                                      ev.mu, ev.sd, ev.patch_shape,
+                                      ev.orig_shape)
+        scores.append(measure_output_perturbation(
+            ctx.params, x, core_rng.key_generator(ctx.seed, lo, ev.device),
+            **kw))
+    return torch.cat(scores)[:n].cpu().numpy()
+
+
+@register_strategy("AU_4U")
+def _au_4u(ctx: QueryContext):
+    """Output-perturbation uncertainty (reference AU_4U,
+    NN_extended.py:913,1502): the k pool patches whose posterior moves
+    most under noise and/or rotation."""
+    scores = _au_4u_scores(ctx)
+    return np.argsort(-scores, kind="stable")[:ctx.k]

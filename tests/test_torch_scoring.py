@@ -158,4 +158,4 @@ def test_unknown_strategy_raises():
                               pool_inds=np.arange(3), k=1,
                               rng=np.random.default_rng(0))
     with pytest.raises(ValueError, match="unknown query method"):
-        tstrat.cnn_query(ctx, "BALD")
+        tstrat.cnn_query(ctx, "no-such-method")
