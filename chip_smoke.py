@@ -34,7 +34,14 @@ Phases, each of which passes or exits non-zero:
    passes over 131,072 rows, f32 and bf16), ``rotate_2d`` (1e-5 at 0.3
    rad and pi/2), AU_4U's CE and L2 (1e-4) and the perturb sweep's
    rows/s, and BatchBALD (T 10 x 200), rep-entropy and BADGE (200
-   candidates of 1024 patches) with identical picks;
+   candidates of 1024 patches) with identical picks; and one finetune
+   step of each training lever from the same PW1 weights and 128-patch
+   labeled and unlabeled batches, card vs host with the same dropout
+   uniforms and aleatoric normals (``KeyedDraws``), plain SGD: the mean
+   teacher, CE and MSE (loss 1e-4, params and the EMA teacher 1e-5),
+   LwF and the aleatoric CE (loss and params 1e-5), ``train_layers``
+   [fc1, fc2, fc3] (conv weights bit-identical), then each lever's
+   seconds per Adam step beside the plain step's;
 6. FIM parity, card vs host (the same port code with ``device="cpu"``):
    ``pool_score_fused`` on 256 gathered PW1 25x25x2 patches (p1 atol
    1e-4; shrunk per layer column within 1e-4 of the column's max |.|),
@@ -56,10 +63,17 @@ Phases, each of which passes or exits non-zero:
    ``BALD``, ``BatchBALD``, ``ensemble``, ``QBC-JS``, ``AU_4U`` (and
    once more with a 0.3 rad rotation), ``rep-entropy`` and ``BADGE`` at
    the JAX package's defaults (MC_iters 10, n_ensemble 5, B 200, noise
-   std 0.05, CE); launch counts are zeroed just before and read just
+   std 0.05, CE), and the training levers: ``entropy`` with the mean
+   teacher (coefficient 1, CE, ramp 20, EMA 0.99, 128 unlabeled patches a
+   step, mirrored to TensorBoard), with LwF (lambda 1, T 2) and with the
+   aleatoric head (``mc_t`` 10), and ``random`` with ``train_layers``
+   [fc1, fc2, fc3]; launch counts are zeroed just before and read just
    after, and every kernel must have launched (K2 at least 4 times in
-   fi, at least 2 x (n_ensemble + 1) in each committee method, whose
-   rounds must hold a ``committee`` phase);
+   fi and in the mean teacher's run, at least 2 x (n_ensemble + 1) in
+   each committee method, whose rounds must hold a ``committee``
+   phase); the mean teacher's ``teacher/`` group must be saved, and
+   ``train_layers`` must leave every conv weight bit-identical to round
+   0's;
 9. bf16 (``model.dtype`` bfloat16): PW1 posteriors on 1024 patches card
    vs host (max 2e-2, mean 2e-3: the card rounds each conv's sum before
    the bias) and against f32, plus the fcs' f32-output bf16 GEMM and its
@@ -72,20 +86,27 @@ Phases, each of which passes or exits non-zero:
 11. the checkpoint codecs on the f32 campaign's entropy state (Adam
    moments included): ``round_trip_bf16`` / ``round_trip_int8`` on the
    card bit-equal to the numpy encode, the card's file encode equal to
-   the host's, and the seconds and bytes of one save at f32, bf16, int8;
-12. the bf16 campaign: 2 rounds each of entropy, core-set, BALD and
-   QBC-JS (bf16 anchors) and fi (int8 anchors), bf16 sweeps (MC ones
-   too) and finetunes (the committee's too), ``ckpt_full_every`` 2,
+   the host's, and the seconds and bytes of one save at f32, bf16, int8,
+   also with a mean teacher's group;
+12. the bf16 campaign: 2 rounds each of entropy, core-set, BALD,
+   QBC-JS and entropy with the mean teacher (bf16 anchors, the teacher's
+   too) and fi (int8 anchors), bf16 sweeps (MC ones too) and finetunes
+   (the committee's and the teacher's forwards too), ``ckpt_full_every``
+   2,
    ``async_checkpoint``; its launch counts are zeroed before and read
    after it, and K1 and K2 must launch;
 13. resume == continue: a 4-round random campaign with int8 anchors every
    3 rounds, run uninterrupted and then crashed after round 3 and
    resumed by replay in a fresh ``PWExperiment``: the final
    ``curr_weights.npz``, the query journal and ``perf_evals.txt`` must be
-   bit-identical; and the finetune's seconds with and without
+   bit-identical; again with the mean teacher (its int8 ``teacher/``
+   group included); and the finetune's seconds with and without
    deterministic cuDNN, interleaved in one process;
 14. lines with the new methods' per-round seconds, the MC and perturb
-   sweeps' rates and the committee campaigns' peak memory, then one
+   sweeps' rates, the committee campaigns' peak memory, the lever runs'
+   per-round seconds, each lever's seconds per finetune step, the
+   checkpoint bytes with the teacher, and whether the TensorBoard mirror
+   was active (it needs the ``tensorboard`` package), then one
    ``phases`` JSON line (per-round seconds from ``phases.jsonl`` of both
    campaigns, build seconds, K1's SASS counts, the FIM, bf16, codec,
    resume, MC, perturbation and selection phases) and one ``kernels``
@@ -135,6 +156,7 @@ from nnal_tpu_torch.data.patches import pad_volumes
 from nnal_tpu_torch.engine import pw_experiment
 from nnal_tpu_torch.models import checkpoint as ckpt
 from nnal_tpu_torch.models import cnn as cnn_mod
+from nnal_tpu_torch.models import losses as losses_mod
 from nnal_tpu_torch.models import perturb as perturb_mod
 from nnal_tpu_torch.models.bridge import (
     from_jax_params,
@@ -143,16 +165,22 @@ from nnal_tpu_torch.models.bridge import (
 )
 from nnal_tpu_torch.models.cnn import CNN, init_cnn, linear_f32acc
 from nnal_tpu_torch.models.optim import (
+    layer_train_mask,
     load_opt_state,
     make_optimizer,
     opt_state_leaves,
     opt_state_tensors,
 )
-from nnal_tpu_torch.models.specs import create_pw1
+from nnal_tpu_torch.models.specs import create_pw1, with_aleatoric_head
+from nnal_tpu_torch.models.surgery import extend_params_to_aleatoric
 from nnal_tpu_torch.models.train import (
+    LwF,
+    MeanTeacher,
+    TrainState,
     build_batch_index_matrix,
     finetune_steps,
     init_train_state,
+    make_teacher,
 )
 from nnal_tpu_torch.scoring.grid_eval import GridPoolEvaluator
 from nnal_tpu_torch.ops.gather import (
@@ -212,7 +240,21 @@ F32_RUNS = (tuple((m, OVERRIDES_FI if m == "fi" else OVERRIDES)
                   for m in METHODS)
             + tuple((m, OVERRIDES_NEW) for m in NEW_METHODS)
             + (("AU_4U@rotation", OVERRIDES_NEW + ",rotation_angle=0.3"),))
-# resume == continue: 4 rounds of random, int8 anchors every 3 rounds
+# the training levers: the mean teacher (mirrored to TensorBoard), LwF,
+# the aleatoric head and train_layers, 2 rounds each
+TB_DIR = os.path.join(ROOT, "_smoke_expr", "tb")
+MT = (",consistency_coeff=1.0,consistency_measure=CE,consistency_ramp=20,"
+      "ema_decay=0.99,unlabeled_batch=128")
+FC_LAYERS = ["fc1", "fc2", "fc3"]
+LEVER_RUNS = (("entropy@mt", OVERRIDES + MT + f",tb_logdir={TB_DIR}"),
+              ("entropy@lwf", OVERRIDES + ",lwf_lambda=1.0,lwf_T=2"),
+              ("entropy@aleatoric", OVERRIDES + ",aleatoric=true,mc_t=10"),
+              ("random@train_layers",
+               OVERRIDES + ",train_layers=[fc1,fc2,fc3]"))
+F32_RUNS += LEVER_RUNS
+BF16_RUNS += (("entropy@mt", OVERRIDES + BF16 + ",ckpt_dtype=bfloat16" + MT),)
+# resume == continue: 4 rounds of random, int8 anchors every 3 rounds;
+# again with the mean teacher
 RESUME_OVERRIDES = OVERRIDES + ",ckpt_full_every=3,ckpt_dtype=int8"
 TOP_B = 1024
 SWEEP_SHAPE = (256, 256, 64)        # bench.py's subject
@@ -736,8 +778,44 @@ class HostDraws:
         return self
 
     def __exit__(self, *exc):
-        for m, n, f in self.saved:
+        for m, n, f in reversed(self.saved):
             setattr(m, n, f)
+
+
+class _Key:
+    """Stands in for a ``torch.Generator``: carries the key it was made
+    from."""
+
+    def __init__(self, key):
+        self.key = key
+
+
+class KeyedDraws(HostDraws):
+    """:class:`HostDraws` for the finetune: ``core_rng.key_generator``
+    hands out its key, and the dropout uniforms and the aleatoric normals
+    are numpy draws keyed on it, so the labeled pass, the student's
+    unlabeled pass and the aleatoric noise each draw their own values,
+    the same on the card and the host."""
+
+    def __enter__(self):
+        super().__enter__()
+        self.saved += [(m, n, getattr(m, n)) for m, n in (
+            (core_rng, "key_generator"), (cnn_mod, "_dropout_uniform"),
+            (losses_mod, "_aleatoric_normal"))]
+        fold = core_rng.fold_key
+
+        def t(a, device):
+            return torch.from_numpy(np.asarray(a)).to(device)
+
+        core_rng.key_generator = lambda key, tag, device: _Key(
+            fold(key, tag))
+        cnn_mod._dropout_uniform = lambda shape, gen, device, i: t(
+            self._rng(5, gen.key, i).random(tuple(shape), np.float32),
+            device)
+        losses_mod._aleatoric_normal = lambda shape, gen, device: t(
+            self._rng(6, gen.key).standard_normal(tuple(shape), np.float32),
+            device)
+        return self
 
 
 def phase_mc_forward(dev, n=1024):
@@ -769,6 +847,141 @@ def phase_mc_forward(dev, n=1024):
     res = {"patches": n, "p_card_vs_host_max": err,
            "mc_vs_deterministic_max": moved, "rate0_bit_equal": same}
     print(f"MC forward ok: {json.dumps(res)}")
+    return res
+
+
+def _lever_model(case, device):
+    """PW1 25x25x2 from seed 0 on ``device``; for the aleatoric case with
+    the head added by ``surgery`` (log-sigma columns zero: sigma 1)."""
+    spec = create_pw1(2, 0.5, (25, 25, 2))
+    model = init_cnn(spec, seed=0, device="cpu")
+    if case.get("aleatoric"):
+        params = extend_params_to_aleatoric(
+            to_jax_params(model.state_dict()), "fc3")
+        model = CNN(with_aleatoric_head(spec))
+        model.load_state_dict(from_jax_params(params))
+    return model.to(device)
+
+
+LEVER_CASES = {"mt-CE": {"mt": "CE"}, "mt-MSE": {"mt": "MSE"},
+               "lwf": {"lwf": True}, "aleatoric": {"aleatoric": True},
+               "train_layers": {"train_layers": True}}
+
+
+def _lever_state(case, device, x, xu, old, opt="SGD"):
+    """A train state for ``case`` on ``device`` and the step's levers: the
+    teacher is the model plus the same numpy noise on either device."""
+    model = _lever_model(case, device)
+    state = TrainState(model, make_optimizer(opt, 1e-3, model.parameters()))
+    kw = {"mc_t": 10}
+    if "mt" in case:
+        state.teacher = make_teacher(model)
+        noise = np.random.default_rng(4)
+        with torch.no_grad():
+            for p in state.teacher.parameters():
+                p.add_(torch.from_numpy(noise.normal(
+                    scale=0.02, size=tuple(p.shape)).astype(np.float32)
+                ).to(device))
+        kw["mt"] = MeanTeacher(
+            xu_all=xu.to(device), u_idx=np.arange(xu.shape[0])[None],
+            coeff=1.0, measure=case["mt"], ramp=20, ema_decay=0.99,
+            step0=10)
+    if case.get("lwf"):
+        kw["lwf"] = LwF(old.to(device), 1.0, 2.0)
+    if case.get("train_layers"):
+        kw["grad_mask"] = layer_train_mask(model, FC_LAYERS)
+    return state, kw
+
+
+def phase_train_levers(dev, n=128, reps=5):
+    """One finetune step of each training lever on PW1 25x25x2 from the
+    same weights and the same 128-patch labeled and unlabeled batches,
+    card vs host, with the same dropout uniforms and aleatoric normals
+    fed to both (:class:`KeyedDraws`), plain SGD at lr 1e-3: the mean
+    teacher (CE and MSE; loss within 1e-4, params and the EMA teacher
+    within 1e-5), LwF and the aleatoric CE (loss within 1e-5, params
+    within 1e-5), and ``train_layers`` [fc1, fc2, fc3] (conv weights
+    bit-identical before and after).  Then the card's seconds per Adam
+    step of each lever beside the plain step's, on a 384-patch labeled
+    set (3 steps of 128) and, for the mean teacher, 256 unlabeled
+    patches."""
+    x = _patches(dev, n, seed=1)
+    xu = _patches(dev, n, seed=2)
+    y = torch.from_numpy(np.eye(2, dtype=np.float32)[
+        np.random.default_rng(3).integers(0, 2, n)])
+    with torch.no_grad():
+        old = init_cnn(create_pw1(2, 0.5, (25, 25, 2)), seed=1,
+                       device="cpu")(x.cpu()).logits
+    idx, w = np.arange(n)[None], np.ones((1, n), np.float32)
+    res = {}
+    for name, case in LEVER_CASES.items():
+        out = {}
+        for side, d in (("card", dev), ("host", torch.device("cpu"))):
+            state, kw = _lever_state(case, d, x, xu, old)
+            before = {k: v.clone() for k, v in
+                      state.model.state_dict().items()}
+            with KeyedDraws(21), deterministic_cudnn():
+                loss = finetune_steps(state, x.to(d), y.to(d), idx, w,
+                                      torch.ones(2, device=d), 1234, **kw)
+            after = state.model.state_dict()
+            out[side] = {
+                "loss": loss[0], "params": to_jax_params(after),
+                "teacher": (None if state.teacher is None else
+                            to_jax_params(state.teacher.state_dict())),
+                "convs_unchanged": all(
+                    torch.equal(after[k], before[k]) for k in after
+                    if k.startswith("conv"))}
+        g, h = out["card"], out["host"]
+
+        def maxdiff(a, b):
+            return max(float(np.abs(a[l][k] - b[l][k]).max())
+                       for l in a for k in a[l])
+
+        r = {"loss_card": g["loss"], "loss_host": h["loss"],
+             "loss_err": abs(g["loss"] - h["loss"]),
+             "params_err": maxdiff(g["params"], h["params"])}
+        if g["teacher"] is not None:
+            r["teacher_err"] = maxdiff(g["teacher"], h["teacher"])
+        if case.get("train_layers"):
+            r["convs_bit_identical"] = (g["convs_unchanged"]
+                                        and h["convs_unchanged"])
+            check(r["convs_bit_identical"], f"train_layers moved a conv: {r}")
+        loss_tol = 1e-4 if "mt" in case else 1e-5
+        check(np.isfinite(g["loss"]) and r["loss_err"] <= loss_tol
+              and r["params_err"] <= 1e-5
+              and r.get("teacher_err", 0.0) <= 1e-5,
+              f"{name} step card vs host: {r}")
+        res[name] = r
+    # seconds per Adam step on the card, each lever beside the plain step
+    xl = _patches(dev, 384, seed=4)
+    yl = torch.from_numpy(np.eye(2, dtype=np.float32)[
+        np.random.default_rng(5).integers(0, 2, 384)]).to(dev)
+    xu2 = _patches(dev, 256, seed=6)
+    idx_mat, w_mat = build_batch_index_matrix(384, 128, 1,
+                                              np.random.default_rng(0))
+    steps = int((w_mat.sum(1) > 0).sum())
+    with torch.no_grad():
+        old_l = init_cnn(create_pw1(2, 0.5, (25, 25, 2)), seed=1,
+                         device=dev)(xl).logits
+    timing = {}
+    for name, case in {"plain": {}, **LEVER_CASES}.items():
+        state, kw = _lever_state(case, dev, xl, xu2, old_l, opt="Adam")
+        if "mt" in kw:
+            kw["mt"].u_idx = np.random.default_rng(7).integers(
+                0, 256, size=(idx_mat.shape[0], 128))
+        times = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with deterministic_cudnn():
+                finetune_steps(state, xl, yl, idx_mat, w_mat,
+                               torch.ones(2, device=dev), 99, **kw)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        timing[name] = float(np.median(times[1:])) / steps
+    res["seconds_per_step"] = timing
+    res["steps_per_finetune"] = steps
+    print(f"training levers ok: {json.dumps(res)}")
     return res
 
 
@@ -1334,9 +1547,7 @@ def phase_fim_sweep(dev, n_check=64, cd=None, ref_unc=None):
 
 
 def phase_campaign(dev):
-    """Each method in its own experiment directory (a reloaded
-    ``parameters.txt`` does not carry ``synthetic_shape``): the f32
-    campaign, the checkpoint codecs on its entropy state, then the bf16
+    """Each run in its own experiment directory: the f32 campaign, the checkpoint codecs on its entropy state, then the bf16
     campaign, each with the launch counts zeroed just before it and read
     just after.  A run's ~0.2-0.4 GB checkpoints are removed once it is
     checked (the f32 entropy state after the codecs), the directories at
@@ -1355,15 +1566,19 @@ def phase_campaign(dev):
 
 
 def _campaign(dev, top, runs, tag):
-    """Each run in its own directory; a run's name is its method, with an
-    ``@variant`` suffix for a second configuration of the same method.
-    Returns the launch counts, phases, seconds, per-run launches and each
-    run's peak device memory (``max_memory_allocated``)."""
+    """Each run in its own directory (the runs differ in their overrides,
+    and a directory's ``parameters.txt`` fixes its configuration); a run's
+    name is its method, with an ``@variant`` suffix for a second
+    configuration of the same method.  Returns the launch counts, phases,
+    seconds, per-run launches, each run's peak device memory
+    (``max_memory_allocated``) and notes (whether the TensorBoard mirror
+    wrote events)."""
     counts = {}
     seconds = {}
     phases = {}
     by_method = {}
     peaks = {}
+    notes = {}
     ops.reset_launch_counts()
     for name, overrides in runs:
         method = name.split("@")[0]
@@ -1439,7 +1654,28 @@ def _campaign(dev, top, runs, tag):
                 check(al["round"] == 2 and any(k.endswith(mark)
                                                for k in z.files),
                       f"{key}: anchor {al}, keys {z.files[:4]}")
-        if tag or method != "entropy":
+        curr = os.path.join(root, method, "curr_weights.npz")
+        if "consistency_coeff" in overrides:
+            # each MT round gathers the labeled set and 256 unlabeled
+            # patches through K2
+            check(dk2 >= 4, f"{key}: K2 launched {dk2} times in 2 MT rounds")
+            with np.load(curr) as z:
+                check(any(k.startswith("teacher/") for k in z.files),
+                      f"{key}: no teacher group in {z.files[:6]}")
+        if "train_layers" in overrides:
+            p_end = ckpt.load_checkpoint(curr)[0]
+            p_0 = ckpt.load_checkpoint(os.path.join(root,
+                                                    "init_weights.npz"))[0]
+            frozen = {l: all(np.array_equal(p_end[l][k], p_0[l][k])
+                             for k in ("W", "b")) for l in p_end}
+            check(all(v == l.startswith("conv") for l, v in frozen.items()),
+                  f"{key}: layers unchanged since round 0: {frozen}")
+            notes[key + " convs_bit_identical"] = True
+        if "tb_logdir" in overrides:
+            tb = os.path.join(TB_DIR, method)
+            notes["tensorboard_active"] = os.path.isdir(tb) and any(
+                f.startswith("events.out.tfevents") for f in os.listdir(tb))
+        if tag or method != "entropy" or "@" in name:
             # the codecs phase reads the f32 entropy state; the rest of
             # the ~0.4 GB checkpoints go now
             _drop_checkpoints(root)
@@ -1451,7 +1687,7 @@ def _campaign(dev, top, runs, tag):
         counts[k.name] = k.launches
         check(k.launches > 0,
               f"{k.name} never launched in the {tag or 'f32/'} campaign")
-    return counts, phases, seconds, by_method, peaks
+    return counts, phases, seconds, by_method, peaks, notes
 
 
 def _drop_checkpoints(root):
@@ -1546,6 +1782,18 @@ def phase_ckpt_codecs(dev, path, top):
                       f"{dt}: the card's file encode differs from the host's")
             os.remove(h)
         os.remove(f)
+    for dt in ("float32", "bfloat16", "int8"):
+        # the mean teacher's resume point: one more copy of the params
+        f = os.path.join(top, f"codec_{dt}_teacher.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(f, to_jax_tensors(sd), al_state={"round": 1},
+                             teacher_params=to_jax_tensors(sd),
+                             opt_state=opt_state_tensors(opt, model),
+                             dtype=dt)
+        res[f"{dt}_with_teacher"] = {"seconds": time.perf_counter() - t0,
+                                     "bytes": os.path.getsize(f)}
+        os.remove(f)
     f = os.path.join(top, "codec_int8_noopt.npz")
     t0 = time.perf_counter()
     ckpt.save_checkpoint(f, to_jax_tensors(sd), dtype="int8")
@@ -1586,7 +1834,7 @@ def phase_determinism_cost(dev, n=384, reps=7):
                 t0 = time.perf_counter()
                 with ctx:
                     finetune_steps(states[det], x, y, idx_mat, w_mat,
-                                   torch.ones(2, device=dev), gen,
+                                   torch.ones(2, device=dev), 7,
                                    compute_dtype=cd)
                 torch.cuda.synchronize()
                 times[det].append(time.perf_counter() - t0)
@@ -1612,19 +1860,22 @@ def _suppressed_resume_writes(orig):
     return patched, dropped
 
 
-def phase_resume(dev):
+def phase_resume(dev, mt=False):
     """resume == continue on the card (``tests/test_ckpt_every.py``): a
     4-round random campaign with int8 anchors every 3 rounds runs once
     uninterrupted; a second run loses its resume-point writes for 3
     rounds (the round-3 anchor was adopted live but never landed), then a
     fresh ``PWExperiment`` replays from the initial weights to round 4.
     The final ``curr_weights.npz``, the query journal and
-    ``perf_evals.txt`` must be bit-identical."""
+    ``perf_evals.txt`` must be bit-identical.  ``mt``: the same under the
+    mean teacher, whose int8 ``teacher/`` group must be in the file (the
+    replay rebuilds the teacher from the initial weights)."""
     top = os.path.join(ROOT, "_smoke_expr", "resume")
     shutil.rmtree(top, ignore_errors=True)
     vols, mask = synthetic_subject(shape=SHAPE, n_modalities=2, n_blobs=3,
                                    seed=0)
-    cfg_pars = set_parameters(DEFAULT_PARS, RESUME_OVERRIDES)
+    cfg_pars = set_parameters(DEFAULT_PARS,
+                              RESUME_OVERRIDES + (MT if mt else ""))
 
     def fresh(root):
         expr = pw_experiment.PWExperiment(
@@ -1674,9 +1925,11 @@ def phase_resume(dev):
                "entries": len(wa), "differing_entries": diff,
                "queries_equal": qa == qb, "perf_evals_equal": ea == eb,
                "uninterrupted_s": a_s, "resume_with_replay_s": resume_s,
-               "al_state": json.loads(wa["__al_state__"].tobytes().decode())}
+               "al_state": json.loads(wa["__al_state__"].tobytes().decode()),
+               "mean_teacher": mt}
         check(not diff and qa == qb and ea == eb and len(qa) == 4
-              and any(k.endswith("@i8") for k in wa),
+              and any(k.endswith("@i8") for k in wa)
+              and (not mt or "teacher/fc1/W@i8" in wa),
               f"resume != continue on the card: {res}")
         print(f"resume == continue ok: {json.dumps(res)}")
         return res
@@ -1713,6 +1966,7 @@ def main() -> int:
     phase_forward(dev)
     bf16_fwd = phase_bf16_forward(dev)
     mc_fwd = phase_mc_forward(dev)
+    levers = phase_train_levers(dev)
     mc_sweep = phase_mc_sweep(dev)
     perturb = phase_perturb(dev)
     batch_select = phase_batch_select(dev)
@@ -1722,13 +1976,15 @@ def main() -> int:
     del unc32
     f32, bf16, codecs = phase_campaign(dev)
     resume = phase_resume(dev)
+    resume_mt = phase_resume(dev, mt=True)
     determinism = phase_determinism_cost(dev)
-    phases, seconds, by_method, peaks = {}, {}, {}, {}
-    for _, ph, sec, bym, pk in (f32, bf16):
+    phases, seconds, by_method, peaks, notes = {}, {}, {}, {}, {}
+    for _, ph, sec, bym, pk, nt in (f32, bf16):
         phases.update(ph)
         seconds.update(sec)
         by_method.update(bym)
         peaks.update(pk)
+        notes.update(nt)
     new_runs = ([n for n, _ in F32_RUNS if n.split("@")[0] in NEW_METHODS]
                 + ["bf16/BALD", "bf16/QBC-JS"])
     print("per-round seconds of the new methods (NVIDIA card above): "
@@ -1742,6 +1998,18 @@ def main() -> int:
     print("peak max_memory_allocated of the committee campaigns: "
           + json.dumps({n: peaks[n] for n in peaks
                         if n.split("/")[-1] in COMMITTEE}))
+    lever_runs = [n for n, _ in LEVER_RUNS] + ["bf16/entropy@mt"]
+    print("per-round seconds of the lever runs (NVIDIA card above): "
+          + json.dumps(round_seconds(phases, lever_runs)))
+    print("finetune seconds per step (Adam, b 128, card above): "
+          + json.dumps(levers["seconds_per_step"]))
+    print("checkpoint bytes with the teacher: " + json.dumps(
+        {dt: codecs[f"{dt}_with_teacher"]["bytes"]
+         for dt in ("float32", "bfloat16", "int8")}) + "; without: "
+        + json.dumps({dt: codecs[dt]["bytes"]
+                      for dt in ("float32", "bfloat16", "int8")}))
+    print(f"TensorBoard mirror active: "
+          f"{notes.get('tensorboard_active', False)}")
     for r in rows:
         r["launches"] = f32[0][r["name"]] + bf16[0][r["name"]]
         r["launches_f32_campaign"] = f32[0][r["name"]]
@@ -1756,7 +2024,8 @@ def main() -> int:
                       "k1_sass": sass, "fim_parity": fim,
                       "fim_sweep": sweep, "fim_sweep_bf16": sweep16,
                       "bf16_forward": bf16_fwd, "ckpt_codecs": codecs,
-                      "resume": resume,
+                      "resume": resume, "resume_mt": resume_mt,
+                      "train_levers": levers, "lever_notes": notes,
                       "finetune_determinism": determinism,
                       "mc_forward": mc_fwd, "mc_sweep": mc_sweep,
                       "perturbation": perturb,

@@ -14,6 +14,7 @@ import sys
 
 from nnal_tpu_torch.core.config import ExperimentConfig, set_parameters
 from nnal_tpu_torch.engine.pw_experiment import PWExperiment
+from nnal_tpu_torch.scoring.strategies import require_strategy
 
 DEFAULT_PARS = {
     "model_name": "PW",
@@ -58,7 +59,9 @@ def create_expr(root_dir: str, overrides: str = "", synthetic: bool = False,
 
 def do_expr(root_dir: str, method: str, nqueries: int, overrides: str = "",
             synthetic: bool = False, device=None) -> dict:
-    """add_method-if-missing + run_method (reference ``do_expr``)."""
+    """add_method-if-missing + run_method (reference ``do_expr``).  A
+    method the port lacks raises before anything is written."""
+    require_strategy(method)
     expr = create_expr(root_dir, overrides, synthetic, device)
     method_dir = os.path.join(root_dir, method)
     if not os.path.exists(os.path.join(method_dir, "curr_weights.npz")):

@@ -4,7 +4,10 @@ The reference keeps one flat YAML dict (``expr.pars``) whose observed key set is
 documented in SURVEY.md §5.6 (reference: AL.py:87-109, PW_AL.py:91-113,
 expr_handler.py:91-122).  Here the same keys live in a typed dataclass tree,
 serialized to YAML with the *same key names* so experiment directories stay
-interoperable.  ``ExperimentConfig.pars`` exposes the flat dict view.
+interoperable.  ``ExperimentConfig.pars`` exposes the flat dict view;
+unlike the JAX package's, it also carries the keys no section declares
+(``synthetic_shape``, ``synthetic_blobs``, ``tb_logdir``), so a reloaded
+experiment keeps them.  The JAX package's loader reads such a file.
 """
 
 from __future__ import annotations
@@ -219,6 +222,9 @@ class QueryConfig:
     data_parallel: int = 1
 
 
+_SECTIONS = ("data", "model", "query", "seed")
+
+
 @dataclass
 class ExperimentConfig:
     data: DataConfig = field(default_factory=DataConfig)
@@ -231,9 +237,15 @@ class ExperimentConfig:
     # ------------------------------------------------------------------ #
     @property
     def pars(self) -> dict:
+        """Every key, the keys ``from_pars`` kept as attributes (such as
+        ``synthetic_shape`` and ``tb_logdir``) included, so
+        ``parameters.txt`` reloads the same experiment.  The JAX package's
+        loader keeps them the same way."""
         flat: dict = {"seed": self.seed}
         for section in (self.data, self.model, self.query):
             flat.update(dataclasses.asdict(section))
+        flat.update({k: v for k, v in vars(self).items()
+                     if k not in _SECTIONS})
         return flat
 
     @classmethod

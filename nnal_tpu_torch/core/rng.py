@@ -7,6 +7,11 @@ JAX package's exactly.  The device half is a ``torch.Generator`` seeded
 from the same derived seed; ``next()`` draws a fresh seed from it for one
 consumer (a dropout pass builds its own generator on its device).  JAX
 threefry bits cannot be reproduced, so only the host half is shared.
+:meth:`RngStream.restore` also takes a ``state.json`` record the JAX
+package wrote (its ``key`` is threefry's uint32 words): the host
+generator resumes exactly, and the device generator is seeded from a
+blake2b of the words.  The device bits differ from JAX's anyway, and
+every per-round stream is a ``fold`` of the seed, not of the live key.
 
 Device keys are plain integer seeds.  :func:`fold_key` is the
 counterpart of ``jax.random.fold_in`` (a keyed consumer's seed from a
@@ -81,6 +86,13 @@ class RngStream:
                 "host": self.host.bit_generator.state}
 
     def restore(self, state: dict) -> None:
-        raw = np.frombuffer(base64.b64decode(state["key"]), np.uint8)
-        self.gen.set_state(torch.from_numpy(raw.copy()))
+        """Resume from :meth:`state`'s record, or from the JAX package's,
+        whose ``key`` is a list of uint32 words (``rng.py:49``)."""
+        key = state["key"]
+        if isinstance(key, str):
+            raw = np.frombuffer(base64.b64decode(key), np.uint8)
+            self.gen.set_state(torch.from_numpy(raw.copy()))
+        else:
+            words = ",".join(str(int(w)) for w in key)
+            self.gen.manual_seed(_blake2b_seed("jax-key", words))
         self.host.bit_generator.state = state["host"]

@@ -3,12 +3,14 @@
 The resume arithmetic (``replay_prefix_lens``, ``reconcile_membership``)
 is copied as is, so a crash-resumed port campaign replays exactly like a
 JAX one.  ``check_slice_config`` rejects the configuration keys whose
-code paths this slice of the port does not carry, naming the key, rather
-than ignoring them, and dtype strings the JAX package rejects.  The anchor
-levers (``anchor_dtype``, ``adopt_anchor_rounding``,
-``anchor_save_kwargs``) are ``engine/common.py:52-111`` on the port's
-``TrainState`` (an ``nn.Module`` and a ``torch.optim`` optimizer, updated
-in place).
+code paths the port does not carry yet — ``data_parallel`` > 1 and the
+dense (fcn) model specs — naming the key, rather than ignoring them, and
+dtype strings the JAX package rejects.  The anchor levers
+(``anchor_dtype``, ``adopt_anchor_rounding``, ``anchor_save_kwargs``) are
+``engine/common.py:52-111`` on the port's ``TrainState`` (an
+``nn.Module``, a ``torch.optim`` optimizer and the mean teacher, updated
+in place).  ``mt_rampdown`` is the mean teacher's labeled-count
+schedule (``:206-235``).
 """
 
 from __future__ import annotations
@@ -31,24 +33,24 @@ ANCHOR_DTYPES = ("float32", "bfloat16", "int8")
 def check_slice_config(cfg) -> None:
     """Raise ``NotImplementedError`` naming the first config key that
     selects a path the port does not have yet, and ``ValueError`` for a
-    ``dtype`` / ``train_dtype`` / ``ckpt_dtype`` the JAX package rejects."""
+    ``dtype`` / ``train_dtype`` / ``ckpt_dtype`` or a
+    ``consistency_measure`` the JAX package rejects."""
     m, q = cfg.model, cfg.query
     unsupported = [
         ("data_parallel", int(getattr(q, "data_parallel", 1)) > 1),
-        ("consistency_coeff (MT-SSL)",
-         float(getattr(m, "consistency_coeff", 0.0)) > 0.0),
-        ("lwf_lambda (LwF)", float(getattr(m, "lwf_lambda", 0.0)) > 0.0),
-        ("aleatoric", bool(getattr(m, "aleatoric", False))),
-        ("train_layers", bool(getattr(m, "train_layers", None))),
         ("model_name (dense fcn specs)",
          m.model_name in ("Tiramisu", "FCDenseNet103")),
-        ("tb_logdir", bool(getattr(cfg, "tb_logdir", None))),
     ]
     for key, bad in unsupported:
         if bad:
             raise NotImplementedError(
                 f"config key {key} is not supported by the PyTorch port yet")
-    # the dtype strings: raise where the JAX package would, but up front
+    # the dtype strings and the consistency measure: raise where the JAX
+    # package would, but up front
+    if (float(getattr(m, "consistency_coeff", 0.0)) > 0.0
+            and m.consistency_measure not in ("CE", "MSE")):
+        raise ValueError(
+            f"unsupported consistency_measure {m.consistency_measure!r}")
     eval_compute_dtype(getattr(m, "dtype", None))
     eval_compute_dtype(getattr(m, "train_dtype", None))
     anchor_dtype(m)
@@ -84,20 +86,24 @@ def anchor_dtype(model_cfg) -> str:
 
 @torch.no_grad()
 def adopt_anchor_rounding(state, model_cfg) -> bool:
-    """Round the live parameters (and, unless ``opt_reset_per_round``, the
-    Adam moments) in place to what the anchor stores, right before a full
-    save at ``ckpt_dtype`` bfloat16 or int8: the file then decodes to
-    exactly the state the uninterrupted process trains on, so resume ==
-    continue bit for bit.  bfloat16 rounds every tensor; int8
-    quantize-dequantizes each weight matrix per output channel or feature
-    (axis 0 here, the JAX layout's last axis) and rounds biases and moments
-    to bf16, the save encoder's per-group rule.  Capture the save's payload
-    first (:func:`anchor_save_kwargs`): int8's encode is not idempotent, so
-    the save must encode the originals.  Returns True when it rounded."""
+    """Round the live parameters, the mean teacher's (when there is one)
+    and, unless ``opt_reset_per_round``, the Adam moments in place to what
+    the anchor stores, right before a full save at ``ckpt_dtype`` bfloat16
+    or int8: the file then decodes to exactly the state the uninterrupted
+    process trains on, so resume == continue bit for bit.  bfloat16 rounds
+    every tensor; int8 quantize-dequantizes each weight matrix (the
+    teacher's too) per output channel or feature (axis 0 here, the JAX
+    layout's last axis) and rounds biases and moments to bf16, the save
+    encoder's per-group rule.  Capture the save's payload first
+    (:func:`anchor_save_kwargs`): int8's encode is not idempotent, so the
+    save must encode the originals.  Returns True when it rounded."""
     dt = anchor_dtype(model_cfg)
     if dt == "float32":
         return False
-    for p in state.model.parameters():
+    params = list(state.model.parameters())
+    if getattr(state, "teacher", None) is not None:
+        params += list(state.teacher.parameters())
+    for p in params:
         if dt == "int8" and p.dim() >= 2:
             p.copy_(round_trip_int8(p, 0))
         else:
@@ -113,12 +119,17 @@ def adopt_anchor_rounding(state, model_cfg) -> bool:
 def anchor_save_kwargs(model_cfg, state) -> dict:
     """The resume-point save's payload under the anchor levers, captured
     now (before :func:`adopt_anchor_rounding`): JAX-layout copies of the
-    parameters and, unless ``opt_reset_per_round``, the Adam state, on the
+    parameters, of the mean teacher's (None without one: replay re-runs
+    finetunes whose consistency term reads it, so it is part of the resume
+    point) and, unless ``opt_reset_per_round``, the Adam state, on the
     model's device, plus the storage dtype.  The copies are a snapshot, so
     a background writer may encode and pull them while the next round
     updates the live tensors."""
     include_opt = not getattr(model_cfg, "opt_reset_per_round", False)
+    teacher = getattr(state, "teacher", None)
     return {"params": to_jax_tensors(state.model.state_dict()),
+            "teacher_params": (None if teacher is None else
+                               to_jax_tensors(teacher.state_dict())),
             "opt_state": (opt_state_tensors(state.optimizer, state.model)
                           if include_opt else None),
             "dtype": anchor_dtype(model_cfg)}
@@ -152,3 +163,30 @@ def inverse_frequency_weights(labels: np.ndarray, nclass: int) -> np.ndarray:
                          minlength=nclass).astype(np.float64)
     inv = counts.sum() / np.maximum(counts, 1.0)
     return (inv / inv.sum() * nclass).astype(np.float32)
+
+
+def mt_rampdown(model_cfg, n_labeled: int):
+    """``(effective_cc, cc_scale)`` of the mean teacher's consistency term
+    for a labeled set of ``n_labeled`` (``engine/common.py:206-235``):
+    off (0, 0) below ``consistency_start_labels``; with
+    ``consistency_off_labels = L > 0``, full strength up to L/2, then
+    ``exp(-12.5 phase^2)`` over the second half, and off from L on.  An
+    effective coefficient of 0 runs the plain finetune (no teacher, no
+    unlabeled work).  It depends on ``n_labeled`` alone, so replay sees the
+    same values."""
+    cc = float(getattr(model_cfg, "consistency_coeff", 0.0))
+    if cc <= 0.0:
+        return cc, 1.0
+    start = int(getattr(model_cfg, "consistency_start_labels", 0))
+    if start > 0 and n_labeled < start:
+        return 0.0, 0.0
+    off = int(getattr(model_cfg, "consistency_off_labels", 0))
+    if off <= 0:
+        return cc, 1.0
+    if n_labeled >= off:
+        return 0.0, 0.0
+    half = off / 2.0
+    if n_labeled <= half:
+        return cc, 1.0
+    phase = (n_labeled - half) / half
+    return cc, float(np.exp(-12.5 * phase * phase))

@@ -32,6 +32,19 @@ and its Adam state never move.  Every stochastic draw of a round is keyed
 on (seed, method, round) and the optimizer step, so a resumed campaign
 draws the same masks, noise and member streams.
 
+The finetune carries the training levers (``finetune``,
+``pw_experiment.py:229-350``): ``train_layers`` (a gradient mask),
+LwF (``lwf_lambda``: the previous model's logits of the labeled set, once
+per round, before any step), the aleatoric head (``aleatoric``, ``mc_t``)
+and the mean teacher (``consistency_coeff`` and its knobs): an EMA
+teacher, a copy of the model on first use, held on the ``TrainState``
+and saved in the resume point's ``teacher/`` group, and 256 unlabeled
+patches a round drawn from ``init_pool_inds.txt`` (a step-keyed host
+stream, so replay draws the same) and gathered through K2.  A committee
+member starts without a teacher and builds its own from its copy.
+``tb_logdir`` mirrors ``al/f_measure`` and ``al/n_train`` per round to
+TensorBoard under ``tb_logdir/<method>`` when the backend imports.
+
 Runs on ``device`` (default: the card; CUDA missing raises).
 """
 
@@ -45,6 +58,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from nnal_tpu_torch.core import rng as core_rng
 from nnal_tpu_torch.core.config import ExperimentConfig
 from nnal_tpu_torch.core.device import (
     deterministic_cudnn,
@@ -54,6 +68,7 @@ from nnal_tpu_torch.core.device import (
 from nnal_tpu_torch.core.journal import MethodJournal, load_inds, save_inds
 from nnal_tpu_torch.core.profiling import PhaseTimer
 from nnal_tpu_torch.core.rng import RngStream
+from nnal_tpu_torch.core.tb import TBWriter
 from nnal_tpu_torch.data.batching import make_onehot
 from nnal_tpu_torch.data.patches import (
     gather_labels,
@@ -70,6 +85,7 @@ from nnal_tpu_torch.engine.common import (
     anchor_save_kwargs,
     check_slice_config,
     inverse_frequency_weights,
+    mt_rampdown,
     reconcile_membership,
     replay_prefix_lens,
 )
@@ -82,13 +98,17 @@ from nnal_tpu_torch.models.checkpoint import (
     save_checkpoint,
 )
 from nnal_tpu_torch.models.cnn import CNN, init_cnn
-from nnal_tpu_torch.models.optim import load_opt_state
-from nnal_tpu_torch.models.specs import create_model
+from nnal_tpu_torch.models.optim import layer_train_mask, load_opt_state
+from nnal_tpu_torch.models.specs import create_model, with_aleatoric_head
 from nnal_tpu_torch.models.train import (
+    LwF,
+    MeanTeacher,
     TrainState,
     build_batch_index_matrix,
+    build_unlabeled_index_matrix,
     finetune_steps,
     init_train_state,
+    make_teacher,
 )
 from nnal_tpu_torch.scoring.grid_eval import GridPoolEvaluator
 from nnal_tpu_torch.scoring.pool_eval import eval_compute_dtype
@@ -168,9 +188,10 @@ class PWExperiment:
         m = self.config.model
         d1, d2, d3 = m.patch_shape
         nmod = len(self._load_subject()[0])
-        return create_model(m.model_name, nclass=m.nclass,
+        spec = create_model(m.model_name, nclass=m.nclass,
                             dropout_rate=m.dropout_rate,
                             patch_shape=(d1, d2, nmod * d3))
+        return with_aleatoric_head(spec) if m.aleatoric else spec
 
     def _stats_arrays(self):
         stats = np.loadtxt(self._p("train_stats.txt")).reshape(1, -1)
@@ -190,6 +211,13 @@ class PWExperiment:
         model = CNN(spec)
         model.load_state_dict(from_jax_params(params))
         return model.to(self.device)
+
+    def _unlabeled_pool(self) -> np.ndarray:
+        """The mean teacher's unlabeled source: the INITIAL pool, so a
+        replayed round draws what the original drew."""
+        if getattr(self, "_mt_u_pool", None) is None:
+            self._mt_u_pool = load_inds(self._p("init_pool_inds.txt"))
+        return self._mt_u_pool
 
     # ------------------------------------------------------------- methods
     def add_method(self, method_name: str, init_size: Optional[int] = None):
@@ -223,8 +251,9 @@ class PWExperiment:
                  rng_tag: str = "") -> TrainState:
         """Finetune on the labeled set (reference ``finetune``): gather and
         normalize it once (kernel K2 on the card), then run the round's
-        batch-index matrix.  ``rng_tag`` names a committee member's own
-        batch and dropout streams (``pw_experiment.py:251-252``)."""
+        batch-index matrix with the configured levers (module docstring).
+        ``rng_tag`` names a committee member's own batch, dropout and
+        unlabeled streams (``pw_experiment.py:251-252``, ``:336``)."""
         m = self.config.model
         if getattr(m, "opt_reset_per_round", False):
             state.optimizer.state.clear()
@@ -242,21 +271,56 @@ class PWExperiment:
         host = self.rng.fold(f"finetune-{rng_tag}{state.step}").host
         seed = self.rng.fold(f"finetune-dropout-{rng_tag}{state.step}").next()
         dev = self.device
-        x_all = gather_patches_normalized(
-            self.padded(), torch.as_tensor(np.asarray(train_inds, np.int64)
-                                           ).to(dev),
-            torch.as_tensor(np.asarray(mu, np.float32)).to(dev),
-            torch.as_tensor(np.asarray(sd, np.float32)).to(dev),
-            tuple(m.patch_shape), orig_shape)
+        mu_t = torch.as_tensor(np.asarray(mu, np.float32)).to(dev)
+        sd_t = torch.as_tensor(np.asarray(sd, np.float32)).to(dev)
+
+        def gather(inds):
+            return gather_patches_normalized(
+                self.padded(), torch.as_tensor(np.asarray(inds, np.int64)
+                                               ).to(dev),
+                mu_t, sd_t, tuple(m.patch_shape), orig_shape)
+
+        n = len(train_inds)
+        x_all = gather(train_inds)
         y_all = torch.as_tensor(make_onehot(labels_all, m.nclass)).to(dev)
-        idx_mat, w_mat = build_batch_index_matrix(len(train_inds), m.b,
-                                                  m.epochs, host, bucket=256)
+        idx_mat, w_mat = build_batch_index_matrix(n, m.b, m.epochs, host,
+                                                  bucket=256)
         cw_vec = (torch.ones(m.nclass) if cw is None
                   else torch.as_tensor(np.asarray(cw, np.float32))).to(dev)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        grad_mask = (layer_train_mask(state.model, m.train_layers)
+                     if m.train_layers else None)
         with deterministic_cudnn():
-            finetune_steps(state, x_all, y_all, idx_mat, w_mat, cw_vec, gen,
-                           compute_dtype=eval_compute_dtype(m.train_dtype))
+            lwf = None
+            if m.lwf_lambda > 0.0:
+                # the previous model's logits of the labeled set, f32 and
+                # without dropout, once per round (``:310-320``)
+                with torch.no_grad():
+                    lwf = LwF(state.model(x_all).logits,
+                              float(m.lwf_lambda), float(m.lwf_T))
+            mt = None
+            cc, cc_scale = mt_rampdown(m, n)
+            if cc > 0.0:
+                if state.teacher is None:
+                    state.teacher = make_teacher(state.model)
+                u_pool = self._unlabeled_pool()
+                uhost = self.rng.fold(
+                    f"finetune-unlab-{rng_tag}{state.step}").host
+                n_take = 256
+                u_sub = u_pool[uhost.integers(0, len(u_pool), size=n_take)]
+                ub = int(m.unlabeled_batch) or m.b
+                mt = MeanTeacher(
+                    xu_all=gather(u_sub),
+                    u_idx=build_unlabeled_index_matrix(
+                        n_take, ub, idx_mat.shape[0], uhost),
+                    coeff=cc, cc_scale=cc_scale,
+                    measure=str(m.consistency_measure),
+                    ramp=int(m.consistency_ramp),
+                    ema_decay=float(m.ema_decay), step0=state.step)
+            finetune_steps(state, x_all, y_all, idx_mat, w_mat, cw_vec,
+                           core_rng.fold_key(seed, state.step),
+                           compute_dtype=eval_compute_dtype(m.train_dtype),
+                           mc_t=int(m.mc_t), grad_mask=grad_mask, lwf=lwf,
+                           mt=mt)
         return state
 
     def _ensemble_params(self, spec):
@@ -272,7 +336,8 @@ class PWExperiment:
         with an empty labeled set, ``pretrained_paths`` or
         ``ensemble_paths`` if given, else ``n_ensemble`` fresh inits;
         otherwise ``n_ensemble`` copies of the current model, each with a
-        fresh optimizer at the main state's step, finetuned with its own
+        fresh optimizer at the main state's step and no mean teacher (under
+        MT it builds its own from its copy), finetuned with its own
         streams.  The copies share no tensor with the main state."""
         m, q = self.config.model, self.config.query
         if len(train_inds) == 0:
@@ -322,6 +387,7 @@ class PWExperiment:
 
         def _save():
             save_checkpoint(ckpt, akw["params"], al_state=al,
+                            teacher_params=akw["teacher_params"],
                             opt_state=akw["opt_state"], dtype=akw["dtype"])
 
         if writer is None:
@@ -354,23 +420,23 @@ class PWExperiment:
 
         ckpt = j.path("curr_weights.npz")
         params, bn, teacher, al_state = load_checkpoint(ckpt)
-        if bn or teacher is not None:
+        if bn:
             raise NotImplementedError(
-                f"{ckpt}: batch-norm state or a mean-teacher group — not "
-                "supported by the PyTorch port yet")
+                f"{ckpt}: batch-norm state — not supported by the PyTorch "
+                "port yet (ROADMAP Queue 1 item 9)")
         model = self._load_model(spec, params)
         state = init_train_state(model, cfg.model.optimizer_name,
                                  cfg.model.learning_rate)
+        if teacher is not None:
+            # the mean teacher is part of the resume point
+            state.teacher = self._load_model(spec, teacher)
+            state.teacher.requires_grad_(False)
         load_opt_state(state.optimizer, model, load_opt_leaves(ckpt))
         if al_state is not None:
             state.step = int(al_state.get("step", 0))
 
         saved = j.load_state()
         if saved is not None:
-            if not isinstance(saved["rng"].get("key"), str):
-                raise ValueError(f"{j.state_path} was written by the JAX "
-                                 "package; its device RNG state cannot be "
-                                 "resumed by the PyTorch port")
             self.rng.restore(saved["rng"])
         n_queries = j.n_queried()
         round_id = len(j.query_iters())
@@ -384,6 +450,8 @@ class PWExperiment:
         writer = (AsyncCheckpointWriter()
                   if getattr(cfg.model, "async_checkpoint", False) else None)
         K = max(1, int(getattr(cfg.model, "ckpt_full_every", 1)))
+        tb_root = getattr(cfg, "tb_logdir", None)
+        tb = TBWriter(tb_root and os.path.join(str(tb_root), method_name))
         # the entry state is reproducible as is (anchor or replay above)
         last_full_round = round_id
         # pool guard: an exhausted pool would yield k=0 rounds forever
@@ -444,6 +512,8 @@ class PWExperiment:
                                            ("prediction",))["prediction"]
                 fm = f_measure(preds, test_labels)
             j.append_eval([fm])
+            tb.scalars({"al/f_measure": fm, "al/n_train": len(train_inds)},
+                       round_id - 1)
 
             dt = time.time() - t0
             with open(j.path("query_times.txt"), "a") as f:
@@ -471,6 +541,7 @@ class PWExperiment:
                 self._save_resume_point(ckpt, state, round_id)
         if timer.current:
             timer.commit_round(round_id - 1, tail=True)
+        tb.close()
         return {
             "n_queries": n_queries,
             "train_inds": train_inds,

@@ -2,8 +2,9 @@
 ``nnal_tpu/models/checkpoint.py``).
 
 One atomic ``.npz`` per save: ``params/<layer>/<W|b>`` in the JAX layout
-(written through ``models/bridge``), ``bn/...``, ``__al_state__`` (JSON
-bytes) and ``opt/<i>`` optimizer leaves.  The optimizer leaves follow
+(written through ``models/bridge``), ``bn/...``, the mean teacher's
+``teacher/<layer>/<W|b>``, ``__al_state__`` (JSON bytes) and ``opt/<i>``
+optimizer leaves.  The optimizer leaves follow
 optax's order for the same optimizer — Adam is ``count`` then the first
 moments then the second moments, each in sorted (layer, W/b) order and
 JAX layout; plain SGD has none — so either package can read the other's
@@ -11,9 +12,10 @@ files.
 
 Anchor storage dtypes (``ckpt_dtype``, ``checkpoint.py:31-190``):
 ``bfloat16`` stores every float32 leaf as bf16 bits (uint16 under an
-``@bf16`` key); ``int8`` stores each weight matrix as int8 with one f32
-scale per slice of the JAX layout's last axis (the output channel or
-feature; ``@i8`` / ``@i8s`` keys) and everything else as bf16.  Leaves
+``@bf16`` key); ``int8`` stores each weight matrix of the params and
+teacher groups as int8 with one f32 scale per slice of the JAX layout's
+last axis (the output channel or feature; ``@i8`` / ``@i8s`` keys) and
+everything else as bf16.  Leaves
 may be numpy arrays or torch tensors on any device: a tensor is encoded
 where it lives (on the card: before the pull, so fewer bytes cross) and a
 numpy array on the host, with the same IEEE f32 operations, so both
@@ -110,13 +112,15 @@ def _encode_bf16(payload: Dict) -> Dict[str, np.ndarray]:
 
 
 def _encode_int8(payload: Dict) -> Dict[str, np.ndarray]:
-    """Weight matrices of the params group -> ``@i8`` q + ``@i8s`` scale
-    (per last axis of the JAX layout); the rest -> bf16 (``:106-135``).
+    """Weight matrices of the params and teacher groups -> ``@i8`` q +
+    ``@i8s`` scale (per last axis of the JAX layout); the rest -> bf16
+    (``:106-135``).
     Optimizer moments stay bf16: int8 second moments would span too few
     decades."""
     out, rest = {}, {}
     for k, v in payload.items():
-        if k.startswith("params/") and v.ndim >= 2 and _is_f32(v):
+        if (k.startswith(("params/", "teacher/")) and v.ndim >= 2
+                and _is_f32(v)):
             q, s = i8_parts(_as_tensor(v), -1)
             out[k + _I8], out[k + _I8S] = _to_host(q), _to_host(s)
         else:
@@ -201,17 +205,21 @@ class AsyncCheckpointWriter:
 
 def save_checkpoint(path: str, params: Dict, *,
                     bn_state: Optional[Dict] = None,
+                    teacher_params: Optional[Dict] = None,
                     al_state: Optional[dict] = None,
                     opt_state: Optional[List] = None,
                     dtype: Optional[str] = None) -> None:
     """Atomic single-file checkpoint (tmpfile + rename).  ``params`` is a
     JAX-layout tree (``bridge.to_jax_params``, or the device tensors of
-    ``bridge.to_jax_tensors``); ``opt_state`` the optax-ordered leaf list
+    ``bridge.to_jax_tensors``), and ``teacher_params`` the mean teacher's
+    in the same form; ``opt_state`` the optax-ordered leaf list
     (``models.optim.opt_state_leaves`` / ``opt_state_tensors``).  ``dtype``
     is None/``float32``, ``bfloat16`` or ``int8``."""
     payload = _flatten(params, "params/")
     if bn_state:
         payload.update(_flatten(bn_state, "bn/"))
+    if teacher_params:
+        payload.update(_flatten(teacher_params, "teacher/"))
     for i, leaf in enumerate(opt_state or ()):
         payload[f"opt/{i:04d}"] = leaf
     if al_state is not None:

@@ -3,7 +3,8 @@
 ``CNN`` is an ``nn.Module`` built from the same spec rows as the JAX
 package's ``init_cnn``/``apply_cnn``.  This slice supports the
 conv/pool/fc stacks without batch norm or skip connections (PW1, and the
-VGG/AlexNet shapes); dense (fcn) specs, BN and aleatoric heads raise.
+VGG/AlexNet shapes), with or without the aleatoric head; dense (fcn)
+specs and BN raise.
 
 Semantics kept from the JAX package:
 * public inputs are channels-last ``(b, d1, d2, C)``; internally the module
@@ -28,7 +29,12 @@ Semantics kept from the JAX package:
   bf16 operands (weights and biases cast per call) with an f32 result, adds
   the bias in f32 and rounds once to bf16 (``_main_op``, ``cnn.py:329-367``);
   activations, max-pool and dropout run in bf16, and the logits are upcast
-  to f32 before softmax and argmax (``cnn.py:247``).
+  to f32 before softmax and argmax (``cnn.py:247``);
+* an aleatoric spec (``specs.with_aleatoric_head``) doubles the last
+  layer: its output splits into ``logits`` (the first ``nclass``
+  columns, which the posteriors and the prediction read) and
+  ``log_sigma`` (the rest, at the compute dtype), as
+  ``cnn.py:243-252`` does.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ class CNNOutput:
     posteriors: torch.Tensor
     prediction: torch.Tensor
     feature: Optional[torch.Tensor]
+    log_sigma: Optional[torch.Tensor] = None   # the aleatoric head
 
 
 _ACTS = {"relu": F.relu, "elu": F.elu, "tanh": torch.tanh, "gelu": F.gelu,
@@ -118,8 +125,6 @@ def _same_pad(n, k, s) -> Tuple[int, int]:
 def _check_supported(spec: CNNSpec) -> None:
     if spec.fcn:
         raise NotImplementedError("model: dense (fcn) specs are not ported")
-    if spec.aleatoric:
-        raise NotImplementedError("aleatoric: the sigma head is not ported")
     if spec.spatial_rank != 2:
         raise NotImplementedError("model: only 2-D conv specs are ported")
     for layer in spec.layers:
@@ -224,11 +229,14 @@ class CNN(nn.Module):
                 h = torch.where(mask, h / div, torch.zeros_like(h))
             if i == self.spec.feature_layer:
                 feature = h.reshape(h.shape[0], -1)
+        log_sigma = None
+        if self.spec.aleatoric:
+            h, log_sigma = h.chunk(2, dim=-1)
         logits = h.float()
         return CNNOutput(logits=logits,
                          posteriors=torch.softmax(logits, dim=-1),
                          prediction=torch.argmax(logits, dim=-1),
-                         feature=feature)
+                         feature=feature, log_sigma=log_sigma)
 
 
 def init_cnn(spec: CNNSpec, seed: int, device=None) -> CNN:

@@ -1,15 +1,86 @@
-"""The finetune loss (counterpart of the CE of ``nnal_tpu/models/train.py``
-and ``nnal_tpu/models/losses.py``)."""
+"""The finetune's losses (counterpart of the losses of
+``nnal_tpu/models/train.py``'s scan and of ``nnal_tpu/models/losses.py``).
+
+* :func:`masked_cross_entropy`: class-weighted CE, weighted-mean over rows;
+* :func:`aleatoric_ce_per_sample` / :func:`aleatoric_ce`: the AU_4L
+  heteroscedastic CE over ``mc_t`` logit-noise samples;
+* :func:`lwf_distillation`: the LwF term as the scan computes it;
+* :func:`consistency_loss`: the mean teacher's CE or MSE.
+
+The aleatoric normals come from :func:`_aleatoric_normal`, the one place
+they are drawn, so a test can feed JAX's draws through it.
+"""
 
 from __future__ import annotations
 
 import torch
 
 
+def weighted_mean(per, w):
+    """Mean of per-row losses weighted by ``w``: zero-weight (padding) rows
+    add nothing, and an all-zero ``w`` gives 0."""
+    return (per * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
 def masked_cross_entropy(logits, y_onehot, class_weights, w):
     """The finetune loss (``train.py:259-264``): class-weighted CE, then the
-    mean over rows weighted by ``w`` — zero-weight (padding) rows add
-    nothing, and an all-zero ``w`` gives 0."""
+    mean over rows weighted by ``w``."""
     per = -(y_onehot * torch.log_softmax(logits, dim=-1)).sum(-1)
     per = per * (y_onehot * class_weights).sum(-1)
-    return (per * w).sum() / torch.clamp(w.sum(), min=1.0)
+    return weighted_mean(per, w)
+
+
+def _aleatoric_normal(shape, generator: torch.Generator,
+                      device) -> torch.Tensor:
+    """Standard normals in f32 of shape ``(mc_t, b, c)``: one ``(b, c)``
+    draw per noise sample.  JAX draws sample t from the t-th key of
+    ``split(fold_in(step_key, 1), mc_t)``; ``generator`` stands for that
+    parent key."""
+    return torch.randn(shape, generator=generator, device=device,
+                       dtype=torch.float32)
+
+
+def aleatoric_ce_per_sample(logits, log_sigma, y_onehot,
+                            generator: torch.Generator, mc_t: int = 10):
+    """Per-row heteroscedastic CE (``losses.py:77-94``): the mean over
+    ``mc_t`` draws of CE at ``logits + sigma * eps``, ``sigma =
+    exp(clip(log_sigma, -10, 10))`` (the clamp keeps a diverging sigma
+    head from overflowing ``exp``)."""
+    sigma = torch.exp(torch.clamp(log_sigma, -10.0, 10.0))
+    eps = _aleatoric_normal((mc_t,) + tuple(logits.shape), generator,
+                            logits.device)
+    logp = torch.log_softmax(logits + sigma * eps, dim=-1)
+    return (-(y_onehot * logp).sum(-1)).mean(0)
+
+
+def aleatoric_ce(logits, log_sigma, y_onehot, generator: torch.Generator,
+                 mc_t: int = 10):
+    """Mean heteroscedastic CE (``losses.py:97-99``)."""
+    return aleatoric_ce_per_sample(logits, log_sigma, y_onehot, generator,
+                                   mc_t).mean()
+
+
+def lwf_distillation(logits, old_logits, w, T: float = 2.0):
+    """LwF (reference ``get_LwF``): CE of the softened logits against the
+    previous model's softened posterior at temperature ``T``, per row and
+    then ``w``-weighted, as the scan adds it (``train.py:265-270``)."""
+    # a tensor divisor: the card turns a Python-scalar divisor into a
+    # reciprocal multiply, which rounds differently
+    t = logits.new_full((), T)
+    soft = torch.softmax(old_logits / t, dim=-1)
+    lp = torch.log_softmax(logits / t, dim=-1)
+    return weighted_mean(-(soft * lp).sum(-1), w)
+
+
+def consistency_loss(student_logits, teacher_logits, measure: str = "CE"):
+    """Mean-teacher consistency (``losses.py:102-114``): CE of the student
+    against the teacher's posterior, or the MSE of the posteriors; the
+    teacher's side carries no gradient."""
+    t_post = torch.softmax(teacher_logits.detach(), dim=-1)
+    if measure == "CE":
+        logp = torch.log_softmax(student_logits, dim=-1)
+        return -(t_post * logp).sum(-1).mean()
+    if measure == "MSE":
+        s_post = torch.softmax(student_logits, dim=-1)
+        return ((s_post - t_post) ** 2).mean()
+    raise ValueError(measure)

@@ -1,15 +1,23 @@
-"""Optimizers (counterpart of ``nnal_tpu/models/optim.py``).
+"""Optimizers, ramps, gradient masks and the EMA teacher (counterpart of
+``nnal_tpu/models/optim.py``).
 
 ``make_optimizer`` builds ``torch.optim`` SGD/Adam with optax's
 hyperparameters (``optax.sgd(lr)``: no momentum; ``optax.adam(lr)``:
 b1 0.9, b2 0.999, eps 1e-8).  ``opt_state_leaves``/``load_opt_state``
 convert the optimizer state to and from optax's leaf order, which is what
 checkpoints store (see ``models/checkpoint.py``).
+
+``sigmoid_rampup`` / ``sigmoid_rampdown`` evaluate in float32 on the host,
+as JAX traces them.  ``layer_train_mask`` / ``apply_grad_mask`` freeze
+layers by zeroing their gradients: the optimizer still steps every
+parameter, as optax does on a masked gradient (a frozen leaf's Adam
+moments decay, and it moves while they are nonzero).  ``ema_update`` is
+the mean teacher's update, one ``torch._foreach_*`` pass.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -94,3 +102,65 @@ def load_opt_state(optimizer: torch.optim.Optimizer, model: torch.nn.Module,
             "step": torch.tensor(float(count)),
             "exp_avg": moments[0][name].to(p.device),
             "exp_avg_sq": moments[1][name].to(p.device)}
+
+
+def sigmoid_rampup(length: int):
+    """``t -> exp(-5 (1 - t/length)^2)``, clipped to 1 from ``length`` on
+    (``optim.py:31-37``), in float32."""
+    def sched(t):
+        t = np.asarray(t, np.float32)
+        phase = np.clip(np.float32(1.0) - t / np.float32(length),
+                        np.float32(0.0), np.float32(1.0))
+        return np.exp(np.float32(-5.0) * (phase * phase))
+    return sched
+
+
+def sigmoid_rampdown(length: int, total: int):
+    """``t -> exp(-12.5 phase^2)`` over the last ``length`` of ``total``
+    steps (``optim.py:40-45``), in float32."""
+    def sched(t):
+        t = np.asarray(t, np.float32)
+        phase = np.clip((t - np.float32(total - length))
+                        / np.float32(length), np.float32(0.0),
+                        np.float32(1.0))
+        return np.exp(np.float32(-12.5) * (phase * phase))
+    return sched
+
+
+def layer_train_mask(model: torch.nn.Module,
+                     train_layers: Sequence[str]) -> Dict[str, float]:
+    """1.0 for each parameter of a layer in ``train_layers`` and 0.0 for
+    the rest (``optim.py:69-77``; an empty list trains everything), keyed
+    by the parameter's name (``<layer>.weight``)."""
+    keep_all = len(train_layers) == 0
+    return {name: 1.0 if keep_all or name.rpartition(".")[0] in train_layers
+            else 0.0 for name, _ in model.named_parameters()}
+
+
+@torch.no_grad()
+def apply_grad_mask(model: torch.nn.Module,
+                    mask: Optional[Dict[str, float]]) -> None:
+    """Multiply each gradient by its mask entry, in place
+    (``optim.py:106-109``): a frozen layer's gradient becomes zeros (signed,
+    as JAX's ``g * 0``), never ``None``, so ``torch.optim.Adam`` keeps
+    stepping it and its per-parameter step count stays optax's."""
+    if mask is None:
+        return
+    frozen = [p.grad for name, p in model.named_parameters()
+              if mask[name] == 0.0 and p.grad is not None]
+    if frozen:
+        torch._foreach_mul_(frozen, 0.0)
+
+
+@torch.no_grad()
+def ema_update(teacher: torch.nn.Module, student: torch.nn.Module,
+               decay: float) -> None:
+    """``t <- decay * t + (1 - decay) * s`` over every parameter, in place
+    (``optim.py:116-122``): one ``_foreach_mul_`` and one
+    ``_foreach_add_``.  ``1 - decay`` is taken in float32, as JAX computes
+    it from the traced ``decay``."""
+    t = list(teacher.parameters())
+    s = list(student.parameters())
+    d = np.float32(decay)
+    torch._foreach_mul_(t, float(d))
+    torch._foreach_add_(t, s, alpha=float(np.float32(1.0) - d))

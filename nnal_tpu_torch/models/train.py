@@ -1,35 +1,70 @@
-"""Finetuning (counterpart of the patch-wise, non-MT branch of
-``nnal_tpu/models/train.py``).
+"""Finetuning (counterpart of the patch-wise branch of
+``nnal_tpu/models/train.py``: ``make_scanned_finetune`` with its levers).
 
 The JAX package runs a round's finetune as one jitted ``lax.scan`` over a
 precomputed ``(steps, b)`` index matrix; here it is a Python loop over the
 same matrix (PyTorch runs eagerly, so the loop is the natural form).  Each
-step is class-weighted CE, weighted-mean over the batch rows
-(``train.py:259-264``).  Steps whose weights sum to 0 (the bucket padding
-steps) are skipped outright — the scan computes them and then discards the
-update, so in both the parameters, Adam's step count and its moments do
-not move.
+step's loss is the scan's (``train.py:251-282``):
+
+* CE, or the aleatoric CE when the spec has the sigma head, times the
+  class weight, as a ``w``-weighted mean over the batch rows;
+* ``+ lwf_lambda x`` the LwF distillation against the previous model's
+  logits of the same rows (:class:`LwF`);
+* ``+ coeff(step0 + i) x`` the consistency of the student on an unlabeled
+  batch (with dropout) with the EMA teacher on it (clean), the mean
+  teacher (:class:`MeanTeacher`);
+
+then the ``train_layers`` gradient mask, the optimizer step and, under
+the mean teacher, the EMA update of the teacher **after** the step.  Steps
+whose weights sum to 0 (the bucket padding steps) are skipped outright —
+the scan computes them and then discards the update, so in both the
+parameters, Adam's step count and moments, and the teacher do not move.
+
+Draws are keyed like the scan's: step ``i`` (its row in the matrix) takes
+``key_i = fold_key(key, i)``; the labeled pass's dropout comes from
+``key_i`` itself, the aleatoric normals from ``fold_key(key_i, 1)``, and
+the student's unlabeled-pass dropout from ``fold_key(key_i, (1 << 21) +
+3)``.  Each has its own generator (``core/rng.key_generator``), so no
+pass's masks depend on the order of the others, and a test can feed all
+three JAX's draws.
 
 ``compute_dtype=torch.bfloat16`` (``model.train_dtype``) trains mixed
-precision (``train.py:51-62``): f32 master weights and f32 Adam state; each
-step's bf16 copies are made inside the differentiated function
+precision (``train.py:51-62``): f32 master weights and f32 Adam state;
+each step's bf16 copies are made inside the differentiated function
 (``torch.func.functional_call`` over ``p.to(bf16)``), so the gradients
-reach the f32 parameters as f32.  ``torch.autocast`` is not used: it picks
-its own cast points, which would not mirror the JAX casts.
+reach the f32 parameters as f32.  The student's unlabeled pass reuses the
+step's bf16 copies, the teacher forwards on bf16 copies of its own, and
+the EMA stays f32.  ``torch.autocast`` is not used: it picks its own cast
+points, which would not mirror the JAX casts.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 from torch.func import functional_call
 
+from nnal_tpu_torch.core import rng as core_rng
 from nnal_tpu_torch.data.batching import gen_batch_inds
-from nnal_tpu_torch.models.losses import masked_cross_entropy
-from nnal_tpu_torch.models.optim import make_optimizer
+from nnal_tpu_torch.models.losses import (
+    aleatoric_ce_per_sample,
+    consistency_loss,
+    lwf_distillation,
+    weighted_mean,
+)
+from nnal_tpu_torch.models.optim import (
+    apply_grad_mask,
+    ema_update,
+    make_optimizer,
+    sigmoid_rampup,
+)
+
+# the fold tags of the scan (``train.py:268``, ``:277``)
+ALEATORIC_FOLD = 1
+STUDENT_UNLAB_FOLD = (1 << 21) + 3
 
 
 @dataclass
@@ -37,12 +72,59 @@ class TrainState:
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+    teacher: Optional[torch.nn.Module] = None   # the mean teacher (EMA)
+
+
+@dataclass
+class LwF:
+    """Learning without forgetting: ``old_logits`` are the previous model's
+    logits of every row of ``x_all`` (f32, no dropout), taken once per
+    round before any step."""
+    old_logits: torch.Tensor
+    lam: float
+    T: float = 2.0
+
+
+@dataclass
+class MeanTeacher:
+    """The mean teacher's term of a finetune: step ``i`` reads the
+    unlabeled rows ``xu_all[u_idx[i]]``; its coefficient is
+    ``coeff x cc_scale x sigmoid_rampup(ramp)(step0 + i)`` (no ramp when
+    ``ramp`` is 0), in float32 (:func:`mt_coefficient`)."""
+    xu_all: torch.Tensor
+    u_idx: np.ndarray
+    coeff: float
+    cc_scale: float = 1.0
+    measure: str = "CE"
+    ramp: int = 0
+    ema_decay: float = 0.99
+    step0: int = 0
+
+
+def mt_coefficient(mt: MeanTeacher, i: int) -> float:
+    """The consistency coefficient of step ``i`` as the scan traces it:
+    ``(coeff * cc_scale) * ramp(step0 + i)``, every operand float32."""
+    c = np.float32(mt.coeff) * np.float32(mt.cc_scale)
+    if mt.ramp > 0:
+        c = c * sigmoid_rampup(mt.ramp)(np.float32(mt.step0)
+                                        + np.float32(i))
+    return float(np.float32(c))
 
 
 def init_train_state(model, optimizer_name="SGD", learning_rate=1e-3
                      ) -> TrainState:
     return TrainState(model=model, optimizer=make_optimizer(
         optimizer_name, learning_rate, model.parameters()))
+
+
+def make_teacher(model: torch.nn.Module) -> torch.nn.Module:
+    """A copy of ``model`` as the mean teacher's starting point
+    (``pw_experiment.py:328-330``); it takes no gradients."""
+    import copy
+
+    teacher = copy.deepcopy(model)
+    teacher.requires_grad_(False)
+    return teacher
 
 
 def build_batch_index_matrix(n: int, batch_size: int, epochs: int, rng,
@@ -69,6 +151,14 @@ def build_batch_index_matrix(n: int, batch_size: int, epochs: int, rng,
     return np.stack(rows), np.stack(weights)
 
 
+def build_unlabeled_index_matrix(n_u: int, ub: int, steps: int, rng
+                                 ) -> np.ndarray:
+    """(steps, ub) indices drawn with replacement into the round's gathered
+    unlabeled subset — the mean teacher's consistency batches, the same
+    host draws as ``train.py:517-522``."""
+    return rng.integers(0, n_u, size=(steps, ub)).astype(np.int32)
+
+
 def cast_for_forward(compute_dtype, model, x):
     """The forward at ``compute_dtype`` (``_cast_for_forward``): a callable
     that runs ``model`` on bf16 copies of its parameters and of ``x``, or
@@ -80,30 +170,78 @@ def cast_for_forward(compute_dtype, model, x):
             x.to(compute_dtype))
 
 
+def _step_loss(model, x, y, w, class_weights, key, i, dropout,
+               compute_dtype, mc_t, lwf: Optional[LwF], lwf_old, teacher,
+               mt: Optional[MeanTeacher], xu):
+    """Step ``i``'s loss (``train.py:251-282``); ``lwf_old`` are the old
+    logits of the step's rows, ``xu`` its unlabeled rows."""
+    dev = x.device
+    key_i = core_rng.fold_key(key, i)
+
+    def gen(parent, tag):
+        return core_rng.key_generator(parent, tag, dev) if dropout else None
+
+    fwd, xc = cast_for_forward(compute_dtype, model, x)
+    out = fwd(xc, train=True, generator=gen(key, i))
+    if out.log_sigma is not None:
+        per = aleatoric_ce_per_sample(
+            out.logits, out.log_sigma.float(), y,
+            core_rng.key_generator(key_i, ALEATORIC_FOLD, dev), mc_t)
+    else:
+        per = -(y * torch.log_softmax(out.logits, dim=-1)).sum(-1)
+    loss = weighted_mean(per * (y * class_weights).sum(-1), w)
+    if lwf is not None:
+        loss = loss + lwf.lam * lwf_distillation(out.logits, lwf_old, w,
+                                                 lwf.T)
+    if mt is not None:
+        s_out = fwd(xu if compute_dtype is None else xu.to(compute_dtype),
+                    train=True, generator=gen(key_i, STUDENT_UNLAB_FOLD))
+        with torch.no_grad():
+            t_fwd, xut = cast_for_forward(compute_dtype, teacher, xu)
+            t_logits = t_fwd(xut).logits
+        loss = loss + mt_coefficient(mt, i) * consistency_loss(
+            s_out.logits, t_logits, mt.measure)
+    return loss
+
+
 def finetune_steps(state: TrainState, x_all: torch.Tensor,
                    y_all: torch.Tensor, idx_mat: np.ndarray,
                    w_mat: np.ndarray, class_weights: torch.Tensor,
-                   generator: Optional[torch.Generator] = None,
-                   compute_dtype=None) -> List[float]:
+                   key=None, compute_dtype=None, *, mc_t: int = 10,
+                   grad_mask: Optional[Dict[str, float]] = None,
+                   lwf: Optional[LwF] = None,
+                   mt: Optional[MeanTeacher] = None) -> List[float]:
     """Run the index matrix's steps on ``state`` in place.  ``x_all``
     (N, d1, d2, C) and ``y_all`` (N, nclass) one-hots live on the model's
-    device; ``generator`` (on that device) drives dropout.  Returns the
-    per-step losses of the steps that ran (host floats are pulled at the
-    end, so the loop never waits on the card)."""
+    device.  ``key`` (an integer) keys the draws (module docstring);
+    ``None`` turns dropout off, and the aleatoric normals then use key 0.
+    ``grad_mask`` is :func:`models.optim.layer_train_mask`'s.  ``mt``
+    needs ``state.teacher``.  Returns the per-step losses of the steps that
+    ran (host floats are pulled at the end, so the loop never waits on the
+    card)."""
     model, opt = state.model, state.optimizer
     dev = x_all.device
+    if mt is not None and state.teacher is None:
+        raise ValueError("the mean teacher's term needs state.teacher")
     idx_t = torch.as_tensor(idx_mat, dtype=torch.int64).to(dev)
     w_t = torch.as_tensor(w_mat, dtype=torch.float32).to(dev)
+    u_idx_t = (None if mt is None else
+               torch.as_tensor(mt.u_idx, dtype=torch.int64).to(dev))
     losses = []
     for i in np.flatnonzero(w_mat.sum(axis=1) > 0):
         idx = idx_t[i]
-        fwd, x = cast_for_forward(compute_dtype, model, x_all[idx])
-        out = fwd(x, train=True, generator=generator)
-        loss = masked_cross_entropy(out.logits, y_all[idx], class_weights,
-                                    w_t[i])
+        loss = _step_loss(
+            model, x_all[idx], y_all[idx], w_t[i], class_weights,
+            0 if key is None else key, int(i), key is not None,
+            compute_dtype, mc_t, lwf,
+            None if lwf is None else lwf.old_logits[idx], state.teacher,
+            mt, None if mt is None else mt.xu_all[u_idx_t[i]])
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        apply_grad_mask(model, grad_mask)
         opt.step()
+        if mt is not None:
+            ema_update(state.teacher, model, mt.ema_decay)
         losses.append(loss.detach())
     state.step += int(idx_mat.shape[0])
     return [float(v) for v in torch.stack(losses).cpu()] if losses else []

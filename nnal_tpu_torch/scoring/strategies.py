@@ -5,8 +5,11 @@ Each strategy consumes a :class:`QueryContext` and returns positions into
 ``ctx.pool_inds``.  The port has ``random``, ``entropy``, ``core-set``,
 ``fi``, the stochastic family (``MC-entropy``, ``BALD``, ``BatchBALD``,
 ``AU_4U``), the committees (``ensemble``, ``QBC-JS``) and the
-batch-diverse ``rep-entropy`` and ``BADGE``; any other name raises the
-dispatch's ``ValueError``.  Stochastic strategies key their device draws
+batch-diverse ``rep-entropy`` and ``BADGE``.  The JAX package's three
+others (``influence``, ``ps-random``, ``SuPix``) raise
+``NotImplementedError`` naming their ROADMAP item (:data:`REFERENCE_ONLY`,
+checked by :func:`require_strategy` before a method is set up), and any
+other name raises ``ValueError``.  Stochastic strategies key their device draws
 on ``ctx.seed`` (the counterpart of the JAX context's ``jax_rng``: the
 round's ``qrng.next()``), with the JAX package's fold tags.
 """
@@ -78,6 +81,10 @@ class QueryContext:
 
 _STRATEGIES: Dict[str, Callable] = {}
 
+# the JAX package's strategies the port lacks, each with the ROADMAP
+# Queue 1 item that ports it; drop a name when its item lands
+REFERENCE_ONLY = {"influence": 6, "ps-random": 7, "SuPix": 7}
+
 
 def register_strategy(name: str):
     def deco(fn):
@@ -86,12 +93,24 @@ def register_strategy(name: str):
     return deco
 
 
+def require_strategy(method_name: str) -> None:
+    """Raise unless the port has ``method_name``: ``NotImplementedError``
+    naming the ROADMAP item for a strategy only the JAX package has,
+    ``ValueError`` for a name neither has."""
+    if method_name in _STRATEGIES:
+        return
+    if method_name in REFERENCE_ONLY:
+        raise NotImplementedError(
+            f"query method {method_name!r} is not ported to the PyTorch "
+            f"port yet (ROADMAP Queue 1 item {REFERENCE_ONLY[method_name]})")
+    raise ValueError(f"unknown query method {method_name!r}; "
+                     f"available: {sorted(_STRATEGIES)}")
+
+
 def cnn_query(ctx: QueryContext, method_name: str) -> np.ndarray:
     """Dispatch (reference ``PW_NNAL.CNN_query``).  Returns positions into
     ``ctx.pool_inds``."""
-    if method_name not in _STRATEGIES:
-        raise ValueError(f"unknown query method {method_name!r}; "
-                         f"available: {sorted(_STRATEGIES)}")
+    require_strategy(method_name)
     q = _STRATEGIES[method_name](ctx)
     return np.asarray(q, dtype=np.int64)
 

@@ -17,6 +17,7 @@ import torch
 
 from nnal_tpu_torch.core import rng as core_rng
 from nnal_tpu_torch.models import cnn as t_cnn
+from nnal_tpu_torch.models import losses as t_losses
 from nnal_tpu_torch.models import perturb as t_perturb
 from nnal_tpu_torch.scoring import batchbald as t_bb
 from nnal_tpu_torch.scoring import representative as t_rep
@@ -52,6 +53,11 @@ def inject(monkeypatch):
         t_cnn, "_dropout_uniform",
         lambda shape, gen, device, i: to_torch(jax.random.uniform(
             fold(gen.key, i), tuple(shape), jnp.float32), device))
+    monkeypatch.setattr(
+        t_losses, "_aleatoric_normal",
+        lambda shape, gen, device: to_torch(jnp.stack([
+            jax.random.normal(k, tuple(shape[1:]), jnp.float32)
+            for k in jax.random.split(gen.key, shape[0])]), device))
     monkeypatch.setattr(
         t_perturb, "_gaussian_noise",
         lambda shape, dtype, gen, device: to_torch(jax.random.normal(
