@@ -42,7 +42,23 @@ Phases, each of which passes or exits non-zero:
    LwF and the aleatoric CE (loss and params 1e-5), ``train_layers``
    [fc1, fc2, fc3] (conv weights bit-identical), then each lever's
    seconds per Adam step beside the plain step's;
-6. FIM parity, card vs host (the same port code with ``device="cpu"``):
+6. the second-order path at full width, card vs host (PW1 25x25x2 from
+   seed 0, 256 labeled rows and 200 candidates of the campaign subject;
+   rows within 3e-7 of a relu or max-pool kink are weighted out of the
+   batch quantities, and the HVP over all rows is held at 1e-2): one HVP
+   (1e-4 of max |Hv|), truncated CG at a fixed 8 iterations (the same
+   iterations and curvature exit, 1e-3), the jvp influence scores of the
+   candidates (1e-4 of max |score|; 0.1 near a kink; and the card's
+   against the ``vmap(grad)`` oracle on 16, 1e-4), Lanczos and
+   ``arnoldi_s_test`` at rank 4 from one numpy start (eigenvalues 1e-3 of
+   max |lambda|, s_test 1e-3), ``per_sample_grads`` of 8 rows (1e-5 per
+   row, 0.1 near a kink) and ``diagonal_fisher`` (1e-5); then ms and
+   TFLOP/s per HVP at the 256- and 512-row buckets and seconds per
+   Lanczos basis at rank 8;
+7. SLIC native vs numpy on 4 slices of the campaign subject (equal label
+   maps), seconds per volume of the native ``oversegment_volume``, and
+   ``high_variance_filter`` card vs host (the same positions);
+8. FIM parity, card vs host (the same port code with ``device="cpu"``):
    ``pool_score_fused`` on 256 gathered PW1 25x25x2 patches (p1 atol
    1e-4; shrunk per layer column within 1e-4 of the column's max |.|),
    ``gather_shrunk_a_matrices`` at B = 200 (K2 must launch; A held the
@@ -50,13 +66,13 @@ Phases, each of which passes or exits non-zero:
    and without ``cap_peak`` (q within 1e-4, objective within 1e-5) and
    ``lambda_ = 0.5`` with refined features (objective within 1e-4), with
    ``fi/sdp`` seconds (CUDA-graph and eager loops) and iterations;
-7. the FIM sweep at ``bench.py``'s size: a synthetic 256x256x64
+9. the FIM sweep at ``bench.py``'s size: a synthetic 256x256x64
    two-modality subject, grid spacing 2, PW1 25x25x2, f32 (1,048,576
    patches): patches/s, seconds, peak memory, 64 rows checked against the
    host, and a ``torch.profiler`` window over one z-chunk (top device ops,
    the conv / fc / im2col split, the card's idle share, and no
    weight-gradient kernel);
-8. the campaign: ``do_expr(..., device="cuda")`` on a synthetic
+10. the campaign: ``do_expr(..., device="cuda")`` on a synthetic
    128x128x32 subject (pool of 65,536 grid voxels), 2 rounds each of
    ``entropy``, ``core-set``, ``random`` and ``fi`` (init 256, k 64, b
    128, Adam 1e-3; fi: B 200, lambda_ 0), and of ``MC-entropy``,
@@ -67,49 +83,58 @@ Phases, each of which passes or exits non-zero:
    teacher (coefficient 1, CE, ramp 20, EMA 0.99, 128 unlabeled patches a
    step, mirrored to TensorBoard), with LwF (lambda 1, T 2) and with the
    aleatoric head (``mc_t`` 10), and ``random`` with ``train_layers``
-   [fc1, fc2, fc3]; launch counts are zeroed just before and read just
+   [fc1, fc2, fc3], and ``influence`` (cg, and arnoldi at rank 8; B 200),
+   ``ps-random`` and ``SuPix`` (64 segments a slice, whole superpixels a
+   round); launch counts are zeroed just before and read just
    after, and every kernel must have launched (K2 at least 4 times in
    fi and in the mean teacher's run, at least 2 x (n_ensemble + 1) in
    each committee method, whose rounds must hold a ``committee``
-   phase); the mean teacher's ``teacher/`` group must be saved, and
-   ``train_layers`` must leave every conv weight bit-identical to round
-   0's;
-9. bf16 (``model.dtype`` bfloat16): PW1 posteriors on 1024 patches card
+   phase; at least 6 in each influence run, whose rounds must hold the
+   ``influence/*`` sub-spans); the mean teacher's ``teacher/`` group must
+   be saved, and ``train_layers`` must leave every conv weight
+   bit-identical to round 0's; then ``finetune_wpool`` once on the
+   entropy run's state (256 pseudo-labels, timed), its confident picks
+   from 4096 pool voxels card vs host (the same voxels and labels);
+11. bf16 (``model.dtype`` bfloat16): PW1 posteriors on 1024 patches card
    vs host (max 2e-2, mean 2e-3: the card rounds each conv's sum before
    the bias) and against f32, plus the fcs' f32-output bf16 GEMM and its
    hand-written backward against autograd on upcast operands;
-10. the bf16 FIM sweep on phase 7's pool through ``make_pool_scorer``'s
+12. the bf16 FIM sweep on phase 9's pool through ``make_pool_scorer``'s
    compute dtype: patches/s, TFLOP/s and the bound at 989 TFLOP/s, peak
    memory, a profiler window, 64 rows against the host (p1 2e-2; shrunk
    correlation > 0.995, max |delta| < 0.1 of max |host|) and the top-1024
    uncertainty overlap with the f32 sweep;
-11. the checkpoint codecs on the f32 campaign's entropy state (Adam
+13. the checkpoint codecs on the f32 campaign's entropy state (Adam
    moments included): ``round_trip_bf16`` / ``round_trip_int8`` on the
    card bit-equal to the numpy encode, the card's file encode equal to
    the host's, and the seconds and bytes of one save at f32, bf16, int8,
    also with a mean teacher's group;
-12. the bf16 campaign: 2 rounds each of entropy, core-set, BALD,
-   QBC-JS and entropy with the mean teacher (bf16 anchors, the teacher's
-   too) and fi (int8 anchors), bf16 sweeps (MC ones too) and finetunes
+14. the bf16 campaign: 2 rounds each of entropy, core-set, BALD,
+   QBC-JS, entropy with the mean teacher (bf16 anchors, the teacher's
+   too) and influence (cg; bf16 posteriors, f32 s_test) and fi (int8
+   anchors), bf16 sweeps (MC ones too) and finetunes
    (the committee's and the teacher's forwards too), ``ckpt_full_every``
    2,
    ``async_checkpoint``; its launch counts are zeroed before and read
    after it, and K1 and K2 must launch;
-13. resume == continue: a 4-round random campaign with int8 anchors every
+15. resume == continue: a 4-round random campaign with int8 anchors every
    3 rounds, run uninterrupted and then crashed after round 3 and
    resumed by replay in a fresh ``PWExperiment``: the final
    ``curr_weights.npz``, the query journal and ``perf_evals.txt`` must be
    bit-identical; again with the mean teacher (its int8 ``teacher/``
    group included); and the finetune's seconds with and without
    deterministic cuDNN, interleaved in one process;
-14. lines with the new methods' per-round seconds, the MC and perturb
+16. lines with the new methods' per-round seconds, the MC and perturb
    sweeps' rates, the committee campaigns' peak memory, the lever runs'
    per-round seconds, each lever's seconds per finetune step, the
-   checkpoint bytes with the teacher, and whether the TensorBoard mirror
-   was active (it needs the ``tensorboard`` package), then one
+   checkpoint bytes with the teacher, whether the TensorBoard mirror
+   was active (it needs the ``tensorboard`` package), and the influence,
+   ps-random and SuPix runs' per-round seconds with the ``influence/*``
+   spans, CG iterations and peak memory, then one
    ``phases`` JSON line (per-round seconds from ``phases.jsonl`` of both
    campaigns, build seconds, K1's SASS counts, the FIM, bf16, codec,
-   resume, MC, perturbation and selection phases) and one ``kernels``
+   resume, MC, perturbation, selection, second-order, SLIC and
+   ``finetune_wpool`` phases) and one ``kernels``
    JSON line (times, bounds, launches in both campaigns).
 
 The row and column tolerance rules for shrunk gradients and A-matrices:
@@ -147,12 +172,17 @@ import torch
 
 from nnal_tpu_torch import ops
 from nnal_tpu_torch.ops._build import stream_ptr
-from nnal_tpu_torch.cli.expr_handler import DEFAULT_PARS, do_expr
+from nnal_tpu_torch.cli.expr_handler import DEFAULT_PARS, create_expr, do_expr
 from nnal_tpu_torch.core import rng as core_rng
 from nnal_tpu_torch.core.config import ExperimentConfig, set_parameters
 from nnal_tpu_torch.core.device import deterministic_cudnn, set_precision
 from nnal_tpu_torch.data.io import synthetic_subject
+from nnal_tpu_torch.core.journal import MethodJournal
 from nnal_tpu_torch.data.patches import pad_volumes
+from nnal_tpu_torch.data.samplers import (
+    generate_grid_samples,
+    high_variance_filter,
+)
 from nnal_tpu_torch.engine import pw_experiment
 from nnal_tpu_torch.models import checkpoint as ckpt
 from nnal_tpu_torch.models import cnn as cnn_mod
@@ -189,12 +219,20 @@ from nnal_tpu_torch.ops.gather import (
 )
 from nnal_tpu_torch.ops.scoring_fused import make_pool_scorer, pool_score_fused
 from nnal_tpu_torch.scoring import batchbald as bb_mod
+from nnal_tpu_torch.scoring import hessian as hessian_mod
+from nnal_tpu_torch.scoring import influence as infl_mod
 from nnal_tpu_torch.scoring import representative as rep_mod
 from nnal_tpu_torch.scoring import sdp
-from nnal_tpu_torch.scoring.pool_eval import mc_stack_posteriors
+from nnal_tpu_torch.scoring import superpixel as sp_mod
+from nnal_tpu_torch.scoring.pool_eval import PoolEvaluator, mc_stack_posteriors
+from nnal_tpu_torch.scoring.pseudo import confident_samples
 from nnal_tpu_torch.scoring.uncertainty import binary_uncertainty_filter
 from nnal_tpu_torch.scoring.fisher import refine_feature_matrix
-from nnal_tpu_torch.scoring.gradients import gather_shrunk_a_matrices
+from nnal_tpu_torch.scoring.gradients import (
+    diagonal_fisher,
+    gather_shrunk_a_matrices,
+    per_sample_grads,
+)
 from nnal_tpu_torch.scoring.grid_eval import extract_normalize
 from nnal_tpu_torch.ops.similarity import (
     normalize_rows,
@@ -253,6 +291,22 @@ LEVER_RUNS = (("entropy@mt", OVERRIDES + MT + f",tb_logdir={TB_DIR}"),
                OVERRIDES + ",train_layers=[fc1,fc2,fc3]"))
 F32_RUNS += LEVER_RUNS
 BF16_RUNS += (("entropy@mt", OVERRIDES + BF16 + ",ckpt_dtype=bfloat16" + MT),)
+# the last three strategies: influence (cg, and arnoldi at rank 8) on B
+# 200 candidates, ps-random, and SuPix on 64 SLIC segments a slice, which
+# queries whole superpixels (~64 pool voxels each): a budget that 2 rounds
+# cannot reach, and iter_k stops it after 2
+INFLUENCE = OVERRIDES.replace("B=128", "B=200")
+REST_RUNS = (("influence", INFLUENCE),
+             ("influence@arnoldi",
+              INFLUENCE + ",influence_mode=arnoldi,arnoldi_rank=8"),
+             ("ps-random", OVERRIDES),
+             ("SuPix", OVERRIDES + ",iter_k=[64,64,0]"))
+SUPIX_BUDGET = 65536
+F32_RUNS += REST_RUNS
+BF16_RUNS += (("influence", INFLUENCE + BF16 + ",ckpt_dtype=bfloat16"),)
+INFLUENCE_SUBS = {"influence/labeled_gather", "influence/s_test",
+                  "influence/posteriors", "influence/filter",
+                  "influence/cand_scores"}
 # resume == continue: 4 rounds of random, int8 anchors every 3 rounds;
 # again with the mean teacher
 RESUME_OVERRIDES = OVERRIDES + ",ckpt_full_every=3,ckpt_dtype=int8"
@@ -751,7 +805,8 @@ class HostDraws:
         self.saved = [(cnn_mod, "_dropout_uniform"),
                       (perturb_mod, "_gaussian_noise"),
                       (bb_mod, "_t_assign"), (bb_mod, "_uniform"),
-                      (core_rng, "gumbel"), (rep_mod, "_first_index")]
+                      (core_rng, "gumbel"), (rep_mod, "_first_index"),
+                      (hessian_mod, "_lanczos_start")]
         self.saved = [(m, n, getattr(m, n)) for m, n in self.saved]
 
         def t(a, device, dtype=None):
@@ -775,6 +830,9 @@ class HostDraws:
         core_rng.gumbel = gumbel
         rep_mod._first_index = lambda n, gen, device: t(
             self._rng(4).integers(0, n), device)
+        hessian_mod._lanczos_start = lambda params, key, device: t(
+            self._rng(5, key).standard_normal(
+                sum(v.numel() for v in params.values()), np.float32), device)
         return self
 
     def __exit__(self, *exc):
@@ -1127,6 +1185,248 @@ def phase_batch_select(dev, k=64, B=200):
               f"{name} picks card vs host: {res[name]}, card {a.tolist()}, "
               f"host {b.tolist()}")
     print(f"batch selections ok: {json.dumps(res)}")
+    return res
+
+
+def _subject_rows(dev, n, seed):
+    """``n`` distinct voxels of the campaign subject (seed 0): PW1 25x25x2
+    patches (K2 on the card) and their labels as one-hot rows."""
+    vols, mask = synthetic_subject(shape=SHAPE, n_modalities=2, seed=0)
+    inds = np.random.default_rng(seed).choice(int(np.prod(SHAPE)), n,
+                                              replace=False)
+    x = gather_patches_normalized(
+        pad_volumes(vols, (25, 25, 1), dev), torch.as_tensor(inds).to(dev),
+        torch.tensor([60.0, 75.0], device=dev),
+        torch.tensor([30.0, 31.0], device=dev), (25, 25, 1), SHAPE)
+    y = np.eye(2, dtype=np.float32)[
+        np.asarray(mask).reshape(-1)[inds].astype(np.int64)]
+    return x, torch.from_numpy(y).to(dev)
+
+
+def _flat_cpu(tree):
+    return infl_mod.flatten(tree).cpu()
+
+
+def _rel(got, want) -> float:
+    """max |got - want| over max |want|."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def phase_second_order(dev, n=256, B=200, damping=0.1, kink=3e-7, reps=5):
+    """The second-order path at full width, card vs host: PW1 25x25x2 from
+    seed 0, 256 labeled rows and 200 candidates of the campaign subject.
+
+    A row whose forward comes within ``kink`` (3e-7, relative) of a relu
+    or max-pool kink (:func:`kink_margins`, on the host) can take the
+    other branch on the other device, which moves its gradient by O(1);
+    such labeled rows are put last and weighted out (the ``n_valid``
+    padding contract) of every batch quantity held below, and their
+    effect is printed (the HVP over all rows, held at 1e-2 only).  Held:
+    one HVP of the labeled gradient (within 1e-4 of max |Hv|); truncated
+    CG at a fixed 8 iterations (the same iteration count and curvature
+    exit; within 1e-3 of max |t|, CG amplifies rounding); the jvp scores
+    of the 200 candidates along that s_test (candidates away from a kink
+    within 1e-4 of max |score|, the others within 0.1), and the card's
+    against the ``vmap(grad)`` oracle on 16 of them (1e-4); Lanczos and
+    ``arnoldi_s_test`` at rank 4 from the same numpy start
+    (:class:`HostDraws`; eigenvalues within 1e-3 of max |lambda|, s_test
+    within 1e-3); ``per_sample_grads`` of 8 rows (each row within 1e-5 of
+    its leaves' max |.|, a row near a kink within 0.1) and
+    ``diagonal_fisher`` of the first 8 rows away from a kink (1e-5).
+    Then the card's ms per HVP at the 256- and 512-row buckets, with the
+    TFLOP/s of the FLOPs PyTorch's counter sees in one call, and seconds
+    per Lanczos basis at rank 8."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    spec = create_pw1(2, 0.5, (25, 25, 2))
+    x, y = _subject_rows(dev, 2 * n + B, seed=4)
+    host_model = init_cnn(spec, seed=0, device="cpu")
+    m_tr = kink_margins(host_model, x[:n].cpu())
+    m_c = kink_margins(host_model, x[2 * n:].cpu())
+    order = np.argsort(m_tr < kink, kind="stable")      # far rows first
+    n_far = int((m_tr >= kink).sum())
+    far_c = m_c >= kink
+    out = {}
+    for side, d in (("card", dev), ("host", torch.device("cpu"))):
+        m = init_cnn(spec, seed=0, device=d)
+        p = infl_mod.param_dict(m)
+        perm = torch.as_tensor(order).to(x.device)
+        tx, ty = x[:n][perm].to(d), y[:n][perm].to(d)
+        cx, cy = x[2 * n:].to(d), y[2 * n:].to(d)
+        w = (torch.arange(n, device=d) < n_far).float()
+        g = infl_mod.query_gradient(m, p, tx, ty, n_far)
+        r = {"hv": _flat_cpu(infl_mod.hvp(m, p, tx, ty, g, w)),
+             "hv_all": _flat_cpu(infl_mod.hvp(m, p, tx, ty, g))}
+        t0 = time.perf_counter()
+        st, r["cg"] = infl_mod.cg_solve_hvp(m, p, tx, ty, g, damping,
+                                            max_iter=8, tol=0.0, w=w)
+        r["t"], r["cg_s"] = _flat_cpu(st), time.perf_counter() - t0
+        r["scores"] = infl_mod.influence_scores_jvp(m, p, st, cx, cy).cpu()
+        if side == "card":
+            r["oracle"] = infl_mod._chunk_influence(m, p, st, cx[:16],
+                                                    cy[:16]).cpu()
+        with HostDraws(17):
+            ev, _, _ = hessian_mod.lanczos_eigsh(m, p, tx, ty, 4, key=5,
+                                                 w=w)
+            ast, _ = hessian_mod.arnoldi_s_test(
+                m, p, tx, ty, tx, ty, 4, key=5, damping=damping,
+                n_valid=n_far, q_n_valid=n_far)
+        r["evals"], r["arnoldi"] = ev.cpu(), _flat_cpu(ast)
+        r["psg"] = {k: v.cpu() for k, v in per_sample_grads(
+            m, p, x[:8].to(d), y[:8].to(d)).items()}
+        r["fisher"] = {k: v.cpu() for k, v in diagonal_fisher(
+            m, p, tx[:8], ty[:8], chunk=4).items()}
+        out[side] = r
+    c, h = out["card"], out["host"]
+    sc = (c["scores"] - h["scores"]).abs() / h["scores"].abs().max()
+    psg_rows = [max(float((c["psg"][k][i] - h["psg"][k][i]).abs().max()
+                          / h["psg"][k][i].abs().max()) for k in c["psg"])
+                for i in range(8)]
+    res = {"rows_near_a_kink": n - n_far,
+           "candidates_near_a_kink": int((~far_c).sum()),
+           "hvp_rel": _rel(c["hv"], h["hv"]),
+           "hvp_all_rows_rel": _rel(c["hv_all"], h["hv_all"]),
+           "cg_card": c["cg"], "cg_host": h["cg"],
+           "cg_rel": _rel(c["t"], h["t"]), "cg8_card_s": c["cg_s"],
+           "cg8_host_s": h["cg_s"],
+           "scores_rel": float(sc[torch.as_tensor(far_c)].max()),
+           "scores_near_kink_rel": float(sc[torch.as_tensor(~far_c)].max())
+           if (~far_c).any() else None,
+           "scores_vs_oracle_rel": _rel(c["scores"][:16], c["oracle"]),
+           "evals_card": c["evals"].tolist(),
+           "evals_host": h["evals"].tolist(),
+           "evals_rel": _rel(c["evals"], h["evals"]),
+           "arnoldi_rel": _rel(c["arnoldi"], h["arnoldi"]),
+           "psg_rows_rel": psg_rows,
+           "psg_rows_near_kink": (m_tr[:8] < kink).tolist(),
+           "fisher_rel": max(_rel(c["fisher"][k], h["fisher"][k])
+                             for k in c["fisher"])}
+    check(res["hvp_rel"] <= 1e-4 and res["hvp_all_rows_rel"] <= 1e-2,
+          f"HVP card vs host: {res}")
+    check(c["cg"] == h["cg"] and res["cg_rel"] <= 1e-3,
+          f"CG (8 iterations) card vs host: {res}")
+    check(res["scores_rel"] <= 1e-4 and (res["scores_near_kink_rel"]
+                                         or 0.0) <= 0.1
+          and res["scores_vs_oracle_rel"] <= 1e-4,
+          f"influence scores: {res}")
+    check(res["evals_rel"] <= 1e-3 and res["arnoldi_rel"] <= 1e-3,
+          f"Lanczos / Arnoldi card vs host: {res}")
+    check(all(e <= (0.1 if near else 1e-5) for e, near in
+              zip(psg_rows, res["psg_rows_near_kink"]))
+          and res["fisher_rel"] <= 1e-5,
+          f"per-sample grads / diagonal Fisher card vs host: {res}")
+
+    m = init_cnn(spec, seed=0, device=dev)
+    p = infl_mod.param_dict(m)
+    torch.cuda.reset_peak_memory_stats()
+    for rows in (n, 2 * n):
+        tx, ty = x[:rows], y[:rows]
+        v = infl_mod.loss_grad(m, p, tx, ty)
+        with FlopCounterMode(display=False) as fc:
+            infl_mod.hvp(m, p, tx, ty, v)
+        ms = time_ms(lambda: infl_mod.hvp(m, p, tx, ty, v), reps)
+        flops = fc.get_total_flops()
+        res[f"hvp_{rows}"] = {"ms": ms, "flops": flops,
+                              "tflops_per_s": flops / ms / 1e9}
+    # the port's own start (a Philox draw on the card), as the campaign's
+    tx, ty = x[:n], y[:n]
+    hessian_mod.lanczos_eigsh(m, p, tx, ty, 2, key=5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hessian_mod.lanczos_eigsh(m, p, tx, ty, 8, key=5)
+    torch.cuda.synchronize()
+    res["lanczos8_s"] = time.perf_counter() - t0
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    print(f"second order ok (CG at 8 iterations: {c['cg']}): "
+          f"{json.dumps(res)}")
+    return res
+
+
+def phase_slic_variance(dev, n_segments=64, slices=(0, 8, 16, 24)):
+    """SLIC native vs numpy on 4 slices of the campaign subject (label maps
+    equal), seconds per volume of the native ``oversegment_volume``, and
+    ``high_variance_filter`` (25x25 patches, threshold 2.0, the campaign
+    grid) card vs host: the same positions."""
+    vols, _ = synthetic_subject(shape=SHAPE, n_modalities=2, seed=0)
+    vol = vols[0]
+    res = {"differing_share": {}, "numpy_s_per_slice": 0.0}
+    sp_mod.slic_2d(vol[:, :, 0], n_segments, backend="native")   # build
+    for z in slices:
+        nat = sp_mod.slic_2d(vol[:, :, z], n_segments, backend="native")
+        t0 = time.perf_counter()
+        ref = sp_mod.slic_2d(vol[:, :, z], n_segments, backend="numpy")
+        res["numpy_s_per_slice"] += (time.perf_counter() - t0) / len(slices)
+        res["differing_share"][z] = float((nat != ref).mean())
+    check(not any(res["differing_share"].values()),
+          f"SLIC native vs numpy: {res}")
+    t0 = time.perf_counter()
+    seg = sp_mod.oversegment_volume(vol, n_segments, backend="native")
+    res["native_s_per_volume"] = time.perf_counter() - t0
+    res["segments_per_slice"] = int(seg[:, :, 0].max()) + 1
+    grid = generate_grid_samples(SHAPE, 2)
+    card = high_variance_filter(vol, (25, 25, 1), 2.0, grid, device=dev)
+    host = high_variance_filter(vol, (25, 25, 1), 2.0, grid, device="cpu")
+    res["hv_positions"] = len(card)
+    check(np.array_equal(card, host),
+          f"variance filter card vs host: {len(card)} vs {len(host)}")
+    res["hv_filter_ms"] = time_ms(lambda: high_variance_filter(
+        vol, (25, 25, 1), 2.0, grid, device=dev), 5)
+    print(f"SLIC and variance filter ok: {json.dumps(res)}")
+    return res
+
+
+def phase_finetune_wpool(dev, root, n_pseudo=256, n_check=4096):
+    """``finetune_wpool`` once on the f32 campaign's entropy state (its
+    weights, a fresh Adam, the whole pool, 256 pseudo-labels), timed, with
+    K2 gathering labels plus pseudo-labels; then the confident picks card
+    vs host from the same weights on the first 4096 pool voxels (the host
+    cannot sweep the whole pool in time): the same voxels and labels."""
+    expr = create_expr(root, synthetic=True, device=str(dev))
+    spec = expr.build_model()
+    train, pool = MethodJournal(root, "entropy").membership()
+    params = ckpt.load_checkpoint(os.path.join(
+        root, "entropy", "curr_weights.npz"))[0]
+    state = init_train_state(expr._load_model(spec, params), "Adam", 1e-3)
+    picks = {}
+    orig = pw_experiment.confident_samples
+
+    def spy(*a, **kw):
+        picks["call"] = orig(*a, **kw)
+        return picks["call"]
+
+    pw_experiment.confident_samples = spy
+    try:
+        k2 = ops.gather.KERNEL.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        expr.finetune_wpool(spec, state, train, pool, n_pseudo)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        k2 = ops.gather.KERNEL.launches - k2
+    finally:
+        pw_experiment.confident_samples = orig
+    check(len(picks["call"][0]) == n_pseudo and k2 >= 1,
+          f"finetune_wpool: {len(picks['call'][0])} picks, K2 +{k2}")
+    sub = pool[:n_check]
+    conf = {}
+    for side, d in (("card", dev), ("host", torch.device("cpu"))):
+        e = expr if side == "card" else create_expr(root, synthetic=True,
+                                                    device="cpu")
+        mu, sd = e._stats_arrays()
+        ev = PoolEvaluator(spec, e.padded(), mu, sd,
+                           tuple(e.config.model.patch_shape),
+                           e._load_subject()[0][0].shape)
+        p1 = ev.evaluate(e._load_model(spec, params), sub)["posteriors"]
+        conf[side] = confident_samples(p1, sub, n_pseudo)
+    same = (set(conf["card"][0].tolist()) == set(conf["host"][0].tolist())
+            and np.array_equal(conf["card"][1][np.argsort(conf["card"][0])],
+                               conf["host"][1][np.argsort(conf["host"][0])]))
+    res = {"seconds": secs, "k2_launches": k2, "n_pseudo": n_pseudo,
+           "pseudo_ones": int(picks["call"][1].sum()),
+           "card_vs_host_same_set": same}
+    check(same, f"finetune_wpool's confident picks card vs host: {res}")
+    print(f"finetune_wpool ok: {json.dumps(res)}")
     return res
 
 
@@ -1547,7 +1847,9 @@ def phase_fim_sweep(dev, n_check=64, cd=None, ref_unc=None):
 
 
 def phase_campaign(dev):
-    """Each run in its own experiment directory: the f32 campaign, the checkpoint codecs on its entropy state, then the bf16
+    """Each run in its own experiment directory: the f32 campaign,
+    ``finetune_wpool`` and the checkpoint codecs on its entropy state,
+    then the bf16
     campaign, each with the launch counts zeroed just before it and read
     just after.  A run's ~0.2-0.4 GB checkpoints are removed once it is
     checked (the f32 entropy state after the codecs), the directories at
@@ -1556,11 +1858,12 @@ def phase_campaign(dev):
     shutil.rmtree(top, ignore_errors=True)
     try:
         f32 = _campaign(dev, top, F32_RUNS, "")
+        wpool = phase_finetune_wpool(dev, os.path.join(top, "entropy"))
         codecs = phase_ckpt_codecs(
             dev, os.path.join(top, "entropy", "entropy", "curr_weights.npz"),
             top)
         bf16 = _campaign(dev, os.path.join(top, "bf16"), BF16_RUNS, "bf16/")
-        return f32, bf16, codecs
+        return f32, bf16, codecs, wpool
     finally:
         shutil.rmtree(top, ignore_errors=True)
 
@@ -1572,7 +1875,8 @@ def _campaign(dev, top, runs, tag):
     configuration of the same method.  Returns the launch counts, phases,
     seconds, per-run launches, each run's peak device memory
     (``max_memory_allocated``) and notes (whether the TensorBoard mirror
-    wrote events)."""
+    wrote events, each influence round's CG iterations and curvature
+    exit)."""
     counts = {}
     seconds = {}
     phases = {}
@@ -1588,9 +1892,22 @@ def _campaign(dev, top, runs, tag):
         k2_0 = ops.gather.KERNEL.launches
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        cg_log = []
+        cg_solve = infl_mod.cg_solve_hvp
+
+        def logged_cg(*a, **kw):
+            out = cg_solve(*a, **kw)
+            cg_log.append(out[1])
+            return out
+
+        infl_mod.cg_solve_hvp = logged_cg
         t0 = time.perf_counter()
-        res = do_expr(root, method, 128, overrides, synthetic=True,
-                      device=str(dev))
+        try:
+            res = do_expr(root, method,
+                          SUPIX_BUDGET if method == "SuPix" else 128,
+                          overrides, synthetic=True, device=str(dev))
+        finally:
+            infl_mod.cg_solve_hvp = cg_solve
         seconds[key] = time.perf_counter() - t0
         peaks[key] = torch.cuda.max_memory_allocated()
         init_pool = np.loadtxt(os.path.join(root, "init_pool_inds.txt"),
@@ -1607,6 +1924,11 @@ def _campaign(dev, top, runs, tag):
         if method == "fi":
             # the PMF is drawn with replacement and deduplicated
             check(all(1 <= len(q) <= 64 and len(set(q.tolist())) == len(q)
+                      for q in picks),
+                  f"{key}: picks per round {[len(q) for q in picks]}")
+        elif method == "SuPix":
+            # every pool member of 64 superpixels a round
+            check(all(len(q) > 64 and len(set(q.tolist())) == len(q)
                       for q in picks),
                   f"{key}: picks per round {[len(q) for q in picks]}")
         else:
@@ -1639,6 +1961,17 @@ def _campaign(dev, top, runs, tag):
                   for r in rounds),
               f"{key}: the committee phase where it does not belong, or "
               f"missing: {rounds}")
+        if method == "influence":
+            # each round: the labeled bucket, the candidates, the finetune
+            check(dk2 >= 6, f"{key}: K2 launched {dk2} times")
+            check(all(INFLUENCE_SUBS <= set(r.get("sub", {}))
+                      for r in rounds),
+                  f"{key}: sub spans missing from phases.jsonl: "
+                  f"{[r.get('sub') for r in rounds]}")
+            cg_mode = "influence_mode=arnoldi" not in overrides
+            check(len(cg_log) == (2 if cg_mode else 0),
+                  f"{key}: {len(cg_log)} CG solves")
+            notes[key + " cg"] = cg_log
         if method == "fi":
             # 2 candidate gathers and 2 finetunes
             check(dk2 >= 4, f"{key}: K2 launched {dk2} times")
@@ -1970,11 +2303,13 @@ def main() -> int:
     mc_sweep = phase_mc_sweep(dev)
     perturb = phase_perturb(dev)
     batch_select = phase_batch_select(dev)
+    second_order = phase_second_order(dev)
+    slic = phase_slic_variance(dev)
     fim = phase_fim_parity(dev)
     sweep, unc32 = phase_fim_sweep(dev)
     sweep16, _ = phase_fim_sweep(dev, cd=torch.bfloat16, ref_unc=unc32)
     del unc32
-    f32, bf16, codecs = phase_campaign(dev)
+    f32, bf16, codecs, wpool = phase_campaign(dev)
     resume = phase_resume(dev)
     resume_mt = phase_resume(dev, mt=True)
     determinism = phase_determinism_cost(dev)
@@ -2010,6 +2345,17 @@ def main() -> int:
                       for dt in ("float32", "bfloat16", "int8")}))
     print(f"TensorBoard mirror active: "
           f"{notes.get('tensorboard_active', False)}")
+    rest_runs = [n for n, _ in REST_RUNS] + ["bf16/influence"]
+    print("per-round seconds of influence, ps-random and SuPix (card "
+          "above), with the influence/* spans, CG iterations and peak "
+          "bytes: " + json.dumps({
+              n: {"rounds": [{k: r[k] for k in ("score_select", "train",
+                                                "eval", "checkpoint", "sub")
+                              if k in r}
+                             for r in phases[n] if not r.get("tail")],
+                  "cg": notes.get(n + " cg"), "peak_bytes": peaks[n],
+                  "campaign_s": seconds[n]}
+              for n in rest_runs}))
     for r in rows:
         r["launches"] = f32[0][r["name"]] + bf16[0][r["name"]]
         r["launches_f32_campaign"] = f32[0][r["name"]]
@@ -2030,6 +2376,8 @@ def main() -> int:
                       "mc_forward": mc_fwd, "mc_sweep": mc_sweep,
                       "perturbation": perturb,
                       "batch_selections": batch_select,
+                      "second_order": second_order, "slic_variance": slic,
+                      "finetune_wpool": wpool,
                       "campaign_peak_bytes": peaks}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

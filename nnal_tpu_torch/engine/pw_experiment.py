@@ -45,6 +45,12 @@ member starts without a teacher and builds its own from its copy.
 ``tb_logdir`` mirrors ``al/f_measure`` and ``al/n_train`` per round to
 TensorBoard under ``tb_logdir/<method>`` when the backend imports.
 
+Each round's query context carries the raw first modality and the label
+mask (``ps-random``, ``SuPix``, ``influence``), the SLIC
+oversegmentation, computed once and kept across rounds, and
+``influence_mode`` / ``arnoldi_rank``.  ``finetune_wpool`` finetunes on
+the labels plus confident pseudo-labels.
+
 Runs on ``device`` (default: the card; CUDA missing raises).
 """
 
@@ -112,6 +118,7 @@ from nnal_tpu_torch.models.train import (
 )
 from nnal_tpu_torch.scoring.grid_eval import GridPoolEvaluator
 from nnal_tpu_torch.scoring.pool_eval import eval_compute_dtype
+from nnal_tpu_torch.scoring.pseudo import confident_samples
 from nnal_tpu_torch.scoring.strategies import QueryContext, cnn_query
 
 
@@ -135,6 +142,7 @@ class PWExperiment:
         self._vols: Optional[List[np.ndarray]] = None
         self._mask: Optional[np.ndarray] = None
         self._padded: Optional[torch.Tensor] = None
+        self._overseg: Optional[np.ndarray] = None    # SuPix's SLIC labels
         # ensemble/QBC-JS committee: checkpoint paths (reference
         # pretrained_paths + model_holder)
         self.ensemble_paths: List[str] = []
@@ -247,8 +255,8 @@ class PWExperiment:
         return j
 
     # ------------------------------------------------------------- training
-    def finetune(self, state: TrainState, train_inds,
-                 rng_tag: str = "") -> TrainState:
+    def finetune(self, state: TrainState, train_inds, rng_tag: str = "",
+                 epochs: Optional[int] = None) -> TrainState:
         """Finetune on the labeled set (reference ``finetune``): gather and
         normalize it once (kernel K2 on the card), then run the round's
         batch-index matrix with the configured levers (module docstring).
@@ -257,7 +265,8 @@ class PWExperiment:
         m = self.config.model
         if getattr(m, "opt_reset_per_round", False):
             state.optimizer.state.clear()
-        if len(train_inds) == 0 or m.epochs == 0:
+        epochs = m.epochs if epochs is None else epochs
+        if len(train_inds) == 0 or epochs == 0:
             return state
         vols, mask = self._load_subject()
         mu, sd = self._stats_arrays()
@@ -283,7 +292,7 @@ class PWExperiment:
         n = len(train_inds)
         x_all = gather(train_inds)
         y_all = torch.as_tensor(make_onehot(labels_all, m.nclass)).to(dev)
-        idx_mat, w_mat = build_batch_index_matrix(n, m.b, m.epochs, host,
+        idx_mat, w_mat = build_batch_index_matrix(n, m.b, epochs, host,
                                                   bucket=256)
         cw_vec = (torch.ones(m.nclass) if cw is None
                   else torch.as_tensor(np.asarray(cw, np.float32))).to(dev)
@@ -322,6 +331,35 @@ class PWExperiment:
                            mc_t=int(m.mc_t), grad_mask=grad_mask, lwf=lwf,
                            mt=mt)
         return state
+
+    def finetune_wpool(self, spec, state: TrainState, train_inds,
+                       pool_inds, n_pseudo: int, *,
+                       epochs: Optional[int] = None,
+                       threshold: float = 0.9) -> TrainState:
+        """Finetune on the labels plus the ``n_pseudo`` most confident pool
+        voxels at their pseudo-labels (reference ``finetune_wpool``,
+        PW_AL.py:500-543; ``pw_experiment.py:768-800``): the pseudo-labels
+        patch the label mask for the one finetune (K2 gathers both sets),
+        and the mask is restored after it, also on an error.  The
+        evaluator is kept per spec."""
+        cache = getattr(self, "_wpool_ev_cache", None)
+        if cache is None or cache[0] is not spec:
+            cache = self._wpool_ev_cache = (spec, self.make_evaluator(spec))
+        p1 = cache[1].evaluate(state.model, pool_inds,
+                               ("posteriors",))["posteriors"]
+        conf_inds, pseudo, _ = confident_samples(p1, pool_inds, n_pseudo,
+                                                 threshold)
+        _, mask = self._load_subject()
+        patched = np.array(mask, dtype=np.float64)
+        patched[np.unravel_index(conf_inds, patched.shape)] = pseudo
+        orig_mask = self._mask
+        self._mask = patched
+        try:
+            return self.finetune(state, np.concatenate([train_inds,
+                                                        conf_inds]),
+                                 epochs=epochs)
+        finally:
+            self._mask = orig_mask
 
     def _ensemble_params(self, spec):
         """The committee of ``ensemble_paths`` (None when unset)."""
@@ -473,6 +511,7 @@ class PWExperiment:
             else:
                 committee = self._ensemble_params(spec)
             m = cfg.model
+            vols, mask = self._load_subject()
             ctx = QueryContext(spec=spec, params=model, evaluator=evaluator,
                                pool_inds=pool_inds, k=k, rng=qrng.host,
                                B=cfg.query.B, lambda_=cfg.query.lambda_,
@@ -480,13 +519,23 @@ class PWExperiment:
                                train_inds=train_inds, seed=qrng.next(),
                                MC_iters=cfg.query.MC_iters,
                                ensemble_params=committee,
-                               extra={"gaussian_noise_std":
+                               raw_volume=vols[0],
+                               extra={"mask": mask,
+                                      "overseg": self._overseg,
+                                      "gaussian_noise_std":
                                       m.gaussian_noise_std,
                                       "rotation_angle": m.rotation_angle,
                                       "output_perturbation_measure":
-                                      m.output_perturbation_measure})
+                                      m.output_perturbation_measure,
+                                      "influence_mode":
+                                      cfg.query.influence_mode,
+                                      "arnoldi_rank":
+                                      cfg.query.arnoldi_rank})
             with timer.phase("score_select"):
                 q_pos = cnn_query(ctx, method_name)
+            # SLIC's oversegmentation depends on the volume alone: kept
+            # across rounds
+            self._overseg = ctx.extra.get("overseg")
             # the committee's weights (and the copies' device memory) go
             # with the round's scoring
             del ctx, committee

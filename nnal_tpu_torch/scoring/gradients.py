@@ -18,8 +18,12 @@ The forward is driven off the :class:`~nnal_tpu_torch.models.cnn.CNN`
 module itself (its submodules' weights and its ``_pads``, so a conv's
 ones-filter sees the same SAME padding as the conv, asymmetric where XLA's
 is).  Not ported: the opt-in ``NNAL_CONV1_MM`` first-conv lowering (a TPU
-matrix-unit workaround), ``per_sample_grads``, ``diagonal_fisher`` and
-``shrink_gradient_pytree`` (ROADMAP Queue 1).
+matrix-unit workaround).
+
+The full per-sample gradients (:func:`per_sample_grads`, ``vmap`` of
+``grad`` through ``functional_call``), the diagonal Fisher and the
+host-side shrinkage of a whole gradient (:func:`shrink_gradient_pytree`)
+sit at the end (``gradients.py:342-406``).
 
 ``compute_dtype=torch.bfloat16`` keeps activations in bf16 between layers
 (``gradients.py:85-233``): each layer casts its weight to the activation's
@@ -38,6 +42,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from nnal_tpu_torch.data.patches import gather_patches_normalized
+from nnal_tpu_torch.models.bridge import to_jax_tensors
 from nnal_tpu_torch.models.cnn import conv2d_f32acc, linear_f32acc
 
 
@@ -236,3 +241,67 @@ def gather_shrunk_a_matrices(model, padded, inds, mu, sd, patch_shape,
                                   orig_shape)
     shrunk = shrunk_class_grads(model, x, compute_dtype)
     return a_matrices(shrunk, posts_p1, diag_load)
+
+
+def per_sample_grads(model, params, x, y_onehot):
+    """Full per-sample CE gradients by ``vmap(grad)``: a parameter dict
+    (keyed as ``named_parameters``) with a leading batch axis (the
+    reference takes one ``sess.run`` per sample, model_utils.py:294-330).
+
+    cuDNN is off here: for ``vmap``'s grouped weight-gradient convolutions
+    it picked, at 4 rows of PW1 25x25x2, an algorithm that parted from the
+    host by 1.4e-4 (relative; 1e-6 at 8 rows), where PyTorch's own
+    convolution keeps f32 accuracy (``chip_smoke.py``'s second-order
+    phase holds the card to the host)."""
+    from torch.func import functional_call, grad, vmap
+
+    def loss_one(p, xi, yi):
+        logits = functional_call(model, p, (xi[None],)).logits
+        return -(yi * torch.log_softmax(logits, dim=-1)[0]).sum()
+
+    with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
+        return vmap(grad(loss_one), in_dims=(None, 0, 0))(params, x,
+                                                          y_onehot)
+
+
+def diagonal_fisher(model, params, X, Y_onehot, chunk: int = 64):
+    """Diagonal Fisher: the mean over samples of squared per-sample
+    gradients, per parameter (reference ``diagonal_Fisher``,
+    model_utils.py:294-330), in chunks of ``chunk`` rows (a chunk holds
+    ``chunk`` full gradients)."""
+    acc, seen = None, 0
+    for lo in range(0, X.shape[0], chunk):
+        g = per_sample_grads(model, params, X[lo:lo + chunk],
+                             Y_onehot[lo:lo + chunk])
+        sq = {n: (t.float() ** 2).sum(0) for n, t in g.items()}
+        acc = sq if acc is None else {n: acc[n] + sq[n] for n in acc}
+        seen += g[next(iter(g))].shape[0]
+    return {n: t / seen for n, t in acc.items()}
+
+
+def shrink_gradient_pytree(grads, spec, method: str = "sum", rng=None,
+                           nppl: int = 0) -> np.ndarray:
+    """Shrink one full gradient (a dict keyed as ``named_parameters``) on
+    the host (reference NNAL_tools.py:778-831), per layer in spec order:
+    'sum' (the mean of the layer's entries), 'max' (its entry of largest
+    magnitude), 'rand' (``rng.choice`` of ``nppl`` entries).  Each layer is
+    raveled as ``[W.ravel(), b]`` in the JAX package's layouts (HWIO,
+    (in, out)), so 'rand' picks the entries JAX picks from the same
+    generator."""
+    jt = to_jax_tensors(grads)
+    out = []
+    for name in [l.name for l in spec.layers if l.name in jt
+                 and "W" in jt[l.name]]:
+        cat = np.concatenate([jt[name]["W"].cpu().numpy().ravel(),
+                              jt[name]["b"].cpu().numpy().ravel()])
+        if method == "sum":
+            out.append(cat.sum() / cat.size)
+        elif method == "max":
+            out.append(cat[np.argmax(np.abs(cat))])
+        elif method == "rand":
+            idx = rng.choice(cat.size, size=min(nppl, cat.size),
+                             replace=False)
+            out.extend(cat[idx])
+        else:
+            raise ValueError(method)
+    return np.asarray(out)

@@ -2,16 +2,18 @@
 ``nnal_tpu/scoring/strategies.py``).
 
 Each strategy consumes a :class:`QueryContext` and returns positions into
-``ctx.pool_inds``.  The port has ``random``, ``entropy``, ``core-set``,
-``fi``, the stochastic family (``MC-entropy``, ``BALD``, ``BatchBALD``,
-``AU_4U``), the committees (``ensemble``, ``QBC-JS``) and the
-batch-diverse ``rep-entropy`` and ``BADGE``.  The JAX package's three
-others (``influence``, ``ps-random``, ``SuPix``) raise
-``NotImplementedError`` naming their ROADMAP item (:data:`REFERENCE_ONLY`,
-checked by :func:`require_strategy` before a method is set up), and any
-other name raises ``ValueError``.  Stochastic strategies key their device draws
-on ``ctx.seed`` (the counterpart of the JAX context's ``jax_rng``: the
-round's ``qrng.next()``), with the JAX package's fold tags.
+``ctx.pool_inds``.  The port has all 15 strategies of the JAX package:
+``random``, ``ps-random``, ``entropy``, ``core-set``, ``fi``, the
+stochastic family (``MC-entropy``, ``BALD``, ``BatchBALD``, ``AU_4U``),
+the committees (``ensemble``, ``QBC-JS``), the batch-diverse
+``rep-entropy`` and ``BADGE``, ``SuPix`` and the second-order
+``influence``.  A strategy only the JAX package has would be listed in
+:data:`REFERENCE_ONLY` with the ROADMAP item that ports it and raise
+``NotImplementedError`` (checked by :func:`require_strategy` before a
+method is set up); any other unknown name raises ``ValueError``.
+Stochastic strategies key their device draws on ``ctx.seed`` (the
+counterpart of the JAX context's ``jax_rng``: the round's
+``qrng.next()``), with the JAX package's fold tags.
 """
 
 from __future__ import annotations
@@ -24,8 +26,12 @@ import torch
 
 from nnal_tpu_torch.core import rng as core_rng
 from nnal_tpu_torch.core.profiling import subphase
-from nnal_tpu_torch.data.patches import gather_patches_normalized
+from nnal_tpu_torch.data.batching import make_onehot
+from nnal_tpu_torch.data.patches import gather_labels, gather_patches_normalized
+from nnal_tpu_torch.data.samplers import high_variance_filter
 from nnal_tpu_torch.models.perturb import measure_output_perturbation
+from nnal_tpu_torch.scoring import hessian
+from nnal_tpu_torch.scoring import influence as infl
 from nnal_tpu_torch.scoring.batchbald import batchbald_select
 from nnal_tpu_torch.scoring.fisher import refine_feature_matrix
 from nnal_tpu_torch.scoring.gradients import gather_shrunk_a_matrices
@@ -47,6 +53,7 @@ from nnal_tpu_torch.scoring.representative import (
     rep_entropy_from_features,
 )
 from nnal_tpu_torch.scoring.sdp import fi_query_distribution
+from nnal_tpu_torch.scoring.superpixel import oversegment_volume, supix_query
 from nnal_tpu_torch.scoring.uncertainty import (
     bald_scores_bucketed,
     binary_uncertainty_filter,
@@ -54,8 +61,10 @@ from nnal_tpu_torch.scoring.uncertainty import (
 )
 
 # fold tags of the JAX package (``strategies.py:50-51``, ``:216``):
-# BatchBALD's configuration draws and BADGE's k-means++ draws
+# BatchBALD's configuration draws, Lanczos's start vector and BADGE's
+# k-means++ draws
 _BB_CFG_FOLD = (1 << 20) + 13
+_ARNOLDI_KEY_FOLD = (1 << 20) + 29
 _BADGE_FOLD = 7
 
 
@@ -75,7 +84,11 @@ class QueryContext:
     train_inds: Optional[np.ndarray] = None
     seed: int = 0                         # device draws (JAX's jax_rng)
     MC_iters: int = 10
+    hv_threshold: float = 2.0             # ps-random's variance floor
     ensemble_params: Optional[List[torch.nn.Module]] = None  # committee
+    raw_volume: Optional[np.ndarray] = None  # unpadded modality 0
+    # mask (influence's labels), overseg (SuPix's cache), n_segments,
+    # influence_mode, arnoldi_rank, damping, and AU_4U's knobs
     extra: Dict = field(default_factory=dict)
 
 
@@ -83,7 +96,7 @@ _STRATEGIES: Dict[str, Callable] = {}
 
 # the JAX package's strategies the port lacks, each with the ROADMAP
 # Queue 1 item that ports it; drop a name when its item lands
-REFERENCE_ONLY = {"influence": 6, "ps-random": 7, "SuPix": 7}
+REFERENCE_ONLY: Dict[str, int] = {}
 
 
 def register_strategy(name: str):
@@ -133,6 +146,19 @@ def _posteriors(ctx: QueryContext) -> np.ndarray:
 @register_strategy("random")
 def _random(ctx: QueryContext):
     return ctx.rng.permutation(len(ctx.pool_inds))[:ctx.k]
+
+
+@register_strategy("ps-random")
+def _ps_random(ctx: QueryContext):
+    """Random picks among the pool voxels of high local variance
+    (reference PW_NNAL.py:37-48), the variance map on the evaluator's
+    device."""
+    if ctx.raw_volume is None:
+        raise ValueError("ps-random needs the raw volume")
+    valid = high_variance_filter(ctx.raw_volume, ctx.evaluator.patch_shape,
+                                 ctx.hv_threshold, ctx.pool_inds,
+                                 device=ctx.evaluator.device)
+    return valid[ctx.rng.permutation(len(valid))[:ctx.k]]
 
 
 @register_strategy("entropy")
@@ -339,3 +365,96 @@ def _au_4u(ctx: QueryContext):
     most under noise and/or rotation."""
     scores = _au_4u_scores(ctx)
     return np.argsort(-scores, kind="stable")[:ctx.k]
+
+
+@register_strategy("SuPix")
+def _supix(ctx: QueryContext):
+    """Superpixel querying (reconstructed, as in the JAX package; the
+    reference's path is broken): SLIC-oversegment the first modality
+    (cached in ``extra["overseg"]``), score pool voxels by |p - 0.5|, pick
+    the k superpixels with the lowest minimum score, and query every pool
+    member of them, so a round returns many more than k positions."""
+    overseg = ctx.extra.get("overseg")
+    if overseg is None:
+        if ctx.raw_volume is None:
+            raise ValueError("SuPix needs the raw volume")
+        overseg = oversegment_volume(ctx.raw_volume,
+                                     ctx.extra.get("n_segments", 64))
+        ctx.extra["overseg"] = overseg
+    unc = np.abs(_posteriors(ctx) - 0.5)
+    _, members = supix_query(overseg, ctx.pool_inds, unc, ctx.k)
+    if not members:
+        return np.zeros(0, dtype=np.int64)
+    wanted = np.unique(np.concatenate(members))
+    return np.flatnonzero(np.isin(ctx.pool_inds, wanted))
+
+
+def _s_test_dispatch(extra: Dict, model, params, tx, ty, damping,
+                     n_tr: int, seed):
+    """The s_test solver: ``cg`` (truncated CG, the reference's semantics)
+    or ``arnoldi`` (the low-rank Lanczos basis, ``arnoldi_rank``).  Both
+    weight the padding rows to exact no-ops in H and in v."""
+    mode = extra.get("influence_mode", "cg")
+    if mode == "arnoldi":
+        st, _ = hessian.arnoldi_s_test(
+            model, params, tx, ty, tx, ty,
+            rank=int(extra.get("arnoldi_rank", 8)),
+            key=core_rng.fold_key(seed, _ARNOLDI_KEY_FOLD),
+            damping=damping, n_valid=n_tr, q_n_valid=n_tr)
+        return st
+    if mode != "cg":
+        raise ValueError(f"unknown influence_mode {mode!r}; "
+                         "expected 'cg' or 'arnoldi'")
+    return infl.s_test(model, params, tx, ty, tx, ty, damping=damping,
+                       n_valid=n_tr, q_n_valid=n_tr)
+
+
+@register_strategy("influence")
+def _influence(ctx: QueryContext):
+    """Influence-function querying (reference
+    ``Influence.PW_sample_influence``, Influence.py:369-453): s_test =
+    (H_train + damping)^-1 grad L(labeled set) at f32, then the B most
+    uncertain pool voxels (gathered through K2 on the card) ranked by
+    ``|<grad L(z), s_test>|`` at their pseudo-labels ``p1 > 0.5``."""
+    if ctx.train_inds is None or len(ctx.train_inds) == 0:
+        raise ValueError("influence querying needs a labeled set")
+    ev = ctx.evaluator
+    _require_patch_evaluator(ev, "influence")
+    mask = ctx.extra.get("mask")
+    if mask is None:
+        raise ValueError("influence querying needs the label mask")
+    nclass = ctx.spec.nclass
+    params = infl.param_dict(ctx.params)
+
+    def gather(inds):
+        return gather_patches_normalized(
+            ev.padded, torch.as_tensor(np.asarray(inds, np.int64)).to(
+                ev.device), ev.mu, ev.sd, ev.patch_shape, ev.orig_shape)
+
+    with subphase("influence/labeled_gather"):
+        # padded to a 256 multiple with index 0, weighted out below, as
+        # the JAX package buckets it
+        n_tr = len(ctx.train_inds)
+        tr_inds = np.concatenate([np.asarray(ctx.train_inds, np.int64),
+                                  np.zeros(-n_tr % 256, np.int64)])
+        tr = gather(tr_inds)
+        y_lab = np.zeros(len(tr_inds), np.int64)
+        y_lab[:n_tr] = gather_labels(mask, ctx.train_inds, ev.orig_shape)
+        tr_y = torch.as_tensor(make_onehot(y_lab, nclass)).to(ev.device)
+    with subphase("influence/s_test"):
+        # the span ends with a device sync (subphase), so the solve's
+        # queued kernels bill here
+        st = _s_test_dispatch(ctx.extra, ctx.params, params, tr, tr_y,
+                              ctx.extra.get("damping", 0.1), n_tr,
+                              ctx.seed)
+    B = min(ctx.B, len(ctx.pool_inds))
+    with subphase("influence/posteriors"):
+        p1 = _posteriors(ctx)
+    with subphase("influence/filter"):
+        sel = binary_uncertainty_filter(p1, B)
+    with subphase("influence/cand_scores"):
+        cx = gather(ctx.pool_inds[sel])
+        pseudo = (p1[sel] > 0.5).astype(np.int64)
+        cy = torch.as_tensor(make_onehot(pseudo, nclass)).to(ev.device)
+        scores = infl.influence_scores(ctx.params, params, st, cx, cy)
+    return sel[np.argsort(-np.abs(scores), kind="stable")[:ctx.k]]

@@ -1,9 +1,10 @@
 """Three repairs of the port (CPU):
 
-* a strategy only the JAX package has (``influence``, ``ps-random``,
-  ``SuPix``) raises ``NotImplementedError`` naming its ROADMAP item, in
-  ``cnn_query`` and in ``do_expr`` before any method directory is
-  written; a name neither package has still raises ``ValueError``;
+* a strategy only the JAX package has raises ``NotImplementedError``
+  naming its ROADMAP item, in ``cnn_query`` and in ``do_expr`` before any
+  method directory is written (a stand-in name: since items 6-7,
+  ``influence``, ``ps-random`` and ``SuPix`` run, and the list is empty);
+  a name neither package has still raises ``ValueError``;
 * the port resumes an experiment whose ``state.json`` the JAX package
   wrote: JAX runs ``random`` for 2 rounds, the port runs round 3 and picks
   what a JAX run continued to 3 rounds picks (host streams only);
@@ -42,25 +43,43 @@ def tmp_path(tmp_path):
     shutil.rmtree(tmp_path, ignore_errors=True)
 
 
-@pytest.mark.parametrize("method,item", [("influence", 6), ("ps-random", 7),
-                                         ("SuPix", 7)])
-def test_reference_only_strategy_raises_up_front(tmp_path, method, item):
+def test_reference_only_strategy_raises_up_front(tmp_path, monkeypatch):
+    """The mechanism, with a stand-in name: a strategy listed in
+    ``REFERENCE_ONLY`` raises naming its item, in ``cnn_query`` and in
+    ``do_expr`` before any directory is written."""
+    monkeypatch.setitem(tstrat.REFERENCE_ONLY, "not-yet-ported", 99)
     root = tmp_path / "e"
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        t_cli.do_expr(str(root), method, 10, BASE, synthetic=True,
+    with pytest.raises(NotImplementedError, match="item 99"):
+        t_cli.do_expr(str(root), "not-yet-ported", 10, BASE, synthetic=True,
                       device="cpu")
-    assert not (root / method).exists()
+    assert not root.exists()
     ctx = tstrat.QueryContext(spec=None, params=None, evaluator=None,
                               pool_inds=np.arange(3), k=1,
                               rng=np.random.default_rng(0))
-    with pytest.raises(NotImplementedError, match=method):
-        tstrat.cnn_query(ctx, method)
+    with pytest.raises(NotImplementedError, match="not-yet-ported"):
+        tstrat.cnn_query(ctx, "not-yet-ported")
+
+
+@pytest.mark.parametrize("method,extra", [
+    ("influence", ",influence_mode=arnoldi,arnoldi_rank=2"),
+    ("ps-random", ""), ("SuPix", "")])
+def test_formerly_reference_only_strategy_runs_a_round(tmp_path, method,
+                                                       extra):
+    """The three strategies the port lacked until ROADMAP items 6-7 run
+    one ``do_expr`` round on the host."""
+    res = t_cli.do_expr(str(tmp_path / "e"), method, 6, BASE + extra,
+                        synthetic=True, device="cpu")
+    assert len(res["perf"]) == 1 and np.isfinite(res["perf"]).all()
+    assert res["n_queries"] == 6 if method != "SuPix" else \
+        res["n_queries"] >= 6
+    assert len(res["train_inds"]) == 12 + res["n_queries"]
 
 
 def test_every_jax_strategy_is_ported_or_listed():
     port, ref_only = set(tstrat._STRATEGIES), set(tstrat.REFERENCE_ONLY)
     assert not port & ref_only
     assert port | ref_only == set(jstrat._STRATEGIES)
+    assert not ref_only and len(port) == 15
 
 
 def test_unknown_method_raises_before_writing(tmp_path):

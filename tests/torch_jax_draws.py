@@ -14,12 +14,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+from jax.flatten_util import ravel_pytree
 
 from nnal_tpu_torch.core import rng as core_rng
 from nnal_tpu_torch.models import cnn as t_cnn
 from nnal_tpu_torch.models import losses as t_losses
 from nnal_tpu_torch.models import perturb as t_perturb
+from nnal_tpu_torch.models.bridge import from_jax_params, to_jax_params
 from nnal_tpu_torch.scoring import batchbald as t_bb
+from nnal_tpu_torch.scoring import hessian as t_hess
 from nnal_tpu_torch.scoring import representative as t_rep
 
 
@@ -42,6 +45,16 @@ def to_torch(a, device="cpu", dtype=None):
 
 def _jdtype(dtype):
     return {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}[dtype]
+
+
+def lanczos_start(params, key, device):
+    """JAX's Lanczos start (one ``normal(key)`` over ``ravel_pytree`` of
+    the params: sorted layer names, W before b, JAX layouts), carried into
+    the port's flat order and layouts."""
+    flat, unravel = ravel_pytree(to_jax_params(params))
+    tree = unravel(jax.random.normal(key, flat.shape, jnp.float32))
+    d = from_jax_params(jax.tree_util.tree_map(np.asarray, tree))
+    return torch.cat([d[n].reshape(-1) for n in params]).to(device)
 
 
 def inject(monkeypatch):
@@ -74,6 +87,7 @@ def inject(monkeypatch):
         core_rng, "gumbel",
         lambda shape, gen, device, tag: to_torch(jax.random.gumbel(
             fold(gen.key, tag), tuple(shape), jnp.float32), device))
+    monkeypatch.setattr(t_hess, "_lanczos_start", lanczos_start)
     monkeypatch.setattr(
         t_rep, "_first_index",
         lambda n, gen, device: to_torch(jax.random.randint(
