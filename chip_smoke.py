@@ -73,7 +73,8 @@ Phases, each of which passes or exits non-zero:
    the conv / fc / im2col split, the card's idle share, and no
    weight-gradient kernel);
 10. the campaign: ``do_expr(..., device="cuda")`` on a synthetic
-   128x128x32 subject (pool of 65,536 grid voxels), 2 rounds each of
+   128x128x32 subject (pool of 65,536 grid voxels), 2 rounds (1 for the
+   runs in ``ONE_ROUND``, whose second round runs no other code) each of
    ``entropy``, ``core-set``, ``random`` and ``fi`` (init 256, k 64, b
    128, Adam 1e-3; fi: B 200, lambda_ 0), and of ``MC-entropy``,
    ``BALD``, ``BatchBALD``, ``ensemble``, ``QBC-JS``, ``AU_4U`` (and
@@ -124,7 +125,28 @@ Phases, each of which passes or exits non-zero:
    bit-identical; again with the mean teacher (its int8 ``teacher/``
    group included); and the finetune's seconds with and without
    deterministic cuDNN, interleaved in one process;
-16. lines with the new methods' per-round seconds, the MC and perturb
+16. the multi-subject engine (``MultiImgExperiment``): ``query_multimg``
+   with all 15 strategies on the card over three 64x64x16 subjects (k 64,
+   B 200, 2 MC passes, 3 members), the picks of entropy, core-set,
+   rep-entropy, BALD, BatchBALD and BADGE equal on the host with the same
+   weights and draws, and fi's A-matrices of the card's candidates held
+   on the host (the row rule below; ``multi picks ok``); 128-query
+   campaigns over three 128x128x32 subjects (131,072 grid voxels each), a
+   test and a held subject, from an empty start: f32 entropy, core-set
+   (round 0 from the held subject's features through K1), fi, QBC-JS (3
+   members), influence (64 labels seeded) and entropy with the mean
+   teacher, every finetune gathering each subject's labels through K2,
+   and bf16 entropy and fi (int8 anchors every 2 rounds, async writes, a
+   float16 history copy every 2 rounds), each checked (journal columns,
+   membership, rounds, sub-spans, history copies, anchors, K1 / K2
+   launches) with the launch counts zeroed just before each campaign and
+   read just after; K2's copy cache must make one copy per distinct
+   volume; multi resume == continue (random, int8 anchors every 3
+   rounds, crashed after round 3) bit for bit; ``sequential_al`` over
+   two subjects, warm-started; and the host loader (``PrefetchLoader``
+   over the native gather: each batch equal to the host source's, within
+   1 ulp of K2, and its batches/s);
+17. lines with the new methods' per-round seconds, the MC and perturb
    sweeps' rates, the committee campaigns' peak memory, the lever runs'
    per-round seconds, each lever's seconds per finetune step, the
    checkpoint bytes with the teacher, whether the TensorBoard mirror
@@ -134,8 +156,8 @@ Phases, each of which passes or exits non-zero:
    ``phases`` JSON line (per-round seconds from ``phases.jsonl`` of both
    campaigns, build seconds, K1's SASS counts, the FIM, bf16, codec,
    resume, MC, perturbation, selection, second-order, SLIC and
-   ``finetune_wpool`` phases) and one ``kernels``
-   JSON line (times, bounds, launches in both campaigns).
+   ``finetune_wpool`` phases, and the multi-subject ones) and one
+   ``kernels`` JSON line (times, bounds, launches in every campaign).
 
 The row and column tolerance rules for shrunk gradients and A-matrices:
 the linear head's column is zero in exact arithmetic (a constant added to
@@ -175,6 +197,7 @@ from nnal_tpu_torch.ops._build import stream_ptr
 from nnal_tpu_torch.cli.expr_handler import DEFAULT_PARS, create_expr, do_expr
 from nnal_tpu_torch.core import rng as core_rng
 from nnal_tpu_torch.core.config import ExperimentConfig, set_parameters
+from nnal_tpu_torch.core.profiling import drain_subphases
 from nnal_tpu_torch.core.device import deterministic_cudnn, set_precision
 from nnal_tpu_torch.data.io import synthetic_subject
 from nnal_tpu_torch.core.journal import MethodJournal
@@ -183,7 +206,14 @@ from nnal_tpu_torch.data.samplers import (
     generate_grid_samples,
     high_variance_filter,
 )
-from nnal_tpu_torch.engine import pw_experiment
+from nnal_tpu_torch.engine import multi_experiment, pw_experiment
+from nnal_tpu_torch.engine.sequential import sequential_al
+from nnal_tpu_torch.data.loaders import (
+    patch_batch_source,
+    prefetched_patch_batches,
+)
+from nnal_tpu_torch.data.stats import multimg_stats
+from nnal_tpu_torch.runtime.native import gather_patches_native
 from nnal_tpu_torch.models import checkpoint as ckpt
 from nnal_tpu_torch.models import cnn as cnn_mod
 from nnal_tpu_torch.models import losses as losses_mod
@@ -219,6 +249,7 @@ from nnal_tpu_torch.ops.gather import (
 )
 from nnal_tpu_torch.ops.scoring_fused import make_pool_scorer, pool_score_fused
 from nnal_tpu_torch.scoring import batchbald as bb_mod
+from nnal_tpu_torch.scoring import strategies as strat_mod
 from nnal_tpu_torch.scoring import hessian as hessian_mod
 from nnal_tpu_torch.scoring import influence as infl_mod
 from nnal_tpu_torch.scoring import representative as rep_mod
@@ -303,6 +334,14 @@ REST_RUNS = (("influence", INFLUENCE),
              ("SuPix", OVERRIDES + ",iter_k=[64,64,0]"))
 SUPIX_BUDGET = 65536
 F32_RUNS += REST_RUNS
+# f32 runs whose second round runs no code their first does not: one
+# round each, to keep the whole script near half its time limit (the
+# committees, core-set, fi, SuPix, the mean teacher and influence (cg)
+# keep two: their second round takes another branch)
+ONE_ROUND = {"random", "MC-entropy", "BALD", "BatchBALD", "AU_4U",
+             "AU_4U@rotation", "rep-entropy", "BADGE", "entropy@lwf",
+             "entropy@aleatoric", "random@train_layers", "ps-random",
+             "influence@arnoldi"}
 BF16_RUNS += (("influence", INFLUENCE + BF16 + ",ckpt_dtype=bfloat16"),)
 INFLUENCE_SUBS = {"influence/labeled_gather", "influence/s_test",
                   "influence/posteriors", "influence/filter",
@@ -310,6 +349,28 @@ INFLUENCE_SUBS = {"influence/labeled_gather", "influence/s_test",
 # resume == continue: 4 rounds of random, int8 anchors every 3 rounds;
 # again with the mean teacher
 RESUME_OVERRIDES = OVERRIDES + ",ckpt_full_every=3,ckpt_dtype=int8"
+# the multi-subject engine: three 128x128x32 training subjects (pools of
+# 65,536 grid voxels each), a test and a held subject, an empty start
+# (influence: 64 labels seeded), k 64, B 200, 128 queries a run
+MULTI = ("patch_shape=[25,25,1],grid_spacing=2,k=64,B=200,b=128,epochs=1,"
+         "learning_rate=1e-3,optimizer_name=Adam,ntb=4096,seed=0")
+MULTI_RUNS = (("entropy", MULTI), ("core-set", MULTI), ("fi", MULTI),
+              ("QBC-JS", MULTI + ",n_ensemble=3"), ("influence", MULTI),
+              ("entropy@mt", MULTI + MT))
+MULTI_BF16 = (",dtype=bfloat16,train_dtype=bfloat16,ckpt_full_every=2,"
+              "ckpt_dtype=int8,async_checkpoint=true,hist_every=2,"
+              "hist_dtype=float16")
+MULTI_BF16_RUNS = (("entropy", MULTI + MULTI_BF16),
+                   ("fi", MULTI + MULTI_BF16))
+MULTI_RESUME = MULTI + ",ckpt_full_every=3,ckpt_dtype=int8,hist_every=0"
+MULTI_SUBS = {"fi": FI_SUBS, "influence": INFLUENCE_SUBS}
+# query_multimg card vs host: three 64x64x16 subjects at grid spacing 4
+PICKS_SHAPE = (64, 64, 16)
+STRATEGIES = ("random", "ps-random", "entropy", "MC-entropy", "BALD",
+              "BatchBALD", "ensemble", "QBC-JS", "rep-entropy", "BADGE",
+              "core-set", "fi", "AU_4U", "SuPix", "influence")
+HELD_PICKS = ("entropy", "core-set", "rep-entropy", "BALD", "BatchBALD",
+              "BADGE")
 TOP_B = 1024
 SWEEP_SHAPE = (256, 256, 64)        # bench.py's subject
 SWEEP_Z_CHUNK = 4
@@ -1901,10 +1962,12 @@ def _campaign(dev, top, runs, tag):
             return out
 
         infl_mod.cg_solve_hvp = logged_cg
+        n_rounds = 1 if not tag and name in ONE_ROUND else 2
         t0 = time.perf_counter()
         try:
             res = do_expr(root, method,
-                          SUPIX_BUDGET if method == "SuPix" else 128,
+                          SUPIX_BUDGET if method == "SuPix"
+                          else 64 * n_rounds,
                           overrides, synthetic=True, device=str(dev))
         finally:
             infl_mod.cg_solve_hvp = cg_solve
@@ -1917,7 +1980,7 @@ def _campaign(dev, top, runs, tag):
             os.path.join(root, method, "queries", f"{i}.txt"),
             dtype=np.int64)) for i in range(len(res["perf"]))]
         check(len(init_pool) == 65536, f"pool size {len(init_pool)}")
-        check(len(res["perf"]) == 2 and res["n_queries"]
+        check(len(res["perf"]) == n_rounds and res["n_queries"]
               == sum(len(q) for q in picks),
               f"{key}: {res['n_queries']} queries, "
               f"{len(res['perf'])} rounds")
@@ -1932,7 +1995,7 @@ def _campaign(dev, top, runs, tag):
                       for q in picks),
                   f"{key}: picks per round {[len(q) for q in picks]}")
         else:
-            check(res["n_queries"] == 128, f"{key}: "
+            check(res["n_queries"] == 64 * n_rounds, f"{key}: "
                   f"{res['n_queries']} queries")
         n_lab = 256 + res["n_queries"]
         check(len(train) == n_lab and len(set(train.tolist())) == n_lab,
@@ -1946,7 +2009,8 @@ def _campaign(dev, top, runs, tag):
         dk2 = ops.gather.KERNEL.launches - k2_0
         by_method[key] = {"rowmax_similarity": dk1,
                           "gather_patches_normalized": dk2}
-        check(dk2 >= 2, f"{key}: K2 launched {dk2} times in finetune")
+        check(dk2 >= n_rounds,
+              f"{key}: K2 launched {dk2} times in finetune")
         if method == "core-set":
             check(dk1 >= 2, f"{key}: K1 launched {dk1} times")
         if method in COMMITTEE:
@@ -1956,14 +2020,14 @@ def _campaign(dev, top, runs, tag):
         with open(os.path.join(root, method, "phases.jsonl")) as f:
             phases[key] = [json.loads(line) for line in f]
         rounds = [r for r in phases[key] if not r.get("tail")]
-        check(len(rounds) == 2, f"{key}: phases rows {rounds}")
+        check(len(rounds) == n_rounds, f"{key}: phases rows {rounds}")
         check(all(("committee" in r) == (method in COMMITTEE)
                   for r in rounds),
               f"{key}: the committee phase where it does not belong, or "
               f"missing: {rounds}")
         if method == "influence":
             # each round: the labeled bucket, the candidates, the finetune
-            check(dk2 >= 6, f"{key}: K2 launched {dk2} times")
+            check(dk2 >= 3 * n_rounds, f"{key}: K2 launched {dk2} times")
             check(all(INFLUENCE_SUBS <= set(r.get("sub", {}))
                       for r in rounds),
                   f"{key}: sub spans missing from phases.jsonl: "
@@ -2270,6 +2334,453 @@ def phase_resume(dev, mt=False):
         shutil.rmtree(top, ignore_errors=True)
 
 
+def _memo_evaluate(ev):
+    """``ev.evaluate`` answering from one whole-grid sweep per (model, MC
+    key), posteriors and features at once, so the host's side of the
+    picks check sweeps each pass once (the rows a slab evaluation would
+    give: each z-chunk is keyed on its global index)."""
+    cache, ops2 = {}, ("posteriors", "feature_layer")
+
+    def evaluate(model, inds, ops=("posteriors",), as_device=False, *,
+                 mc_rng=None):
+        key = (id(model), mc_rng)
+        if key not in cache:
+            with torch.no_grad():
+                cache[key] = dict(zip(ops2, ev._whole_sweep(model, ops2,
+                                                            mc_rng)))
+        rows = torch.as_tensor(np.asarray(ev._grid_rows(inds), np.int64))
+        return {op: cache[key][op][rows] if as_device
+                else cache[key][op][rows].numpy() for op in ops}
+
+    ev.evaluate = evaluate
+    return ev
+
+
+class _CardResults:
+    """An evaluator that answers with the card evaluator's results copied
+    to the host."""
+
+    def __init__(self, ev, model):
+        self.ev, self.model = ev, model
+        self.device = torch.device("cpu")
+
+    def evaluate(self, model, inds, ops=("posteriors",), as_device=False, *,
+                 mc_rng=None):
+        r = self.ev.evaluate(self.model, inds, ops, True, mc_rng=mc_rng)
+        return {op: v.cpu() if as_device else v.cpu().numpy()
+                for op, v in r.items()}
+
+
+def phase_multi_picks(dev, k=64, B=200, mc_iters=2, n_members=3, seed=77):
+    """``query_multimg`` with all 15 strategies on the card over three
+    64x64x16 subjects (PW1 25x25x2 from seed 0, grid spacing 4, every
+    17th grid voxel labeled), every draw a numpy draw keyed on what the
+    port passes (``KeyedDraws``; each subject's context keyed ``seed``);
+    then the host's picks of entropy, core-set, rep-entropy, BALD,
+    BatchBALD and BADGE from the same weights and draws (equal per
+    subject), and fi's A-matrices of the card's candidates recomputed on
+    the host (the FIM parity rule).  BADGE's host run starts from the
+    card's posteriors and features (``_CardResults``): its k-means++ draw
+    is an argmax of Gumbel noise plus log squared distances of gradient
+    embeddings, where the two devices' f32 rounding of near-duplicate
+    candidates moves log d2 enough to flip a draw (the first card run
+    parted at the 8th of 16 picks); on equal inputs the picks agree."""
+    subjects = [synthetic_subject(shape=PICKS_SHAPE, n_modalities=2,
+                                  n_blobs=3, seed=10 + s) for s in range(3)]
+    stats = multimg_stats(subjects)
+    spec = create_pw1(2, 0.5, (25, 25, 2))
+    models = {"card": init_cnn(spec, 0, dev),
+              "host": init_cnn(spec, 0, "cpu")}
+    members = {d: [init_cnn(spec, 100 + i, d) for i in range(n_members)]
+               for d in (dev, "cpu")}
+    grids = [generate_grid_samples(PICKS_SHAPE, 4, m)[0]
+             for _, m in subjects]
+    trains = [g[s::17] for s, g in enumerate(grids)]
+    pools = [np.setdiff1d(g, t) for g, t in zip(grids, trains)]
+
+    def evaluators(d):
+        return [GridPoolEvaluator(spec, pad_volumes(v, (25, 25, 1), d),
+                                  stats[i, 0::2], stats[i, 1::2],
+                                  (25, 25, 1), PICKS_SHAPE, grid_spacing=4,
+                                  ntb=4096)
+                for i, (v, _) in enumerate(subjects)]
+
+    evs = {"card": evaluators(dev),
+           "host": [_memo_evaluate(e) for e in evaluators("cpu")]}
+
+    def contexts(side, m):
+        rng = np.random.default_rng(5)
+        d = dev if side == "card" else "cpu"
+        side_evs = ([_CardResults(e, models["card"]) for e in evs["card"]]
+                    if (side, m) == ("host", "BADGE") else evs[side])
+        return [strat_mod.QueryContext(
+            spec=spec, params=models[side], evaluator=side_evs[s],
+            pool_inds=pools[s], k=k, rng=rng, B=B, MC_iters=mc_iters,
+            train_inds=trains[s], seed=seed, raw_volume=subjects[s][0][0],
+            ensemble_params=members[d], extra={"mask": subjects[s][1]})
+            for s in range(3)], rng
+
+    picks, secs, a_calls = {}, {}, []
+    plain_a = strat_mod.gather_shrunk_a_matrices
+
+    def spy_a(*a, **kw):
+        out = plain_a(*a, **kw)
+        a_calls.append((a, out))
+        return out
+
+    with KeyedDraws(13):
+        for side in ("card", "host"):
+            for m in (STRATEGIES if side == "card" else HELD_PICKS):
+                ctxs, rng = contexts(side, m)
+                strat_mod.gather_shrunk_a_matrices = (
+                    spy_a if (side, m) == ("card", "fi") else plain_a)
+                try:
+                    t0 = time.perf_counter()
+                    picks[(m, side)] = strat_mod.query_multimg(ctxs, m, k,
+                                                               rng)
+                    if side == "card":
+                        torch.cuda.synchronize()
+                    secs[(m, side)] = time.perf_counter() - t0
+                finally:
+                    strat_mod.gather_shrunk_a_matrices = plain_a
+    res = {"card_s": {m: secs[(m, "card")] for m in STRATEGIES},
+           "host_s": {m: secs[(m, "host")] for m in HELD_PICKS},
+           "pool_per_subject": [len(p) for p in pools]}
+    for m in STRATEGIES:
+        got = picks[(m, "card")]
+        n = sum(len(g) for g in got)
+        check(len(got) == 3 and all(
+            len(np.unique(g)) == len(g) and np.all((g >= 0) & (g < len(p)))
+            for g, p in zip(got, pools))
+            and (n > k if m == "SuPix" else 1 <= n <= k),
+            f"multi picks {m} on the card: {[len(g) for g in got]}")
+        res.setdefault("picks_per_subject", {})[m] = [len(g) for g in got]
+    for m in HELD_PICKS:
+        a, b = picks[(m, "card")], picks[(m, "host")]
+        same = all(np.array_equal(np.sort(x), np.sort(y))
+                   for x, y in zip(a, b))
+        check(same, f"multi picks {m} card vs host: card "
+              f"{[x.tolist() for x in a]}, host {[y.tolist() for y in b]}")
+    # fi: the card's candidates (padded to B) through the host's gather,
+    # shrunk gradients and A-matrices
+    check(len(a_calls) >= 1, "fi gathered no candidates")
+    a_res = []
+    for (model, padded, inds, mu, sd, ps, orig, pv, diag), A in a_calls:
+        s = next(i for i, e in enumerate(evs["card"]) if e.padded is padded)
+        hp = evs["host"][s].padded
+        A_host = gather_shrunk_a_matrices(
+            models["host"], hp, inds.cpu(), mu.cpu(), sd.cpu(), ps, orig,
+            pv.cpu(), diag)
+        x = gather_patches_normalized(hp, inds.cpu(), mu.cpu(), sd.cpu(),
+                                      ps, orig)
+        a_res.append(a_check(f"multi fi A (subject {s})", A.cpu(), A_host,
+                             diag, pv.cpu().numpy(),
+                             kink_margins(models["host"], x)))
+    res["fi_a_matrices"] = a_res
+    print(f"multi picks ok: {json.dumps(res)}")
+    return res
+
+
+def multi_subjects():
+    """Three training subjects, a test and a held one (128x128x32, two
+    modalities)."""
+    s = [synthetic_subject(shape=SHAPE, n_modalities=2, n_blobs=3, seed=i)
+         for i in range(5)]
+    return s[:3], s[3:4], s[4:]
+
+
+def _multi_expr(root, overrides, dev, subjects):
+    cfg = ExperimentConfig.from_pars(set_parameters(DEFAULT_PARS,
+                                                    overrides))
+    expr = multi_experiment.MultiImgExperiment(root, cfg, device=dev)
+    expr.attach_subjects(*subjects)
+    return expr
+
+
+def _multi_campaign(dev, top, runs, tag, subjects):
+    """Each run in its own experiment directory (a fresh
+    ``MultiImgExperiment`` and its subjects' volumes), 128 queries: the
+    journal, membership, rounds, sub-spans, history copies and each run's
+    K1 / K2 launches checked, its checkpoints removed once checked.  The
+    launch counts and K2's copy-cache counters are zeroed just before the
+    runs and read just after; the copies made must equal the distinct
+    volumes gathered from (no copy rebuilt)."""
+    out = {"seconds": {}, "phases": {}, "by_method": {}, "peaks": {},
+           "rounds": {}}
+    ops.reset_launch_counts()
+    ops.gather.reset_ycache_stats()
+    padded_built = 0
+    for name, overrides in runs:
+        method = name.split("@")[0]
+        key = tag + name
+        root = os.path.join(top, name)
+        k1_0 = ops.similarity.KERNEL.launches
+        k2_0 = ops.gather.KERNEL.launches
+        drain_subphases()      # spans left by the phases before this run
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        expr = _multi_expr(root, overrides, dev, subjects)
+        expr.prep_data()
+        j = expr.add_method(method)
+        seeded = 0
+        if method == "influence":
+            # influence needs labels: 64 global ids seeded
+            train_g, pool_g = j.membership()
+            seed_g = np.random.default_rng(1).choice(pool_g, 64,
+                                                     replace=False)
+            j.init_membership(seed_g, np.setdiff1d(pool_g, seed_g))
+            seeded = 64
+        k = expr.config.query.k
+        res = expr.run_method(method, 2 * k)
+        torch.cuda.synchronize()
+        out["seconds"][key] = time.perf_counter() - t0
+        out["peaks"][key] = torch.cuda.max_memory_allocated()
+        padded_built += len(expr._padded)
+        sizes = [len(p) for p in expr._pools()]
+        n_rounds = len(res["perf"])
+        qmats = [np.loadtxt(os.path.join(j.queries_dir, f"{r}.txt"),
+                            dtype=np.int64, ndmin=2)
+                 for r in range(n_rounds)]
+        check(sizes == [len(generate_grid_samples(SHAPE, 2))] * 3,
+              f"{key}: pools {sizes}")
+        check(res["n_queries"] == 2 * k == sum(q.shape[1] for q in qmats)
+              and (n_rounds >= 2 if method == "fi" else n_rounds == 2),
+              f"{key}: {res['n_queries']} queries in {n_rounds} rounds")
+        pools = expr._pools()
+        check(all(q.shape[0] == 2 and set(q[1].tolist()) <= {0, 1, 2}
+                  and all(v in set(pools[s].tolist()) for v, s in q.T)
+                  for q in qmats), f"{key}: journal columns off the pools")
+        tr, po = res["train_global"], res["pool_global"]
+        check(len(tr) == 2 * k + seeded == len(set(tr.tolist()))
+              and not set(tr.tolist()) & set(po.tolist())
+              and len(tr) + len(po) == sum(sizes),
+              f"{key}: membership broken")
+        check(bool(np.isfinite(res["perf"]).all()),
+              f"{key}: non-finite F {res['perf']}")
+        dk1 = ops.similarity.KERNEL.launches - k1_0
+        dk2 = ops.gather.KERNEL.launches - k2_0
+        out["by_method"][key] = {"rowmax_similarity": dk1,
+                                 "gather_patches_normalized": dk2}
+        # every round's finetune gathers at least one subject's labels
+        need = {"fi": 4, "QBC-JS": 5, "influence": 6, "entropy@mt": 8}
+        check(dk2 >= need.get(name, 2),
+              f"{key}: K2 launched {dk2} times")
+        if method == "core-set":
+            check(dk1 >= 2, f"{key}: K1 launched {dk1} times")
+        with open(j.path("phases.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        out["phases"][key] = rows
+        rounds = [r for r in rows if not r.get("tail")]
+        check(len(rounds) == n_rounds and rows[-1].get("tail")
+              and all(("committee" in r) == (method == "QBC-JS")
+                      for r in rounds)
+              and all(MULTI_SUBS.get(method, set()) <= set(r.get("sub", {}))
+                      for r in rounds),
+              f"{key}: phases rows {rows}")
+        times = os.listdir(os.path.join(root, "AL_running_times"))
+        check(len(times) == n_rounds, f"{key}: dt files {times}")
+        hist = sorted(f for f in os.listdir(j.dir)
+                      if f.startswith("curr_weights_"))
+        every = 2 if tag else 1
+        check(hist == [f"curr_weights_{r}.npz" for r in
+                       range(1, n_rounds + 1) if r % every == 0],
+              f"{key}: history copies {hist}")
+        with np.load(j.path(hist[0])) as z:
+            hd = np.float16 if tag else np.float32
+            check(all(z[k].dtype == hd for k in z.files),
+                  f"{key}: history dtypes {[z[k].dtype for k in z.files]}")
+        if tag:
+            with np.load(j.path("curr_weights.npz")) as z:
+                al = json.loads(z["__al_state__"].tobytes().decode())
+                # the anchor, or the loop end's save after an odd round
+                check(al["round"] == n_rounds and any(k.endswith("@i8")
+                                                      for k in z.files),
+                      f"{key}: anchor {al}")
+        if "consistency_coeff" in overrides:
+            with np.load(j.path("curr_weights.npz")) as z:
+                check(any(k.startswith("teacher/") for k in z.files),
+                      f"{key}: no teacher group")
+        out["rounds"][key] = [{k: r[k] for k in (
+            "score_select", "committee", "train", "eval", "checkpoint",
+            "sub") if k in r} for r in rows]
+        shutil.rmtree(root, ignore_errors=True)
+        print(f"multi campaign {key}: F per round {res['perf'].tolist()}, "
+              f"picks per round {[q.shape[1] for q in qmats]}, "
+              f"{out['seconds'][key]:.3f} s, K1 +{dk1}, K2 +{dk2}, peak "
+              f"{out['peaks'][key] / 2**30:.2f} GiB")
+    out["counts"] = {k.name: k.launches for k in ops.KERNELS}
+    # K2 in every run; K1 where core-set runs
+    for k in ops.KERNELS:
+        if k is ops.gather.KERNEL or any(n.startswith("core-set")
+                                         for n, _ in runs):
+            check(k.launches > 0, f"{k.name} never launched in the multi "
+                  f"{tag or 'f32/'} campaign")
+    yc = ops.gather.YCACHE_STATS
+    out["ycopy"] = {"rebuilds": yc["rebuilds"],
+                    "distinct_volumes": yc["volumes"],
+                    "padded_volumes_built": padded_built}
+    check(len(runs) <= yc["rebuilds"] == yc["volumes"] <= padded_built,
+          f"K2's copy cache in the multi {tag or 'f32/'} campaign: "
+          f"{out['ycopy']}")
+    print(f"K2 y-copy rebuilds in the multi {tag or 'f32/'} campaign: "
+          f"{json.dumps(out['ycopy'])}")
+    return out
+
+
+def phase_multi_resume(dev, top, subjects):
+    """Multi resume == continue on the card: ``random``, 4 rounds, int8
+    anchors every 3 rounds, run uninterrupted; a second run loses its
+    resume-point writes for 3 rounds and a fresh ``MultiImgExperiment``
+    replays from the initial weights: the final ``curr_weights.npz``, the
+    (voxel, subject) journal and ``perf_evals.txt`` bit-identical."""
+    def artifacts(root):
+        mdir = os.path.join(root, "random")
+        with np.load(os.path.join(mdir, "curr_weights.npz")) as z:
+            w = {k: z[k] for k in z.files}
+        q = {n: open(os.path.join(mdir, "queries", n)).read()
+             for n in sorted(os.listdir(os.path.join(mdir, "queries")))}
+        with open(os.path.join(mdir, "perf_evals.txt")) as f:
+            return w, q, f.read()
+
+    roots = [os.path.join(top, "resume", n) for n in ("a", "b")]
+    t0 = time.perf_counter()
+    for i, root in enumerate(roots):
+        expr = _multi_expr(root, MULTI_RESUME, dev, subjects)
+        k = expr.config.query.k
+        expr.prep_data()
+        expr.add_method("random")
+        if i == 0:
+            expr.run_method("random", 4 * k)
+            a_s = time.perf_counter() - t0
+            continue
+        orig = multi_experiment.save_checkpoint
+        multi_experiment.save_checkpoint, dropped = \
+            _suppressed_resume_writes(orig)
+        try:
+            expr.run_method("random", 3 * k)
+        finally:
+            multi_experiment.save_checkpoint = orig
+        check(len(dropped) == 1, f"multi resume: dropped writes {dropped}")
+    t0 = time.perf_counter()
+    _multi_expr(roots[1], MULTI_RESUME, dev, subjects).run_method("random",
+                                                                  4 * k)
+    resume_s = time.perf_counter() - t0
+    (wa, qa, ea), (wb, qb, eb) = artifacts(roots[0]), artifacts(roots[1])
+    diff = sorted(k for k in set(wa) | set(wb)
+                  if k not in wa or k not in wb or wa[k].dtype != wb[k].dtype
+                  or not np.array_equal(wa[k], wb[k]))
+    res = {"rounds": 4, "ckpt_full_every": 3, "ckpt_dtype": "int8",
+           "entries": len(wa), "differing_entries": diff,
+           "queries_equal": qa == qb, "perf_evals_equal": ea == eb,
+           "uninterrupted_s": a_s, "resume_with_replay_s": resume_s}
+    check(not diff and qa == qb and ea == eb and len(qa) == 4
+          and any(k.endswith("@i8") for k in wa),
+          f"multi resume != continue on the card: {res}")
+    shutil.rmtree(os.path.join(top, "resume"), ignore_errors=True)
+    print(f"multi resume == continue ok (bit for bit): {json.dumps(res)}")
+    return res
+
+
+def phase_sequential(dev, top):
+    """``sequential_al`` over two 64x64x16 subjects (entropy, 64 labels
+    to start, one round of 64 each), the second warm-started from the
+    first's final weights; a second call resumes and queries nothing."""
+    subjects = [synthetic_subject(shape=PICKS_SHAPE, n_modalities=2,
+                                  n_blobs=3, seed=20 + s) for s in range(2)]
+    cfg = ExperimentConfig.from_pars(set_parameters(
+        DEFAULT_PARS, OVERRIDES.replace("synthetic_shape=[128,128,32],", "")
+        .replace("init_size=256", "init_size=64")))
+    root = os.path.join(top, "sequential")
+    t0 = time.perf_counter()
+    k = cfg.query.k
+    res = sequential_al(root, subjects, "entropy", k, cfg, device=dev)
+    secs = time.perf_counter() - t0
+    steps = [ckpt.load_checkpoint(os.path.join(
+        root, f"subject_{i}", "entropy", "curr_weights.npz"))[3]["step"]
+        for i in range(2)]
+    again = sequential_al(root, subjects, "entropy", k, cfg, device=dev)
+    out = {"n_queries": [r["n_queries"] for r in res],
+           "f_measure": [r["perf"].tolist() for r in res],
+           "final_steps": steps, "seconds": secs,
+           "resumed_n_queries": [r["n_queries"] for r in again]}
+    check(out["n_queries"] == [k, k] == out["resumed_n_queries"]
+          and steps[1] > steps[0] > 0, f"sequential_al: {out}")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"sequential_al ok (warm-started): {json.dumps(out)}")
+    return out
+
+
+def phase_loader(dev, n=8192, b=128, epochs=2):
+    """Batches of labeled patches from host-RAM volumes (the campaign
+    subject, 2 x 152 x 152 x 56 padded) through the native gather and
+    ``PrefetchLoader`` onto the card: each batch equal to the host source's
+    and within 1 ulp of K2 on the card's copy of the volume; then the
+    loader's rate with a consumer that only reads each batch."""
+    vols, mask = synthetic_subject(shape=SHAPE, n_modalities=2, seed=0)
+    ps = (25, 25, 1)
+    padded = pad_volumes(vols, ps, "cpu")
+    host = [padded[j].numpy() for j in range(2)]
+    inds = np.random.default_rng(3).choice(int(np.prod(SHAPE)), n,
+                                           replace=False)
+    mu, sd = np.array([60.0, 75.0]), np.array([30.0, 31.0])
+    args = (host, mask, inds, ps, SHAPE, mu, sd, b, 2)
+    want = patch_batch_source(*args, np.random.default_rng(0), epochs=1)
+    card_vol = padded.to(dev)
+    worst = 0.0
+    for (x, y), (wx, wy) in zip(prefetched_patch_batches(
+            *args, np.random.default_rng(0), epochs=1, device=dev), want):
+        check(x.device.type == torch.device(dev).type
+              and np.array_equal(x.cpu().numpy(), wx)
+              and np.array_equal(y.cpu().numpy(), wy),
+              "the loader's batch differs from the host source's")
+    bidx = np.random.default_rng(0).permutation(n)[:b]
+    k2 = gather_patches_normalized(
+        card_vol, torch.as_tensor(inds[bidx]).to(dev),
+        torch.tensor(mu, dtype=torch.float32, device=dev),
+        torch.tensor(sd, dtype=torch.float32, device=dev), ps, SHAPE).cpu()
+    nat = gather_patches_native(host, inds[bidx], ps, SHAPE, mu, sd)
+    ulp = np.spacing(np.maximum(np.abs(nat), np.abs(k2.numpy())))
+    worst = float((np.abs(nat - k2.numpy()) / ulp).max())
+    check(worst <= 1.0, f"native gather vs K2: {worst} ulp")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc = torch.zeros((), device=dev)
+    n_batches = 0
+    for x, _ in prefetched_patch_batches(*args, np.random.default_rng(1),
+                                         epochs=epochs, device=dev):
+        acc += x[0, 0, 0, 0]
+        n_batches += 1
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    res = {"batches": n_batches, "batch": b, "seconds": secs,
+           "batches_per_s": n_batches / secs,
+           "patches_per_s": n_batches * b / secs,
+           "native_vs_k2_max_ulp": worst}
+    print(f"loader ok: {json.dumps(res)}")
+    return res
+
+
+def phase_multi(dev):
+    """The multi-subject phases: picks card vs host, the f32 and the bf16
+    campaigns, resume == continue, ``sequential_al`` and the loader."""
+    top = os.path.join(ROOT, "_smoke_expr", "multi")
+    shutil.rmtree(top, ignore_errors=True)
+    try:
+        picks = phase_multi_picks(dev)
+        subjects = multi_subjects()
+        f32 = _multi_campaign(dev, top, MULTI_RUNS, "", subjects)
+        bf16 = _multi_campaign(dev, os.path.join(top, "bf16"),
+                               MULTI_BF16_RUNS, "bf16/", subjects)
+        resume = phase_multi_resume(dev, top, subjects)
+        seq = phase_sequential(dev, top)
+        loader = phase_loader(dev)
+        return {"picks": picks, "f32": f32, "bf16": bf16, "resume": resume,
+                "sequential": seq, "loader": loader}
+    finally:
+        shutil.rmtree(top, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2313,6 +2824,7 @@ def main() -> int:
     resume = phase_resume(dev)
     resume_mt = phase_resume(dev, mt=True)
     determinism = phase_determinism_cost(dev)
+    multi = phase_multi(dev)
     phases, seconds, by_method, peaks, notes = {}, {}, {}, {}, {}
     for _, ph, sec, bym, pk, nt in (f32, bf16):
         phases.update(ph)
@@ -2356,12 +2868,25 @@ def main() -> int:
                   "cg": notes.get(n + " cg"), "peak_bytes": peaks[n],
                   "campaign_s": seconds[n]}
               for n in rest_runs}))
+    mf, mb = multi["f32"], multi["bf16"]
+    print("per-round seconds of the multi-subject runs (card above), with "
+          "their sub-spans, campaign seconds and peak bytes: " + json.dumps({
+              k: {"rounds": c["rounds"][k], "campaign_s": c["seconds"][k],
+                  "peak_bytes": c["peaks"][k]}
+              for c in (mf, mb) for k in c["rounds"]}))
+    print("K2 y-copy rebuilds in the multi campaigns: " + json.dumps(
+        {"f32": mf["ycopy"], "bf16": mb["ycopy"]}))
     for r in rows:
-        r["launches"] = f32[0][r["name"]] + bf16[0][r["name"]]
-        r["launches_f32_campaign"] = f32[0][r["name"]]
-        r["launches_bf16_campaign"] = bf16[0][r["name"]]
-        r["launches_by_method"] = {m: c[r["name"]]
-                                   for m, c in by_method.items()}
+        n = r["name"]
+        r["launches"] = (f32[0][n] + bf16[0][n] + mf["counts"][n]
+                         + mb["counts"][n])
+        r["launches_f32_campaign"] = f32[0][n]
+        r["launches_bf16_campaign"] = bf16[0][n]
+        r["launches_multi_f32_campaign"] = mf["counts"][n]
+        r["launches_multi_bf16_campaign"] = mb["counts"][n]
+        r["launches_by_method"] = {m: c[n] for m, c in by_method.items()}
+        r["launches_by_multi_run"] = {m: c[n] for d in (mf, mb)
+                                      for m, c in d["by_method"].items()}
         r["kernel_ms"], r["max_err"] = r["ms"], r["max_abs_err"]
     print(json.dumps({"phases": phases, "campaign_s": seconds,
                       "build_s": build_s,
@@ -2378,7 +2903,13 @@ def main() -> int:
                       "batch_selections": batch_select,
                       "second_order": second_order, "slic_variance": slic,
                       "finetune_wpool": wpool,
-                      "campaign_peak_bytes": peaks}))
+                      "campaign_peak_bytes": peaks,
+                      "multi": {"picks": multi["picks"],
+                                "resume": multi["resume"],
+                                "sequential": multi["sequential"],
+                                "loader": multi["loader"],
+                                "phases": {**mf["phases"],
+                                           **mb["phases"]}}}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

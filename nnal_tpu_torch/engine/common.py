@@ -1,9 +1,12 @@
 """Shared engine helpers (counterpart of ``nnal_tpu/engine/common.py``).
 
-The resume arithmetic (``replay_prefix_lens``, ``reconcile_membership``)
-is copied as is, so a crash-resumed port campaign replays exactly like a
-JAX one.  ``check_slice_config`` rejects the configuration keys whose
-code paths the port does not carry yet — ``data_parallel`` > 1 and the
+The resume arithmetic (``replay_prefix_lens``, ``reconcile_membership``,
+both with the multi-subject engine's ``matrix`` journals) is copied as is,
+so a crash-resumed port campaign replays exactly like a JAX one;
+``maybe_reset_opt`` is ``opt_reset_per_round``'s warm restart and
+``write_checkpoint`` runs a save now or from the writer thread.
+``check_slice_config`` rejects the configuration keys whose code paths
+the port does not carry yet — ``data_parallel`` > 1 and the
 dense (fcn) model specs — naming the key, rather than ignoring them, and
 dtype strings the JAX package rejects.  The anchor levers
 (``anchor_dtype``, ``adopt_anchor_rounding``, ``anchor_save_kwargs``) are
@@ -56,19 +59,25 @@ def check_slice_config(cfg) -> None:
     anchor_dtype(m)
 
 
-def replay_prefix_lens(j, al_state, round_id: int, n_train: int) -> List[int]:
+def replay_prefix_lens(j, al_state, round_id: int, n_train: int,
+                       matrix: bool = False) -> List[int]:
     """Labeled-set prefix lengths for the rounds a resume must replay: one
     per round in ``[anchor, round_id)``, empty when the checkpoint already
     is the current round's state (a crash between the query journal and
     the checkpoint leaves the anchor one round behind).  Replay is exact
     because queries are journaled, each round's labeled set is a prefix of
-    the next, and the finetune RNG is keyed on the optimizer step."""
+    the next, and the finetune RNG is keyed on the optimizer step.
+    ``matrix=True`` reads multi-subject journals, whose files are (voxel,
+    subject) 2 x k matrices (a k = 1 file would read as 1-D length 2)."""
     anchor = (0 if al_state is None
               else int(al_state.get("round", round_id)))
     if anchor >= round_id:
         return []
-    counts = [len(load_inds(os.path.join(j.queries_dir, f"{it}.txt")))
-              for it in j.query_iters()]
+    counts = []
+    for it in j.query_iters():
+        a = load_inds(os.path.join(j.queries_dir, f"{it}.txt"),
+                      matrix=matrix)
+        counts.append(a.shape[1] if a.ndim == 2 else len(a))
     lens, n = [], n_train - sum(counts)
     for c in counts:
         n += c
@@ -135,16 +144,53 @@ def anchor_save_kwargs(model_cfg, state) -> dict:
             "dtype": anchor_dtype(model_cfg)}
 
 
-def reconcile_membership(j, train_inds, pool_inds):
-    """Repair the crash window between ``record_queries`` and
+def write_checkpoint(save, writer, device) -> None:
+    """Run ``save`` now (``writer`` None) or from ``writer``'s thread.  On
+    the card the thread pulls on a stream of its own, after an event that
+    orders it behind the copies of the device snapshot ``save`` writes."""
+    if writer is None:
+        save()
+        return
+    if device.type != "cuda":
+        writer.submit(save)
+        return
+    ready = torch.cuda.Event()
+    ready.record()
+
+    def save_on_side_stream():
+        side = torch.cuda.Stream(device)
+        side.wait_event(ready)
+        with torch.cuda.stream(side):
+            save()
+
+    writer.submit(save_on_side_stream)
+
+
+def maybe_reset_opt(state, model_cfg) -> None:
+    """``opt_reset_per_round``: warm-restart the optimizer at the top of
+    each finetune (its moments and step count go).  The original run and
+    a crash-resume replay both pass here, so replay stays bit-identical
+    without the moments in any checkpoint."""
+    if getattr(model_cfg, "opt_reset_per_round", False):
+        state.optimizer.state.clear()
+
+
+def reconcile_membership(j, train_inds, pool_inds, *, matrix: bool = False,
+                         to_global=None):
+    """Repair the crash window between the query journal and
     ``init_membership``: queries journaled for the last round but missing
     from the membership files are appended in file order (keeping the
-    prefix property replay depends on).  Returns ``(train_inds,
-    pool_inds, repaired)``."""
+    prefix property replay depends on).  ``matrix`` journals ((voxel,
+    subject) columns, the multi-subject engine) need ``to_global``, which
+    maps the (2, k) matrix to that engine's global membership ids.
+    Returns ``(train_inds, pool_inds, repaired)``."""
     iters = j.query_iters()
     if not iters:
         return train_inds, pool_inds, False
-    last = load_inds(os.path.join(j.queries_dir, f"{iters[-1]}.txt"))
+    last = load_inds(os.path.join(j.queries_dir, f"{iters[-1]}.txt"),
+                     matrix=matrix)
+    if matrix:
+        last = to_global(last)
     present = np.isin(last, train_inds)
     if present.all():
         return train_inds, pool_inds, False

@@ -91,9 +91,11 @@ from nnal_tpu_torch.engine.common import (
     anchor_save_kwargs,
     check_slice_config,
     inverse_frequency_weights,
+    maybe_reset_opt,
     mt_rampdown,
     reconcile_membership,
     replay_prefix_lens,
+    write_checkpoint,
 )
 from nnal_tpu_torch.evaluation.metrics import f_measure
 from nnal_tpu_torch.models.bridge import from_jax_params, to_jax_params
@@ -263,8 +265,7 @@ class PWExperiment:
         ``rng_tag`` names a committee member's own batch, dropout and
         unlabeled streams (``pw_experiment.py:251-252``, ``:336``)."""
         m = self.config.model
-        if getattr(m, "opt_reset_per_round", False):
-            state.optimizer.state.clear()
+        maybe_reset_opt(state, m)
         epochs = m.epochs if epochs is None else epochs
         if len(train_inds) == 0 or epochs == 0:
             return state
@@ -415,35 +416,17 @@ class PWExperiment:
     def _save_resume_point(self, ckpt, state, round_id, writer=None):
         """Capture the payload, adopt the anchor rounding into the live
         state, then save the captured originals (``:695-733``) — from
-        ``writer``'s thread when given.  On the card the thread pulls on a
-        stream of its own, after an event that orders it behind the
-        snapshot's copies."""
+        ``writer``'s thread when given (``write_checkpoint``)."""
         m = self.config.model
         akw = anchor_save_kwargs(m, state)
         adopt_anchor_rounding(state, m)
         al = {"step": int(state.step), "round": int(round_id)}
-
-        def _save():
-            save_checkpoint(ckpt, akw["params"], al_state=al,
-                            teacher_params=akw["teacher_params"],
-                            opt_state=akw["opt_state"], dtype=akw["dtype"])
-
-        if writer is None:
-            _save()
-            return
-        if self.device.type != "cuda":
-            writer.submit(_save)
-            return
-        ready = torch.cuda.Event()
-        ready.record()
-
-        def _save_on_side_stream():
-            side = torch.cuda.Stream(self.device)
-            side.wait_event(ready)
-            with torch.cuda.stream(side):
-                _save()
-
-        writer.submit(_save_on_side_stream)
+        write_checkpoint(
+            lambda: save_checkpoint(ckpt, akw["params"], al_state=al,
+                                    teacher_params=akw["teacher_params"],
+                                    opt_state=akw["opt_state"],
+                                    dtype=akw["dtype"]),
+            writer, self.device)
 
     # ------------------------------------------------------------- AL loop
     def run_method(self, method_name: str, max_queries: int) -> Dict:

@@ -10,18 +10,26 @@ Every patch shape goes through the kernel (the TPU kernel only took
 
 The kernel reads a y-contiguous copy of the padded volume,
 ``(m, D1p, D3p, D2p)``, so that a window row is contiguous.
-:func:`y_contiguous` makes it once per volume and keeps it in a one-entry
-cache keyed on the volume's address, shape, strides and version counter
-(an in-place edit bumps the counter and rebuilds the copy); the cache
-holds a reference to the volume, so its address cannot be reused while
-the entry lives.  The volume's checks run when the copy is made, which
-keeps the per-call host cost to what the call needs.
+:func:`y_contiguous` makes it once per volume and keeps it in a cache of
+:data:`YCACHE_SIZE` entries, the least recently used out, keyed on the
+volume's address, shape, strides and version counter (an in-place edit
+bumps the counter and rebuilds the copy).  A multi-subject finetune
+gathers from one subject's volume after another, so one entry per volume
+keeps every subject's copy across the calls of a round.  An entry holds a
+reference to its volume, so the address cannot be reused while the entry
+lives.  The volume's checks run when the copy is made, which keeps the
+per-call host cost to what the call needs; :data:`YCACHE_STATS` counts
+the copies made (``rebuilds``) and the distinct volume tensors they were
+made of (``volumes``): the two are equal unless a copy was rebuilt, after
+an in-place edit or an eviction.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import weakref
+from collections import OrderedDict
+from typing import Dict, Tuple
 
 import torch
 
@@ -68,12 +76,29 @@ def gather_patches_plain(padded, inds, mu, sd, patch_shape, orig_shape):
     return (x - mu_full) / sd_full
 
 
-class _YCache:
-    """One entry: the volume, its key and its y-contiguous copy."""
-    src = key = copy = None
+YCACHE_SIZE = 8
+
+# key -> (volume, its y-contiguous copy), most recently used last
+_YCACHE: "OrderedDict[tuple, Tuple[torch.Tensor, torch.Tensor]]" = \
+    OrderedDict()
+YCACHE_STATS = {"rebuilds": 0, "volumes": 0}
+_SEEN: Dict[int, weakref.ref] = {}     # the volume tensors copied so far
 
 
-_YCACHE = _YCache()
+def reset_ycache_stats() -> None:
+    """Zero both counters (the cached copies stay)."""
+    YCACHE_STATS.update(rebuilds=0, volumes=0)
+    _SEEN.clear()
+
+
+def _count_copy(padded: torch.Tensor) -> None:
+    YCACHE_STATS["rebuilds"] += 1
+    ref = _SEEN.get(id(padded))
+    if ref is None or ref() is not padded:
+        for k in [k for k, r in _SEEN.items() if r() is None]:
+            del _SEEN[k]
+        _SEEN[id(padded)] = weakref.ref(padded)
+        YCACHE_STATS["volumes"] += 1
 
 
 def _check_volume(padded: torch.Tensor) -> None:
@@ -90,11 +115,17 @@ def y_contiguous(padded: torch.Tensor) -> torch.Tensor:
     copy, made once per volume (see the module docstring)."""
     key = (padded.data_ptr(), padded.shape, padded.stride(),
            padded._version, padded.device)
-    if _YCACHE.key != key:
-        _check_volume(padded)
-        _YCACHE.src, _YCACHE.key = padded, key
-        _YCACHE.copy = padded.permute(0, 1, 3, 2).contiguous()
-    return _YCACHE.copy
+    hit = _YCACHE.get(key)
+    if hit is not None:
+        _YCACHE.move_to_end(key)
+        return hit[1]
+    _check_volume(padded)
+    copy = padded.permute(0, 1, 3, 2).contiguous()
+    _YCACHE[key] = (padded, copy)
+    if len(_YCACHE) > YCACHE_SIZE:
+        _YCACHE.popitem(last=False)
+    _count_copy(padded)
+    return copy
 
 
 _PARAMS = {}

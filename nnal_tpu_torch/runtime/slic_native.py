@@ -1,10 +1,8 @@
 """ctypes binding of the native SLIC (``runtime/slic.cc``, the port's own
 copy of the JAX package's source).
 
-The library is built with ``g++`` on first use into the git-ignored
-``nnal_tpu_torch/_build/``, named by the hash of the source and the
-flags, so an edited source rebuilds and an unchanged one loads as is
-(the scheme of ``ops/_build``).  ``-ffp-contract=off`` keeps the compiler
+The library is built with ``g++`` on first use (``runtime/gxx``).
+``-ffp-contract=off`` keeps the compiler
 from fusing multiply-adds, which would part the distances from the numpy
 oracle's on targets with FMA.  The wrapper computes the grid seeds as
 the numpy path (``scoring/superpixel.slic_2d``) does, so both paths agree
@@ -15,16 +13,13 @@ update order.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
-import tempfile
 import threading
 from typing import Optional
 
 import numpy as np
 
-from nnal_tpu_torch.ops._build import BUILD_DIR
+from nnal_tpu_torch.runtime.gxx import build_library
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "slic.cc")
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-ffp-contract=off")
@@ -34,13 +29,6 @@ _i32p = ctypes.POINTER(ctypes.c_int32)
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _failure: Optional[str] = None     # a failed build is not retried
-
-
-def lib_path() -> str:
-    with open(SRC, "rb") as f:
-        digest = hashlib.sha256(f.read()
-                                + " ".join(GXX_FLAGS).encode()).hexdigest()
-    return str(BUILD_DIR / f"slic-{digest[:16]}.so")
 
 
 def load() -> ctypes.CDLL:
@@ -53,20 +41,11 @@ def load() -> ctypes.CDLL:
             return _lib
         if _failure is not None:
             raise RuntimeError(_failure)
-        out = lib_path()
-        if not os.path.exists(out):
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-            os.close(fd)
-            try:
-                subprocess.run(["g++", *GXX_FLAGS, "-o", tmp, SRC],
-                               check=True, capture_output=True, text=True)
-            except (FileNotFoundError, subprocess.CalledProcessError) as e:
-                os.unlink(tmp)
-                _failure = (f"native SLIC: g++ failed: "
-                            f"{getattr(e, 'stderr', None) or e}")
-                raise RuntimeError(_failure) from e
-            os.replace(tmp, out)
+        try:
+            out = build_library(SRC, GXX_FLAGS, "slic")
+        except RuntimeError as e:
+            _failure = str(e)
+            raise
         lib = ctypes.CDLL(out)
         lib.nnal_slic2d.restype = None
         lib.nnal_slic2d.argtypes = [

@@ -14,12 +14,20 @@ method is set up); any other unknown name raises ``ValueError``.
 Stochastic strategies key their device draws on ``ctx.seed`` (the
 counterpart of the JAX context's ``jax_rng``: the round's
 ``qrng.next()``), with the JAX package's fold tags.
+
+:func:`query_multimg` is the multi-subject dispatch (reference
+``query_multimg``, PW_NNAL.py:169-627; ``strategies.py:582-877``): each
+subject's pool is scored by its own evaluator, selection is global over
+the concatenated pools, and the picks come back as per-subject positions
+through the ``global2local_inds`` algebra.  Every strategy has its
+branch; the keys are the JAX package's (each subject's context its own
+seed, ``BatchBALD`` and ``BADGE`` subject 0's with their fold tags).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -27,6 +35,7 @@ import torch
 from nnal_tpu_torch.core import rng as core_rng
 from nnal_tpu_torch.core.profiling import subphase
 from nnal_tpu_torch.data.batching import make_onehot
+from nnal_tpu_torch.data.indexing import expand_raveled_inds, global2local_inds
 from nnal_tpu_torch.data.patches import gather_labels, gather_patches_normalized
 from nnal_tpu_torch.data.samplers import high_variance_filter
 from nnal_tpu_torch.models.perturb import measure_output_perturbation
@@ -50,10 +59,15 @@ from nnal_tpu_torch.scoring.representative import (
     cross_max_similarities,
     normalize_rows,
     pad_inds_repeat,
+    pad_rows,
     rep_entropy_from_features,
 )
 from nnal_tpu_torch.scoring.sdp import fi_query_distribution
-from nnal_tpu_torch.scoring.superpixel import oversegment_volume, supix_query
+from nnal_tpu_torch.scoring.superpixel import (
+    oversegment_volume,
+    superpix_scores,
+    supix_query,
+)
 from nnal_tpu_torch.scoring.uncertainty import (
     bald_scores_bucketed,
     binary_uncertainty_filter,
@@ -136,6 +150,14 @@ def _require_patch_evaluator(ev, method: str) -> None:
         raise NotImplementedError(
             f"{method} needs per-patch gradients: the dense-spec (fcn) "
             "branch is not ported yet (ROADMAP Queue 1 item 9)")
+
+
+def _gather(ev, inds) -> torch.Tensor:
+    """Normalized patches at host ``inds`` of the evaluator's volume (K2
+    on the card)."""
+    return gather_patches_normalized(
+        ev.padded, torch.as_tensor(np.asarray(inds, np.int64)).to(ev.device),
+        ev.mu, ev.sd, ev.patch_shape, ev.orig_shape)
 
 
 def _posteriors(ctx: QueryContext) -> np.ndarray:
@@ -426,18 +448,13 @@ def _influence(ctx: QueryContext):
     nclass = ctx.spec.nclass
     params = infl.param_dict(ctx.params)
 
-    def gather(inds):
-        return gather_patches_normalized(
-            ev.padded, torch.as_tensor(np.asarray(inds, np.int64)).to(
-                ev.device), ev.mu, ev.sd, ev.patch_shape, ev.orig_shape)
-
     with subphase("influence/labeled_gather"):
         # padded to a 256 multiple with index 0, weighted out below, as
         # the JAX package buckets it
         n_tr = len(ctx.train_inds)
         tr_inds = np.concatenate([np.asarray(ctx.train_inds, np.int64),
                                   np.zeros(-n_tr % 256, np.int64)])
-        tr = gather(tr_inds)
+        tr = _gather(ev, tr_inds)
         y_lab = np.zeros(len(tr_inds), np.int64)
         y_lab[:n_tr] = gather_labels(mask, ctx.train_inds, ev.orig_shape)
         tr_y = torch.as_tensor(make_onehot(y_lab, nclass)).to(ev.device)
@@ -453,8 +470,327 @@ def _influence(ctx: QueryContext):
     with subphase("influence/filter"):
         sel = binary_uncertainty_filter(p1, B)
     with subphase("influence/cand_scores"):
-        cx = gather(ctx.pool_inds[sel])
+        cx = _gather(ev, ctx.pool_inds[sel])
         pseudo = (p1[sel] > 0.5).astype(np.int64)
         cy = torch.as_tensor(make_onehot(pseudo, nclass)).to(ev.device)
         scores = infl.influence_scores(ctx.params, params, st, cx, cy)
     return sel[np.argsort(-np.abs(scores), kind="stable")[:ctx.k]]
+
+
+# --------------------------------------------------------------------------- #
+# multi-subject dispatch (reference query_multimg, PW_NNAL.py:169-627)
+# --------------------------------------------------------------------------- #
+def _to_dev(inds, dev) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(inds, np.int64)).to(dev)
+
+
+def _gather_padded(ev, inds, mult: int) -> torch.Tensor:
+    """:func:`_gather` of ``inds`` padded with index 0 to a ``mult``
+    multiple, the pad rows sliced off (``strategies.py:955-964``)."""
+    n = len(inds)
+    p = np.concatenate([np.asarray(inds, np.int64),
+                        np.zeros(-n % mult, np.int64)])
+    return _gather(ev, p)[:n]
+
+
+def _concat_feats_posts(contexts):
+    """(device features, host posteriors) of every subject's pool,
+    concatenated in subject order."""
+    F, p1 = [], []
+    for c in contexts:
+        r = c.evaluator.evaluate(c.params, c.pool_inds,
+                                 ("posteriors", "feature_layer"),
+                                 as_device=True)
+        F.append(r["feature_layer"])
+        p1.append(r["posteriors"].cpu().numpy())
+    return torch.cat(F), np.concatenate(p1)
+
+
+def _subject_scores(c: QueryContext, method_name: str) -> np.ndarray:
+    """One subject's scores of the score-and-concatenate family, ascending
+    = most wanted (``strategies.py:610-634``)."""
+    if method_name == "entropy":
+        return np.abs(_posteriors(c) - 0.5)
+    if method_name == "MC-entropy":
+        avg = mc_average_posteriors(c.evaluator, c.params, c.pool_inds,
+                                    c.MC_iters, c.seed)
+        return np.abs(avg - 0.5)
+    if method_name == "BALD":
+        mc = mc_stack_posteriors(c.evaluator, c.params, c.pool_inds,
+                                 c.MC_iters, c.seed, as_device=True)
+        return -bald_scores_bucketed(mc)
+    posts = _committee_posteriors(c)
+    if method_name == "ensemble":
+        avg = 0.0
+        for i in range(posts.shape[0]):
+            avg = running_average(posts[i], avg, i)
+        return np.abs(avg.cpu().numpy() - 0.5)
+    return -bald_scores_bucketed(posts)
+
+
+def query_multimg(contexts: Sequence[QueryContext], method_name: str,
+                  k: int, rng) -> List[np.ndarray]:
+    """Query across subjects (module docstring).  ``rng`` is the round's
+    host generator (``random``, ``ps-random`` and fi's PMF draws).
+    Returns one array of positions into each context's ``pool_inds``."""
+    require_strategy(method_name)
+    sizes = [len(c.pool_inds) for c in contexts]
+    ref = contexts[0]
+
+    if method_name == "random":
+        return global2local_inds(rng.permutation(int(np.sum(sizes)))[:k],
+                                 sizes)
+
+    if method_name in ("entropy", "MC-entropy", "BALD", "ensemble",
+                       "QBC-JS"):
+        cat = np.concatenate([_subject_scores(c, method_name)
+                              for c in contexts])
+        return global2local_inds(np.argsort(cat, kind="stable")[:k], sizes)
+
+    if method_name == "ps-random":
+        for c in contexts:
+            if c.raw_volume is None:
+                raise ValueError("ps-random needs the raw volume")
+        valid = [high_variance_filter(c.raw_volume, c.evaluator.patch_shape,
+                                      c.hv_threshold, c.pool_inds,
+                                      device=c.evaluator.device)
+                 for c in contexts]
+        vsizes = [len(v) for v in valid]
+        local = global2local_inds(
+            rng.permutation(int(np.sum(vsizes)))[:k], vsizes)
+        return [valid[i][local[i]] for i in range(len(contexts))]
+
+    if method_name == "rep-entropy":
+        F, p1 = _concat_feats_posts(contexts)
+        B = min(ref.B, len(p1))
+        sel = binary_uncertainty_filter(p1, B)
+        rest = np.setdiff1d(np.arange(len(p1)), sel)
+        pick = (sel[:k] if len(rest) == 0 else
+                sel[rep_entropy_from_features(F, rest, sel, min(k, B))])
+        return global2local_inds(pick, sizes)
+
+    if method_name == "BADGE":
+        F, p1 = _concat_feats_posts(contexts)
+        B = min(ref.B, len(p1))
+        sel = binary_uncertainty_filter(p1, B)
+        sel_t = _to_dev(sel, F.device)
+        E = badge_embeddings(F[sel_t], torch.as_tensor(p1[sel]).to(F.device))
+        chosen = badge_kmeanspp(
+            E, min(k, len(sel)),
+            core_rng.key_generator(ref.seed, _BADGE_FOLD, F.device))
+        return global2local_inds(sel[chosen], sizes)
+
+    if method_name == "BatchBALD":
+        # one dropout-key chain shared by every subject (subject 0's), so
+        # MC sample t is one weight draw everywhere and the joint MI sees
+        # cross-subject redundancy (``strategies.py:687-706``)
+        mc = torch.cat([mc_stack_posteriors(c.evaluator, c.params,
+                                            c.pool_inds, c.MC_iters,
+                                            ref.seed, as_device=True)
+                        for c in contexts], dim=1)
+        scores = bald_scores_bucketed(mc)
+        B = min(ref.B, mc.shape[1])
+        sel = np.argsort(-scores, kind="stable")[:B]
+        chosen = batchbald_select(
+            mc[:, _to_dev(sel, mc.device)], min(k, B),
+            core_rng.key_generator(ref.seed, _BB_CFG_FOLD, mc.device))
+        return global2local_inds(sel[chosen], sizes)
+
+    if method_name == "core-set":
+        return global2local_inds(_core_set_multimg(contexts, k), sizes)
+
+    if method_name == "fi":
+        return global2local_inds(_fi_multimg(contexts, k, rng), sizes)
+
+    if method_name == "AU_4U":
+        scores = np.concatenate([_au_4u_scores(c) for c in contexts])
+        return global2local_inds(np.argsort(-scores, kind="stable")[:k],
+                                 sizes)
+
+    if method_name == "influence":
+        return _influence_multimg(contexts, k)
+
+    if method_name == "SuPix":
+        return _supix_multimg(contexts, k)
+
+    raise ValueError(method_name)
+
+
+def _core_set_multimg(contexts, k: int) -> np.ndarray:
+    """Greedy k-center over the concatenated pool features against every
+    subject's labeled features (K1 once per subject with labels), or the
+    held subjects' bootstrap features before any label exists
+    (``strategies.py:709-747``).  The concatenated pool is zero-padded to
+    a ``ROW_BUCKET`` multiple, the tile ``cross_max_similarities`` pads
+    to, so ``sims0`` keeps one length; the pad rows get ``+inf``."""
+    F_u = torch.cat([c.evaluator.evaluate(c.params, c.pool_inds,
+                                          ("feature_layer",),
+                                          as_device=True)["feature_layer"]
+                     for c in contexts])
+    n_u = F_u.shape[0]
+    F_u, _ = pad_rows(F_u, ROW_BUCKET)
+    dev = F_u.device
+    sims0 = torch.full((F_u.shape[0],), float("-inf"), device=dev)
+    any_labeled = False
+    for c in contexts:
+        if c.train_inds is not None and len(c.train_inds) > 0:
+            F_t = c.evaluator.evaluate(
+                c.params, pad_inds_repeat(c.train_inds, 256),
+                ("feature_layer",), as_device=True)["feature_layer"]
+            sims0 = torch.maximum(sims0, cross_max_similarities(
+                F_u, F_t, tile=ROW_BUCKET, as_device=True, keep_pad=True))
+            any_labeled = True
+    bf = contexts[0].extra.get("bootstrap_features")
+    if not any_labeled and bf is not None:
+        sims0 = cross_max_similarities(F_u, torch.as_tensor(bf).to(dev),
+                                       tile=ROW_BUCKET, as_device=True,
+                                       keep_pad=True)
+    valid = torch.arange(F_u.shape[0], device=dev) < n_u
+    sims0 = torch.where(valid, sims0, torch.full_like(sims0, float("inf")))
+    return core_set_select(normalize_rows(F_u), sims0, min(k, n_u))
+
+
+def _fi_multimg(contexts, k: int, rng) -> np.ndarray:
+    """fi across subjects (``strategies.py:749-828``): one global
+    uncertainty filter to B, each subject's candidates padded to B and
+    gathered (K2) into shrunk class gradients and A-matrices, one SDP over
+    the concatenated A, PMF draws.  Returns global positions."""
+    ref = contexts[0]
+    if not hasattr(ref.evaluator, "padded"):
+        return _fi_dense_multimg(contexts, k, rng)
+    sizes = [len(c.pool_inds) for c in contexts]
+    with subphase("fi/posteriors"):
+        p1 = np.concatenate([_posteriors(c) for c in contexts])
+    B = min(ref.B, len(p1))
+    with subphase("fi/filter"):
+        sel = binary_uncertainty_filter(p1, B)
+    sel_local = global2local_inds(sel, sizes)
+    A_list, order = [], []
+    for si, c in enumerate(contexts):
+        li = sel_local[si]
+        if len(li) == 0:
+            continue
+        ev = c.evaluator
+        nb = len(li)
+        base = int(np.sum(sizes[:si]))
+        # padded to the round-invariant B, as the JAX package does for
+        # its compile cache; the pad rows are sliced off
+        cand = np.zeros(B, np.int64)
+        cand[:nb] = c.pool_inds[li]
+        pv = np.zeros(B, np.float32)
+        pv[:nb] = p1[base + li]
+        with subphase("fi/gather_grads_A"):
+            A_list.append(gather_shrunk_a_matrices(
+                c.params, ev.padded, _to_dev(cand, ev.device), ev.mu, ev.sd,
+                ev.patch_shape, ev.orig_shape,
+                torch.as_tensor(pv).to(ev.device), ref.diag_load)[:nb])
+        order.append(base + li)
+    A = torch.cat(A_list)
+    order = np.concatenate(order)
+    X_pool = None
+    if ref.lambda_ > 0:
+        with subphase("fi/features"):
+            F = np.concatenate([
+                c.evaluator.evaluate(c.params, c.pool_inds[li],
+                                     ("feature_layer",))["feature_layer"]
+                for c, li in zip(contexts, sel_local) if len(li)])
+        ref_F = refine_feature_matrix(F.T, len(order))
+        X_pool = ref_F - ref_F.mean(axis=1, keepdims=True)
+    with subphase("fi/sdp"):
+        q = fi_query_distribution(A, ref.lambda_, X_pool, k)
+    with subphase("fi/pmf"):
+        draws = sample_query_pmf(q, k, rng, replacement=True)
+    return order[draws]
+
+
+def _fi_dense_multimg(contexts, k: int, rng):
+    """The dense-spec (fcn) fi across subjects (``strategies.py:879``)."""
+    raise NotImplementedError(
+        "fi on dense-spec (fcn) evaluators is not ported to the PyTorch "
+        "port yet (ROADMAP Queue 1 item 9)")
+
+
+def _influence_multimg(contexts, k: int) -> List[np.ndarray]:
+    """Influence across subjects (``strategies.py:934-1011``): one s_test
+    from the union of every subject's labeled set (each subject's gather
+    padded to a 64 multiple, the union with zero rows to a 256 multiple,
+    weighted out), candidates from one global uncertainty filter, each
+    subject's gathered (K2) and ranked by ``|<grad L(z), s_test>|`` at its
+    pseudo-label ``p1 > 0.5``."""
+    sizes = [len(c.pool_inds) for c in contexts]
+    ref = contexts[0]
+    for c in contexts:
+        _require_patch_evaluator(c.evaluator, "influence")
+    nclass = ref.spec.nclass
+    with subphase("influence/labeled_gather"):
+        xs, ys = [], []
+        for c in contexts:
+            if c.train_inds is None or len(c.train_inds) == 0:
+                continue
+            mask = c.extra.get("mask")
+            if mask is None:
+                raise ValueError("influence querying needs the label mask")
+            ev = c.evaluator
+            xs.append(_gather_padded(ev, c.train_inds, 64))
+            ys.append(np.asarray(gather_labels(mask, c.train_inds,
+                                               ev.orig_shape), np.int64))
+        if not xs:
+            raise ValueError("influence querying needs a labeled set")
+        n_tr = int(sum(x.shape[0] for x in xs))
+        pad = -n_tr % 256
+        tr = torch.cat(xs + [xs[0].new_zeros((pad,) + tuple(xs[0].shape[1:]))])
+        y = np.concatenate(ys + [np.zeros(pad, np.int64)])
+        tr_y = torch.as_tensor(make_onehot(y, nclass)).to(tr.device)
+    params = infl.param_dict(ref.params)
+    with subphase("influence/s_test"):
+        st = _s_test_dispatch(ref.extra, ref.params, params, tr, tr_y,
+                              ref.extra.get("damping", 0.1), n_tr, ref.seed)
+    with subphase("influence/posteriors"):
+        p1 = np.concatenate([_posteriors(c) for c in contexts])
+    B = min(ref.B, len(p1))
+    with subphase("influence/filter"):
+        sel = binary_uncertainty_filter(p1, B)
+    sel_local = global2local_inds(sel, sizes)
+    scores = np.zeros(len(p1))
+    with subphase("influence/cand_scores"):
+        for si, c in enumerate(contexts):
+            li = sel_local[si]
+            if len(li) == 0:
+                continue
+            cx = _gather_padded(c.evaluator, c.pool_inds[li], 64)
+            base = int(np.sum(sizes[:si]))
+            pseudo = (p1[base + li] > 0.5).astype(np.int64)
+            cy = torch.as_tensor(make_onehot(pseudo, nclass)).to(cx.device)
+            scores[base + li] = infl.influence_scores(ref.params, params, st,
+                                                      cx, cy)
+    order = np.argsort(-np.abs(scores[sel]), kind="stable")[:k]
+    return global2local_inds(sel[order], sizes)
+
+
+def _supix_multimg(contexts, k: int) -> List[np.ndarray]:
+    """The k most uncertain superpixels over every subject (each subject's
+    SLIC labels cached in its ``extra["overseg"]``), and every pool member
+    of each as the subject's queries (``strategies.py:839-875``)."""
+    oversegs, cand = [], []       # cand: (min uncertainty, subject, z, label)
+    for si, c in enumerate(contexts):
+        overseg = c.extra.get("overseg")
+        if overseg is None:
+            if c.raw_volume is None:
+                raise ValueError("SuPix needs the raw volume")
+            overseg = oversegment_volume(c.raw_volume,
+                                         c.extra.get("n_segments", 64))
+            c.extra["overseg"] = overseg
+        unc = np.abs(_posteriors(c) - 0.5)
+        sp = superpix_scores(overseg, c.pool_inds, unc)
+        oversegs.append(overseg)
+        for z, lab in np.argwhere(np.isfinite(sp)):
+            cand.append((sp[z, lab], si, int(z), int(lab)))
+    cand.sort()
+    out = [np.zeros(0, np.int64) for _ in contexts]
+    for _, si, z, lab in cand[:k]:
+        overseg = oversegs[si]
+        m2d = np.flatnonzero(overseg[:, :, z].ravel() == lab)
+        wanted = expand_raveled_inds(m2d, z, 2, overseg.shape)
+        pos = np.flatnonzero(np.isin(contexts[si].pool_inds, wanted))
+        out[si] = np.union1d(out[si], pos).astype(np.int64)
+    return out

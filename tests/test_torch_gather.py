@@ -154,3 +154,27 @@ def test_y_copy_is_made_once_per_volume_and_rebuilt_after_edits():
     assert k2.y_contiguous(padded) is y2
     other = pad_volumes(vols, (5, 5, 1), device="cpu")   # a new volume
     assert k2.y_contiguous(other) is not y2
+
+
+def test_y_copy_cache_keeps_one_entry_per_volume():
+    """Alternating gathers from two volumes (a multi-subject finetune's
+    order) build each copy once: 2 rebuilds, not one per call; past
+    ``YCACHE_SIZE`` volumes the least recently used goes."""
+    vols, _, _, _ = _inputs((5, 5, 1))
+    a = pad_volumes(vols, (5, 5, 1), device="cpu")
+    b = pad_volumes(vols[::-1], (5, 5, 1), device="cpu")
+    k2.reset_ycache_stats()
+    ya, yb = k2.y_contiguous(a), k2.y_contiguous(b)
+    for _ in range(3):
+        assert k2.y_contiguous(a) is ya and k2.y_contiguous(b) is yb
+    assert k2.YCACHE_STATS == {"rebuilds": 2, "volumes": 2}
+    more = [pad_volumes(vols, (5, 5, 1), device="cpu")
+            for _ in range(k2.YCACHE_SIZE - 2)]
+    for v in more:                            # fills the cache
+        k2.y_contiguous(v)
+    assert k2.y_contiguous(b) is yb           # b is now the newest
+    k2.y_contiguous(pad_volumes(vols, (5, 5, 1), device="cpu"))
+    assert k2.y_contiguous(b) is yb
+    assert k2.y_contiguous(a) is not ya       # a was the oldest: rebuilt
+    assert k2.YCACHE_STATS == {"rebuilds": k2.YCACHE_SIZE + 2,
+                               "volumes": k2.YCACHE_SIZE + 1}
