@@ -146,7 +146,34 @@ Phases, each of which passes or exits non-zero:
    two subjects, warm-started; and the host loader (``PrefetchLoader``
    over the native gather: each batch equal to the host source's, within
    1 ulp of K2, and its batches/s);
-17. lines with the new methods' per-round seconds, the MC and perturb
+17. the dense-model path (``phase_dense``): FC-DenseNet-103 at its
+   published width and depth (108 spec rows, 9.32 M parameters, 13.0
+   GFLOP a 128x128x2 slice, counted from the spec by ``dense_flops``)
+   from one seed's weights and a refreshed BN state, card vs host on 4
+   slices of the campaign subject: eval mode on the running statistics
+   and train mode on the batch's with the moved state (posteriors atol
+   1e-4, features and state 1e-4 relative); one finetune step with the
+   same dropout uniforms (``KeyedDraws``) and plain SGD, plain and under
+   the mean teacher: card and host each held to a float64 step on the
+   card (the f32 update of this net is good to ~2e-3 of its size on
+   either device; the card within 2x the host's error and 1e-2), then
+   the BN refresh on the float64 step's weights card vs host (1e-4
+   relative), and the seconds per Adam step of each; the whole-slice sweep's
+   slices/s and TFLOP/s at f32 and bf16 (32 slices, batches of 4) and the
+   bf16 sweep's top-1024 uncertainty overlap with f32 (tie-aware, at
+   least 80%); K1 at d = 16 (P the pool's 65,536 per-pixel features, R
+   256, 512 and a ragged 320) against its plain version within 1e-5,
+   with its ms beside the bound; 2-round dense campaigns (f32: entropy,
+   core-set, fi, BALD with 10 MC passes, BADGE, QBC-JS with 3 members,
+   entropy with the mean teacher; bf16: entropy and fi), each checked
+   (rounds, picks, membership, no K2 launch, K1 in core-set, the ``bn/``
+   group, fi's sub-spans, the committee phase, the teacher group); dense
+   resume == continue bit for bit (entropy, 3 rounds, int8 anchors every
+   2, crashed after round 2); and a multi-subject dense campaign of
+   entropy and fi over two 128x128x32 subjects and one 96x96x32 (two
+   shape groups; 128 and 64 queries), every test evaluator on the
+   engine's BN state;
+18. lines with the new methods' per-round seconds, the MC and perturb
    sweeps' rates, the committee campaigns' peak memory, the lever runs'
    per-round seconds, each lever's seconds per finetune step, the
    checkpoint bytes with the teacher, whether the TensorBoard mirror
@@ -156,8 +183,9 @@ Phases, each of which passes or exits non-zero:
    ``phases`` JSON line (per-round seconds from ``phases.jsonl`` of both
    campaigns, build seconds, K1's SASS counts, the FIM, bf16, codec,
    resume, MC, perturbation, selection, second-order, SLIC and
-   ``finetune_wpool`` phases, and the multi-subject ones) and one
-   ``kernels`` JSON line (times, bounds, launches in every campaign).
+   ``finetune_wpool`` phases, the multi-subject and the dense ones) and
+   one ``kernels`` JSON line (times, bounds, launches in every campaign;
+   K1's row also its times at d = 16 under ``at_d16``).
 
 The row and column tolerance rules for shrunk gradients and A-matrices:
 the linear head's column is zero in exact arithmetic (a constant added to
@@ -180,6 +208,7 @@ script exits non-zero and prints no result.  The campaign runs under
 
 from __future__ import annotations
 
+import copy
 import ctypes
 import json
 import os
@@ -203,6 +232,7 @@ from nnal_tpu_torch.data.io import synthetic_subject
 from nnal_tpu_torch.core.journal import MethodJournal
 from nnal_tpu_torch.data.patches import pad_volumes
 from nnal_tpu_torch.data.samplers import (
+    even_odd_slice_split,
     generate_grid_samples,
     high_variance_filter,
 )
@@ -231,16 +261,26 @@ from nnal_tpu_torch.models.optim import (
     opt_state_leaves,
     opt_state_tensors,
 )
-from nnal_tpu_torch.models.specs import create_pw1, with_aleatoric_head
+from nnal_tpu_torch.models.specs import (
+    create_model,
+    create_pw1,
+    with_aleatoric_head,
+)
 from nnal_tpu_torch.models.surgery import extend_params_to_aleatoric
 from nnal_tpu_torch.models.train import (
     LwF,
     MeanTeacher,
     TrainState,
+    bn_refresh,
     build_batch_index_matrix,
+    finetune_fcn_steps,
     finetune_steps,
     init_train_state,
     make_teacher,
+)
+from nnal_tpu_torch.scoring.fcn_eval import (
+    FCNGridPoolEvaluator,
+    normalized_slices,
 )
 from nnal_tpu_torch.scoring.grid_eval import GridPoolEvaluator
 from nnal_tpu_torch.ops.gather import (
@@ -372,6 +412,26 @@ STRATEGIES = ("random", "ps-random", "entropy", "MC-entropy", "BALD",
 HELD_PICKS = ("entropy", "core-set", "rep-entropy", "BALD", "BatchBALD",
               "BADGE")
 TOP_B = 1024
+# the dense-model path: FC-DenseNet-103 at its published width and depth
+# (growth 16, dense blocks 4-5-7-10-12, 15 in the bottleneck, dropout 0.2)
+# on the campaign subject's whole 128x128 slices, PW1's grid and budget
+DENSE = ("model_name=Tiramisu,dropout_rate=0.2,patch_shape=[25,25,1],"
+         "grid_spacing=2,k=64,B=200,b=4,epochs=1,init_size=256,"
+         "learning_rate=1e-3,optimizer_name=Adam,ntb=4096,"
+         "synthetic_shape=[128,128,32],seed=0")
+DENSE_RUNS = (("entropy", DENSE), ("core-set", DENSE),
+              ("fi", DENSE + ",iter_k=[64,64,0]"),
+              ("BALD", DENSE + ",MC_iters=10"), ("BADGE", DENSE),
+              ("QBC-JS", DENSE + ",n_ensemble=3"), ("entropy@mt", DENSE + MT))
+DENSE_BF16_RUNS = (("entropy", DENSE + ",dtype=bfloat16,train_dtype=bfloat16"),
+                   ("fi", DENSE + ",iter_k=[64,64,0],dtype=bfloat16,"
+                    "train_dtype=bfloat16"))
+DENSE_RESUME = DENSE + ",ckpt_full_every=2,ckpt_dtype=int8"
+DENSE_MULTI = MULTI + ",model_name=Tiramisu,dropout_rate=0.2,b=4"
+# (name, overrides, queries): fi's picks shrink round over round (59,
+# 31, 22, 10, 5, 1 on an H100 80GB HBM3), so it runs on 64 queries
+DENSE_MULTI_RUNS = (("entropy", DENSE_MULTI, 128), ("fi", DENSE_MULTI, 64))
+DENSE_GFLOP = 13.0          # per 128x128x2 slice, convs and convTs
 SWEEP_SHAPE = (256, 256, 64)        # bench.py's subject
 SWEEP_Z_CHUNK = 4
 
@@ -1497,8 +1557,6 @@ def kink_margins(model, x):
     |relu input|, and the smallest nonzero gap between the two largest
     positive inputs of a max-pool window, each relative to the largest
     |value| of that layer for that patch."""
-    import torch.nn.functional as F
-
     layers = model.spec.layers
     zs = {}
     hooks = [getattr(model, l.name).register_forward_hook(
@@ -1518,7 +1576,7 @@ def kink_margins(model, x):
         if l.kind != "pool":
             continue
         h = model.act(zs[layers[i - 1].name])
-        hp = F.pad(h, model._pads[l.name], value=float("-inf"))
+        hp = model.pad_input(l, h)
         (kh, kw), (sh, sw) = l.ksize, l.strides
         w = hp.unfold(2, kh, sh).unfold(3, kw, sw)
         top = w.reshape(w.shape[:4] + (-1,)).topk(2, -1).values
@@ -2781,6 +2839,489 @@ def phase_multi(dev):
         shutil.rmtree(top, ignore_errors=True)
 
 
+# ------------------------------------------------------------ dense models
+def dense_flops(spec, hw) -> float:
+    """FLOPs (2 per multiply-add) of the convs and transposed convs of
+    one forward of ``spec`` on an ``hw`` slice, from the spec's shapes."""
+    total = 0.0
+    model = CNN(spec)
+    h, w = hw
+    sizes = {"__input__": (h, w)}
+    prev = "__input__"
+    for layer in spec.layers:
+        src = layer.sources[0] if layer.sources else prev
+        hh, ww = (min(sizes[s][0] for s in layer.sources),
+                  min(sizes[s][1] for s in layer.sources)) \
+            if layer.sources else sizes[src]
+        if layer.kind in ("conv", "convT"):
+            W = getattr(model, layer.name).weight
+            macs_per_pixel = W.numel()          # out * in * kh * kw
+            if layer.kind == "conv":
+                out_hw = (hh, ww)
+                total += 2.0 * macs_per_pixel * hh * ww
+            else:
+                out_hw = (hh * layer.strides[0], ww * layer.strides[1])
+                total += 2.0 * macs_per_pixel * hh * ww
+            sizes[layer.name] = out_hw
+        elif layer.kind in ("pool", "avgpool"):
+            sizes[layer.name] = (-(-hh // layer.strides[0]),
+                                 -(-ww // layer.strides[1]))
+        prev = layer.name
+    return total
+
+
+def _dense_subject():
+    vols, mask = synthetic_subject(shape=SHAPE, n_modalities=2, n_blobs=3,
+                                   seed=0)
+    stats = multimg_stats([(vols, mask)])[0]
+    inds, _ = generate_grid_samples(SHAPE, 2, mask)
+    pool, _ = even_odd_slice_split(inds, SHAPE)
+    return vols, mask, stats[0::2], stats[1::2], pool
+
+
+def _state_rel(got, want) -> float:
+    """max |got - want| / max |want| over every BN statistic."""
+    return max(float((got[l][k].cpu() - want[l][k].cpu()).abs().max()
+                     / want[l][k].abs().max().clamp(min=1e-30))
+               for l in want for k in ("mean", "var"))
+
+
+def _param_rel(a, b) -> float:
+    sa, sb = a.state_dict(), b.state_dict()
+    return max(float((sa[n].cpu() - sb[n].cpu()).abs().max()
+                     / sb[n].abs().max().clamp(min=1e-30)) for n in sb)
+
+
+def phase_dense_parity(dev, n=4, seed=31):
+    """Full-width FC-DenseNet-103 card vs host from one seed's weights:
+    the forward in eval mode (running statistics) and train mode (batch
+    statistics, the moved state), one finetune step with the same dropout
+    uniforms (``KeyedDraws``) and plain SGD, plain and under the mean
+    teacher, then the BN refresh; and seconds per Adam step of each."""
+    vols, mask, mu, sd, pool = _dense_subject()
+    spec = create_model("Tiramisu", nclass=2, input_shape=(128, 128, 2),
+                        dropout_rate=0.2)
+    host = init_cnn(spec, seed, device="cpu")
+    n_params = sum(p.numel() for p in host.parameters())
+    check(len(spec.layers) == 108 and abs(n_params - 9.32e6) < 0.01e6,
+          f"FC-DenseNet-103: {len(spec.layers)} rows, {n_params} params")
+    gflop = dense_flops(spec, (128, 128)) / 1e9
+    check(abs(gflop - DENSE_GFLOP) < 0.1, f"{gflop} GFLOP per slice")
+    slices = torch.from_numpy(normalized_slices(vols, mu, sd))
+    x = slices[:n].contiguous()
+    # a running state off its init: a refresh over 8 slices at decay 0.6
+    bn = bn_refresh(host, host.init_state(), slices[8:16], 0.6)
+    card = copy.deepcopy(host).to(dev)
+    bn_c = {l: {k: v.to(dev) for k, v in d.items()} for l, d in bn.items()}
+    res = {"spec_rows": len(spec.layers), "params": n_params,
+           "gflop_per_slice": gflop}
+    with torch.no_grad():
+        for mode in ("eval", "train"):
+            tr = mode == "train"
+            oh = host(x, train=tr, state=bn, bn_decay=0.9)
+            oc = card(x.to(dev), train=tr, state=bn_c, bn_decay=0.9)
+            res[mode] = {
+                "posteriors": float((oc.posteriors.cpu()
+                                     - oh.posteriors).abs().max()),
+                "feature_rel": float((oc.feature.cpu() - oh.feature).abs()
+                                     .max() / oh.feature.abs().max()),
+                "state_rel": _state_rel(oc.state, oh.state)}
+            check(res[mode]["posteriors"] <= 1e-4
+                  and res[mode]["state_rel"] <= 1e-4
+                  and res[mode]["feature_rel"] <= 1e-4,
+                  f"dense forward {mode} card vs host: {res[mode]}")
+    # one finetune step: 4 slices, ~2% of their pixels labeled.  The f32
+    # gradient of this 108-layer net with batch-statistic BN is only good
+    # to ~2e-3 of the update (host and card alike, against float64), so
+    # both are held to a float64 step on the card, the card no worse
+    # than the host; the parameters themselves are reported card vs host
+    rng = np.random.default_rng(seed)
+    lab = rng.integers(0, 2, (n, 128, 128))
+    y = torch.from_numpy(np.eye(2, dtype=np.float32)[lab])
+    wpix = (rng.random((n, 128, 128)) < 0.02).astype(np.float32)
+    idx, w = np.arange(n)[None], np.ones((1, n), np.float32)
+    xu = slices[16:16 + n].contiguous()
+
+    def stepped(device, mt, dtype=torch.float32):
+        m = copy.deepcopy(host).to(device, dtype)
+        st = init_train_state(m, "SGD", 0.1)
+        mt_obj = None
+        if mt:
+            st.teacher = make_teacher(m)
+            mt_obj = MeanTeacher(xu_all=xu.to(device, dtype),
+                                 u_idx=idx.copy(), coeff=1.0, ramp=20,
+                                 ema_decay=0.99)
+        with deterministic_cudnn():
+            finetune_fcn_steps(st, x.to(device, dtype), y.to(device, dtype),
+                               wpix, idx, w, 5, mt=mt_obj)
+        return m, st.teacher
+
+    def cpu64(mod):
+        return {k: v.detach().cpu().double()
+                for k, v in mod.state_dict().items()}
+
+    p0 = {k: v.double() for k, v in host.state_dict().items()}
+
+    def update_err(p, want):
+        """max |update - float64 update| over max |float64 update|."""
+        big = max(float((want[k] - p0[k]).abs().max()) for k in p0)
+        return max(float((p[k] - want[k]).abs().max()) for k in p0) / big
+
+    for mt in (False, True):
+        name = "step_mt" if mt else "step"
+        with KeyedDraws(seed):
+            (mh, th), (mc, tc) = stepped("cpu", mt), stepped(dev, mt)
+            m64, t64 = stepped(dev, mt, torch.float64)
+        sh, sc, s64 = cpu64(mh), cpu64(mc), cpu64(m64)
+        r = {"update_err_card": update_err(sc, s64),
+             "update_err_host": update_err(sh, s64),
+             "params_card_vs_host": max(
+                 float((sc[k] - sh[k]).abs().max()) for k in p0)
+             / max(float(sh[k].abs().max()) for k in p0)}
+        if mt:
+            r["teacher_err_card"] = update_err(cpu64(tc), cpu64(t64))
+            r["teacher_err_host"] = update_err(cpu64(th), cpu64(t64))
+        # the BN refresh on one set of stepped weights (the float64
+        # step's, in f32) card vs host, as the forward checks above
+        m32 = m64.float().cpu()
+        with deterministic_cudnn():
+            bh = bn_refresh(m32, bn, x, 0.6)
+            bcard = bn_refresh(copy.deepcopy(m32).to(dev), bn_c,
+                               x.to(dev), 0.6)
+        r["bn_refresh_rel"] = _state_rel(bcard, bh)
+        res[name] = r
+        pairs = [("update_err_card", "update_err_host")]
+        if mt:
+            pairs.append(("teacher_err_card", "teacher_err_host"))
+        check(all(r[c] <= max(2.0 * r[h], r[h] + 1e-4) and r[c] <= 1e-2
+                  for c, h in pairs) and r["bn_refresh_rel"] <= 1e-4,
+              f"dense finetune {name}: {r}")
+        del mh, mc, m64, m32
+    # seconds per Adam step on the card (own generators), plain and MT
+    secs = {}
+    for mt in (False, True):
+        m = copy.deepcopy(card)
+        st = init_train_state(m, "Adam", 1e-3)
+        mt_obj = None
+        if mt:
+            st.teacher = make_teacher(m)
+            mt_obj = MeanTeacher(xu_all=xu.to(dev), u_idx=idx.copy(),
+                                 coeff=1.0)
+        xs, ys = x.to(dev), y.to(dev)
+        times = []
+        with deterministic_cudnn():
+            for r in range(6):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                finetune_fcn_steps(st, xs, ys, wpix, idx, w, 7 + r,
+                                   mt=mt_obj)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        secs["mt" if mt else "plain"] = min(times[1:])
+        del m, st
+    res["adam_step_s"] = secs
+    print(f"dense parity ok (FC-DenseNet-103, {n_params} params, "
+          f"{gflop:.3f} GFLOP a 128x128x2 slice): {json.dumps(res)}")
+    return res, card, bn_c, (vols, mask, mu, sd, pool)
+
+
+def phase_dense_sweep(dev, card, bn_c, subject, reps=3):
+    """The whole-slice sweep at f32 and bf16 (32 slices, batches of 4):
+    slices/s and TFLOP/s at ``DENSE_GFLOP`` per slice, peak memory, and
+    the bf16 sweep's top-``TOP_B`` uncertainty overlap with the f32 one
+    (tie-aware, as the bf16 FIM sweep's)."""
+    vols, _, mu, sd, pool = subject
+    out, unc = {}, {}
+    for cd in (None, torch.bfloat16):
+        ev = FCNGridPoolEvaluator(card.spec, vols, mu, sd, SHAPE,
+                                  compute_dtype=cd, bn_state=bn_c,
+                                  device=dev)
+        name = "float32" if cd is None else "bfloat16"
+        ev._sweep(card, None, False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            ev._sweep(card, None, False)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter() - t0)
+        best = min(t)
+        z = ev.slices.shape[0]
+        out[name] = {"seconds": best, "slices_per_s": z / best,
+                     "tflops": z * DENSE_GFLOP / best / 1e3,
+                     "peak_bytes": torch.cuda.max_memory_allocated()}
+        p1 = ev.evaluate(card, pool, ("posteriors",),
+                         as_device=True)["posteriors"]
+        unc[name] = (p1.float() - 0.5).abs()
+    top = {k: torch.argsort(u, stable=True)[:TOP_B] for k, u in unc.items()}
+    kth = unc["bfloat16"][top["bfloat16"][-1]]
+    out["top_b_vs_f32"] = {
+        "B": TOP_B, "overlap": len(set(top["float32"].tolist())
+                                   & set(top["bfloat16"].tolist())),
+        "f32_picks_within_bf16_cut": int(
+            (unc["bfloat16"][top["float32"]] <= kth).sum())}
+    check(out["top_b_vs_f32"]["f32_picks_within_bf16_cut"] >= 0.8 * TOP_B,
+          f"dense bf16 ranks vs f32: {out['top_b_vs_f32']}")
+    print(f"dense sweep ok (32 slices of 128x128x2, batches of 4): "
+          f"{json.dumps(out)}")
+    return out
+
+
+def phase_dense_k1(dev, card, bn_c, subject):
+    """K1 at the dense path's d = 16: P the campaign pool's per-pixel
+    features (65,536 x 16), R 256 and 512 x 16 of them, and a ragged
+    320, against the plain version within 1e-5; ms beside the bound."""
+    vols, _, mu, sd, pool = subject
+    ev = FCNGridPoolEvaluator(card.spec, vols, mu, sd, SHAPE, bn_state=bn_c,
+                              device=dev)
+    F = ev.evaluate(card, pool, ("feature_layer",),
+                    as_device=True)["feature_layer"]
+    P = normalize_rows(F).contiguous()
+    n, d = P.shape
+    check((n, d) == (65536, 16), f"dense pool features {tuple(P.shape)}")
+    gen = torch.Generator().manual_seed(3)
+    R = P[torch.randperm(n, generator=gen)[:512].to(dev)].contiguous()
+    base = ops.similarity.KERNEL.launches
+    errs = {}
+    for m in (256, 512, 320):
+        Rm = R[:m].contiguous()
+        got = rowmax_similarity(P, Rm)
+        torch.cuda.synchronize()
+        errs[f"R{m}"] = float((got - rowmax_similarity_plain(P, Rm))
+                              .abs().max())
+    check(all(e <= 1e-5 for e in errs.values()),
+          f"K1 at d = 16: max |delta| {errs}")
+    times = {}
+    for m in (512, 256):
+        Rm = R[:m].contiguous()
+        times[m] = (time_ms(lambda: rowmax_similarity(P, Rm), reps=50),
+                    time_ms(lambda: rowmax_similarity_plain(P, Rm), reps=50),
+                    time_ms(lambda: torch.matmul(P, Rm.T).amax(dim=1),
+                            reps=50))
+    ops.similarity.KERNEL.launches = base
+    rows = {}
+    for m in (512, 256):
+        flops, nbytes = 2.0 * n * m * d, (n * d + m * d + n) * 4
+        b_ms, b_by = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
+        rows[m] = {"ms": times[m][0], "plain_ms": times[m][1],
+                   "library_ms": times[m][2], "bound_ms": b_ms,
+                   "bound_by": b_by,
+                   "bytes_bound_ms": nbytes / PEAK_HBM_BYTES * 1e3}
+    res = {"errors": errs, "shapes": {"P": [n, d], "R": [512, d]},
+           "at_R512": rows[512], "at_R256": rows[256]}
+    print(f"K1 at d = 16 ok: {json.dumps(res)}")
+    return res
+
+
+def _dense_run_checks(key, method, root, res, n_rounds, dk1, dk2, k=64):
+    picks = [np.atleast_1d(np.loadtxt(
+        os.path.join(root, method, "queries", f"{i}.txt"), dtype=np.int64))
+        for i in range(len(res["perf"]))]
+    check(len(res["perf"]) == n_rounds
+          and res["n_queries"] == sum(len(q) for q in picks)
+          and all(1 <= len(q) <= k for q in picks)
+          and (method == "fi" or res["n_queries"] == k * n_rounds),
+          f"{key}: {res['n_queries']} queries, picks "
+          f"{[len(q) for q in picks]}")
+    check(bool(np.isfinite(res["perf"]).all()), f"{key}: F {res['perf']}")
+    # the dense path gathers no patches; core-set's similarity is K1
+    check(dk2 == 0, f"{key}: K2 launched {dk2} times on the dense path")
+    if method == "core-set":
+        check(dk1 >= n_rounds, f"{key}: K1 launched {dk1} times")
+    with np.load(os.path.join(root, method, "curr_weights.npz")) as z:
+        files = z.files
+    check(any(f.startswith("bn/") for f in files),
+          f"{key}: no bn/ group in the resume point")
+    return picks
+
+
+def _dense_campaign(dev, top, runs, tag):
+    """2 rounds of each run through ``do_expr`` on the campaign subject,
+    launch counts zeroed just before each run and read just after."""
+    out = {"seconds": {}, "phases": {}, "by_method": {}, "peaks": {}}
+    ops.reset_launch_counts()
+    for name, overrides in runs:
+        method = name.split("@")[0]
+        key = tag + name
+        root = os.path.join(top, name)
+        k1_0 = ops.similarity.KERNEL.launches
+        k2_0 = ops.gather.KERNEL.launches
+        drain_subphases()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = do_expr(root, method, 128, overrides, synthetic=True,
+                      device=str(dev))
+        out["seconds"][key] = time.perf_counter() - t0
+        out["peaks"][key] = torch.cuda.max_memory_allocated()
+        dk1 = ops.similarity.KERNEL.launches - k1_0
+        dk2 = ops.gather.KERNEL.launches - k2_0
+        out["by_method"][key] = {"rowmax_similarity": dk1,
+                                 "gather_patches_normalized": dk2}
+        picks = _dense_run_checks(key, method, root, res, 2, dk1, dk2)
+        with open(os.path.join(root, method, "phases.jsonl")) as f:
+            out["phases"][key] = [json.loads(line) for line in f]
+        rounds = [r for r in out["phases"][key] if not r.get("tail")]
+        check(all(("committee" in r) == (method == "QBC-JS")
+                  for r in rounds), f"{key}: committee phase rows {rounds}")
+        if method == "fi":
+            check(all({"fi/posteriors", "fi/filter", "fi/gather_grads_A",
+                       "fi/sdp", "fi/pmf"} <= set(r.get("sub", {}))
+                      for r in rounds), f"{key}: fi sub-spans {rounds}")
+        if "consistency_coeff" in overrides:
+            with np.load(os.path.join(root, method,
+                                      "curr_weights.npz")) as z:
+                check(any(f.startswith("teacher/") for f in z.files),
+                      f"{key}: no teacher group")
+        _drop_checkpoints(root)
+        print(f"dense campaign {key}: F per round {res['perf'].tolist()}, "
+              f"picks per round {[len(q) for q in picks]}, "
+              f"{out['seconds'][key]:.3f} s, K1 +{dk1}, K2 +{dk2}, peak "
+              f"{out['peaks'][key] / 2**30:.2f} GiB")
+    out["counts"] = {k.name: k.launches for k in ops.KERNELS}
+    check(out["counts"]["rowmax_similarity"] > 0
+          or all(n.split("@")[0] != "core-set" for n, _ in runs),
+          f"K1 never launched in the dense {tag or 'f32/'} campaign")
+    return out
+
+
+def phase_dense_resume(dev, top):
+    """Dense resume == continue on the card: 3 rounds of entropy with
+    int8 anchors every 2; the second run loses its resume-point writes
+    for 2 rounds and a fresh ``PWExperiment`` replays both finetunes (and
+    their BN refreshes) from the initial weights: ``curr_weights.npz``
+    (``bn/`` included), the journal and ``perf_evals.txt`` bit-identical."""
+    vols, mask = synthetic_subject(shape=SHAPE, n_modalities=2, n_blobs=3,
+                                   seed=0)
+    pars = set_parameters(DEFAULT_PARS, DENSE_RESUME)
+
+    def fresh(root):
+        expr = pw_experiment.PWExperiment(
+            root, ExperimentConfig.from_pars(pars), device=dev)
+        expr.attach_subject(vols, mask)
+        return expr
+
+    def artifacts(root):
+        mdir = os.path.join(root, "entropy")
+        with np.load(os.path.join(mdir, "curr_weights.npz")) as z:
+            w = {k: z[k] for k in z.files}
+        q = {f: open(os.path.join(mdir, "queries", f)).read()
+             for f in sorted(os.listdir(os.path.join(mdir, "queries")))}
+        with open(os.path.join(mdir, "perf_evals.txt")) as f:
+            return w, q, f.read()
+
+    roots = [os.path.join(top, "resume", n) for n in ("a", "b")]
+    t0 = time.perf_counter()
+    for i, root in enumerate(roots):
+        expr = fresh(root)
+        expr.prep_data()
+        expr.add_method("entropy")
+        if i == 0:
+            expr.run_method("entropy", 192)
+            a_s = time.perf_counter() - t0
+            continue
+        orig = pw_experiment.save_checkpoint
+        pw_experiment.save_checkpoint, dropped = \
+            _suppressed_resume_writes(orig)
+        try:
+            expr.run_method("entropy", 128)
+        finally:
+            pw_experiment.save_checkpoint = orig
+        check(len(dropped) == 1, f"dense resume: dropped writes {dropped}")
+    t0 = time.perf_counter()
+    fresh(roots[1]).run_method("entropy", 192)
+    resume_s = time.perf_counter() - t0
+    (wa, qa, ea), (wb, qb, eb) = artifacts(roots[0]), artifacts(roots[1])
+    diff = sorted(k for k in set(wa) | set(wb)
+                  if k not in wa or k not in wb or wa[k].dtype != wb[k].dtype
+                  or not np.array_equal(wa[k], wb[k]))
+    res = {"rounds": 3, "ckpt_full_every": 2, "ckpt_dtype": "int8",
+           "entries": len(wa), "differing_entries": diff,
+           "bn_entries": sum(k.startswith("bn/") for k in wa),
+           "queries_equal": qa == qb, "perf_evals_equal": ea == eb,
+           "uninterrupted_s": a_s, "resume_with_replay_s": resume_s}
+    check(not diff and qa == qb and ea == eb and len(qa) == 3
+          and res["bn_entries"] > 0 and any(k.endswith("@i8") for k in wa),
+          f"dense resume != continue on the card: {res}")
+    shutil.rmtree(os.path.join(top, "resume"), ignore_errors=True)
+    print(f"dense resume == continue ok (bit for bit): {json.dumps(res)}")
+    return res
+
+
+def phase_dense_multi(dev, top):
+    """The multi-subject dense campaign: entropy (128 queries, 2 rounds)
+    and fi (64) over two 128x128x32 subjects and one 96x96x32, so two
+    shape groups train; a 128x128x32 test subject and a held one."""
+    s = [synthetic_subject(shape=sh, n_modalities=2, n_blobs=3, seed=i)
+         for i, sh in enumerate((SHAPE, SHAPE, (96, 96, 32), SHAPE, SHAPE))]
+    subjects = (s[:3], s[3:4], s[4:])
+    out = {"seconds": {}, "phases": {}, "by_method": {}, "peaks": {}}
+    ops.reset_launch_counts()
+    for name, overrides, budget in DENSE_MULTI_RUNS:
+        root = os.path.join(top, "multi", name)
+        expr = _multi_expr(root, overrides, dev, subjects)
+        expr.prep_data()
+        expr.add_method(name)
+        k1_0 = ops.similarity.KERNEL.launches
+        k2_0 = ops.gather.KERNEL.launches
+        drain_subphases()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = expr.run_method(name, budget)
+        out["seconds"][name] = time.perf_counter() - t0
+        out["peaks"][name] = torch.cuda.max_memory_allocated()
+        dk2 = ops.gather.KERNEL.launches - k2_0
+        out["by_method"][name] = {
+            "rowmax_similarity": ops.similarity.KERNEL.launches - k1_0,
+            "gather_patches_normalized": dk2}
+        qdir = os.path.join(root, name, "queries")
+        qs = [np.loadtxt(os.path.join(qdir, f"{i}.txt"),
+                         dtype=np.int64).reshape(2, -1)
+              for i in range(len(res["perf"]))]
+        check(len(res["perf"]) >= budget // 64 and dk2 == 0
+              and bool(np.isfinite(res["perf"]).all())
+              and res["n_queries"] == sum(q.shape[1] for q in qs) == budget,
+              f"dense multi {name}: {res['n_queries']} queries, F "
+              f"{res['perf']}, K2 +{dk2}")
+        check(all(ev.bn_state is expr._bn_sync for ev in expr._test_evs),
+              f"dense multi {name}: test evaluators off the BN state")
+        with open(os.path.join(root, name, "phases.jsonl")) as f:
+            out["phases"][name] = [json.loads(line) for line in f]
+        _drop_checkpoints(root)
+        print(f"dense multi campaign {name}: F per round "
+              f"{res['perf'].tolist()}, picks per round "
+              f"{[q.shape[1] for q in qs]} (subjects "
+              f"{[np.bincount(q[1], minlength=3).tolist() for q in qs]}), "
+              f"{out['seconds'][name]:.3f} s, peak "
+              f"{out['peaks'][name] / 2**30:.2f} GiB")
+    out["counts"] = {k.name: k.launches for k in ops.KERNELS}
+    return out
+
+
+def phase_dense(dev):
+    """The dense-model phases (FC-DenseNet-103, module docstring)."""
+    top = os.path.join(ROOT, "_smoke_expr", "dense")
+    shutil.rmtree(top, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        parity, card, bn_c, subject = phase_dense_parity(dev)
+        sweep = phase_dense_sweep(dev, card, bn_c, subject)
+        k1 = phase_dense_k1(dev, card, bn_c, subject)
+        del card, bn_c
+        f32 = _dense_campaign(dev, top, DENSE_RUNS, "")
+        bf16 = _dense_campaign(dev, os.path.join(top, "bf16"),
+                               DENSE_BF16_RUNS, "bf16/")
+        resume = phase_dense_resume(dev, top)
+        multi = phase_dense_multi(dev, top)
+        return {"parity": parity, "sweep": sweep, "k1": k1, "f32": f32,
+                "bf16": bf16, "resume": resume, "multi": multi,
+                "seconds": time.perf_counter() - t0}
+    finally:
+        shutil.rmtree(top, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2825,6 +3366,7 @@ def main() -> int:
     resume_mt = phase_resume(dev, mt=True)
     determinism = phase_determinism_cost(dev)
     multi = phase_multi(dev)
+    dense = phase_dense(dev)
     phases, seconds, by_method, peaks, notes = {}, {}, {}, {}, {}
     for _, ph, sec, bym, pk, nt in (f32, bf16):
         phases.update(ph)
@@ -2876,10 +3418,33 @@ def main() -> int:
               for c in (mf, mb) for k in c["rounds"]}))
     print("K2 y-copy rebuilds in the multi campaigns: " + json.dumps(
         {"f32": mf["ycopy"], "bf16": mb["ycopy"]}))
+    df, db, dm = dense["f32"], dense["bf16"], dense["multi"]
+    print("per-round seconds of the dense (FC-DenseNet-103) runs (card "
+          "above), with campaign seconds and peak bytes: " + json.dumps({
+              tag + k: {"rounds": [{p: r[p] for p in (
+                  "score_select", "committee", "train", "eval",
+                  "checkpoint", "sub") if p in r}
+                  for r in c["phases"][k] if not r.get("tail")],
+                  "campaign_s": c["seconds"][k],
+                  "peak_bytes": c["peaks"][k]}
+              for tag, c in (("", df), ("", db), ("multi/", dm))
+              for k in c["phases"]}))
+    print("dense sweep (32 slices of 128x128x2, card above): " + json.dumps(
+        {k: {m: dense["sweep"][k][m] for m in ("slices_per_s", "tflops",
+                                               "peak_bytes")}
+         for k in ("float32", "bfloat16")})
+        + f" at {DENSE_GFLOP} GFLOP a slice; dense phases "
+        f"{dense['seconds']:.3f} s")
     for r in rows:
         n = r["name"]
         r["launches"] = (f32[0][n] + bf16[0][n] + mf["counts"][n]
-                         + mb["counts"][n])
+                         + mb["counts"][n] + df["counts"][n]
+                         + db["counts"][n] + dm["counts"][n])
+        r["launches_dense_f32_campaign"] = df["counts"][n]
+        r["launches_dense_bf16_campaign"] = db["counts"][n]
+        r["launches_dense_multi_campaign"] = dm["counts"][n]
+        r["launches_by_dense_run"] = {m: c[n] for d in (df, db, dm)
+                                      for m, c in d["by_method"].items()}
         r["launches_f32_campaign"] = f32[0][n]
         r["launches_bf16_campaign"] = bf16[0][n]
         r["launches_multi_f32_campaign"] = mf["counts"][n]
@@ -2888,6 +3453,8 @@ def main() -> int:
         r["launches_by_multi_run"] = {m: c[n] for d in (mf, mb)
                                       for m, c in d["by_method"].items()}
         r["kernel_ms"], r["max_err"] = r["ms"], r["max_abs_err"]
+        if n == "rowmax_similarity":
+            r["at_d16"] = dense["k1"]
     print(json.dumps({"phases": phases, "campaign_s": seconds,
                       "build_s": build_s,
                       "build_s_per_kernel": {k.name: k.build_s
@@ -2904,6 +3471,11 @@ def main() -> int:
                       "second_order": second_order, "slic_variance": slic,
                       "finetune_wpool": wpool,
                       "campaign_peak_bytes": peaks,
+                      "dense": {k: dense[k] for k in (
+                          "parity", "sweep", "resume", "seconds")},
+                      "dense_phases": {**df["phases"], **db["phases"],
+                                       **{"multi/" + k: v for k, v in
+                                          dm["phases"].items()}},
                       "multi": {"picks": multi["picks"],
                                 "resume": multi["resume"],
                                 "sequential": multi["sequential"],

@@ -5,15 +5,16 @@ both with the multi-subject engine's ``matrix`` journals) is copied as is,
 so a crash-resumed port campaign replays exactly like a JAX one;
 ``maybe_reset_opt`` is ``opt_reset_per_round``'s warm restart and
 ``write_checkpoint`` runs a save now or from the writer thread.
-``check_slice_config`` rejects the configuration keys whose code paths
-the port does not carry yet — ``data_parallel`` > 1 and the
-dense (fcn) model specs — naming the key, rather than ignoring them, and
-dtype strings the JAX package rejects.  The anchor levers
-(``anchor_dtype``, ``adopt_anchor_rounding``, ``anchor_save_kwargs``) are
-``engine/common.py:52-111`` on the port's ``TrainState`` (an
-``nn.Module``, a ``torch.optim`` optimizer and the mean teacher, updated
-in place).  ``mt_rampdown`` is the mean teacher's labeled-count
-schedule (``:206-235``).
+``check_slice_config`` rejects the one configuration key whose code path
+the port does not carry yet — ``data_parallel`` > 1 — naming it, rather
+than ignoring it, and dtype strings the JAX package rejects.  The anchor
+levers (``anchor_dtype``, ``adopt_anchor_rounding``,
+``anchor_save_kwargs``) are ``engine/common.py:52-111`` on the port's
+``TrainState`` (an ``nn.Module``, a ``torch.optim`` optimizer, the mean
+teacher and the BN running state, updated in place).  ``mt_rampdown`` is
+the mean teacher's labeled-count schedule (``:206-235``) and
+``warn_fcn_unsupported_keys`` the dense finetune's warning about the keys
+it ignores (``:175-203``).
 """
 
 from __future__ import annotations
@@ -31,6 +32,23 @@ from nnal_tpu_torch.models.optim import opt_state_tensors
 from nnal_tpu_torch.scoring.pool_eval import eval_compute_dtype
 
 ANCHOR_DTYPES = ("float32", "bfloat16", "int8")
+DENSE_MODELS = ("Tiramisu", "FCDenseNet103")
+
+
+def is_dense(model_cfg) -> bool:
+    """Whether ``model_name`` selects the dense (fcn) model path."""
+    return model_cfg.model_name in DENSE_MODELS
+
+
+def dense_model_kwargs(model_cfg) -> dict:
+    """The dense spec's factory knobs: ``model_kwargs`` (growth, depths,
+    ...) with ``dropout_rate`` defaulting to the config's
+    (``pw_experiment.py:103-117``)."""
+    kw = dict(getattr(model_cfg, "model_kwargs", None) or {})
+    kw.setdefault("dropout_rate", model_cfg.dropout_rate)
+    if "depths" in kw:
+        kw["depths"] = tuple(kw["depths"])
+    return kw
 
 
 def check_slice_config(cfg) -> None:
@@ -39,15 +57,10 @@ def check_slice_config(cfg) -> None:
     ``dtype`` / ``train_dtype`` / ``ckpt_dtype`` or a
     ``consistency_measure`` the JAX package rejects."""
     m, q = cfg.model, cfg.query
-    unsupported = [
-        ("data_parallel", int(getattr(q, "data_parallel", 1)) > 1),
-        ("model_name (dense fcn specs)",
-         m.model_name in ("Tiramisu", "FCDenseNet103")),
-    ]
-    for key, bad in unsupported:
-        if bad:
-            raise NotImplementedError(
-                f"config key {key} is not supported by the PyTorch port yet")
+    if int(getattr(q, "data_parallel", 1)) > 1:
+        raise NotImplementedError(
+            "config key data_parallel is not supported by the PyTorch port "
+            "yet")
     # the dtype strings and the consistency measure: raise where the JAX
     # package would, but up front
     if (float(getattr(m, "consistency_coeff", 0.0)) > 0.0
@@ -95,15 +108,16 @@ def anchor_dtype(model_cfg) -> str:
 
 @torch.no_grad()
 def adopt_anchor_rounding(state, model_cfg) -> bool:
-    """Round the live parameters, the mean teacher's (when there is one)
-    and, unless ``opt_reset_per_round``, the Adam moments in place to what
-    the anchor stores, right before a full save at ``ckpt_dtype`` bfloat16
-    or int8: the file then decodes to exactly the state the uninterrupted
-    process trains on, so resume == continue bit for bit.  bfloat16 rounds
-    every tensor; int8 quantize-dequantizes each weight matrix (the
-    teacher's too) per output channel or feature (axis 0 here, the JAX
-    layout's last axis) and rounds biases and moments to bf16, the save
-    encoder's per-group rule.  Capture the save's payload first
+    """Round the live parameters, the mean teacher's (when there is one),
+    the BN running state and, unless ``opt_reset_per_round``, the Adam
+    moments in place to what the anchor stores, right before a full save
+    at ``ckpt_dtype`` bfloat16 or int8: the file then decodes to exactly
+    the state the uninterrupted process trains on, so resume == continue
+    bit for bit.  bfloat16 rounds every tensor; int8 quantize-dequantizes
+    each weight matrix (the teacher's too; a transposed conv's is held in
+    the conv layout) per output channel or feature (axis 0 here, the JAX
+    layout's last axis) and rounds biases, BN parameters and state and
+    moments to bf16, the save encoder's per-group rule.  Capture the save's payload first
     (:func:`anchor_save_kwargs`): int8's encode is not idempotent, so the
     save must encode the originals.  Returns True when it rounded."""
     dt = anchor_dtype(model_cfg)
@@ -117,6 +131,9 @@ def adopt_anchor_rounding(state, model_cfg) -> bool:
             p.copy_(round_trip_int8(p, 0))
         else:
             p.copy_(round_trip_bf16(p))
+    for stats in (getattr(state, "bn_state", None) or {}).values():
+        for t in stats.values():
+            t.copy_(round_trip_bf16(t))
     if not getattr(model_cfg, "opt_reset_per_round", False):
         for st in state.optimizer.state.values():
             for key in ("exp_avg", "exp_avg_sq"):
@@ -130,8 +147,9 @@ def anchor_save_kwargs(model_cfg, state) -> dict:
     now (before :func:`adopt_anchor_rounding`): JAX-layout copies of the
     parameters, of the mean teacher's (None without one: replay re-runs
     finetunes whose consistency term reads it, so it is part of the resume
-    point) and, unless ``opt_reset_per_round``, the Adam state, on the
-    model's device, plus the storage dtype.  The copies are a snapshot, so
+    point), of the BN running state (None without batch norm) and, unless
+    ``opt_reset_per_round``, the Adam state, on the model's device, plus
+    the storage dtype.  The copies are a snapshot, so
     a background writer may encode and pull them while the next round
     updates the live tensors."""
     include_opt = not getattr(model_cfg, "opt_reset_per_round", False)
@@ -139,6 +157,10 @@ def anchor_save_kwargs(model_cfg, state) -> dict:
     return {"params": to_jax_tensors(state.model.state_dict()),
             "teacher_params": (None if teacher is None else
                                to_jax_tensors(teacher.state_dict())),
+            "bn_state": ({layer: {k: v.detach().clone()
+                                  for k, v in d.items()}
+                          for layer, d in state.bn_state.items()}
+                         if getattr(state, "bn_state", None) else None),
             "opt_state": (opt_state_tensors(state.optimizer, state.model)
                           if include_opt else None),
             "dtype": anchor_dtype(model_cfg)}
@@ -209,6 +231,31 @@ def inverse_frequency_weights(labels: np.ndarray, nclass: int) -> np.ndarray:
                          minlength=nclass).astype(np.float64)
     inv = counts.sum() / np.maximum(counts, 1.0)
     return (inv / inv.sum() * nclass).astype(np.float32)
+
+
+def warn_fcn_unsupported_keys(engine, model_cfg,
+                              train_layers_ok: bool = True) -> None:
+    """Warn once per engine (and per set of keys) when a dense (fcn)
+    finetune ignores a config key (``engine/common.py:175-203``):
+    ``lwf_lambda`` always, ``train_layers`` where ``train_layers_ok`` is
+    False (the multi-subject engine).  A key set mid-campaign warns the
+    first time it is ignored."""
+    ignored = []
+    if float(getattr(model_cfg, "lwf_lambda", 0.0)) > 0.0:
+        ignored.append("lwf_lambda (LwF)")
+    if not train_layers_ok and getattr(model_cfg, "train_layers", None):
+        ignored.append("train_layers (partial training)")
+    if tuple(ignored) == getattr(engine, "_fcn_keys_warned", None):
+        return
+    if ignored:
+        import warnings
+
+        warnings.warn(
+            "dense-model (fcn) finetune ignores config keys: "
+            + ", ".join(ignored)
+            + " — these are only implemented on the patch-wise path",
+            stacklevel=3)
+    engine._fcn_keys_warned = tuple(ignored)
 
 
 def mt_rampdown(model_cfg, n_labeled: int):

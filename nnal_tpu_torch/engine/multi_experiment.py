@@ -37,6 +37,20 @@ writes ``AL_running_times/dt_<r>`` (the selection's seconds),
 at ``ckpt_dtype`` on anchor rounds, from a thread under
 ``async_checkpoint``.
 
+``model_name: Tiramisu`` runs the dense-model path (``:114-115``,
+``:383-561``): one FC-DenseNet-103 spec (fully convolutional, so it runs on
+every subject's slice size) scored per subject by whole-slice sweeps, and
+a finetune over every subject's labeled axial slices grouped by slice
+shape, one run of steps per shape group in sorted shape order, each with
+its own streams (a ``g<i>-`` tag only when there are two or more
+shapes, keyed on the round's entry step), its own mean-teacher unlabeled
+slices (16, drawn over the group's labeled subjects) and its own BN
+refresh (decay 0.6, 8 batches).  The BN running state is saved with the
+weights and the history copies, and every pool and test evaluator scores
+on it from the resume on and after each finetune (``_bn_sync``,
+``:639-646``); the held subjects' bootstrap evaluators score on batch
+statistics, as in the JAX package.
+
 Runs on ``device`` (default: the card; CUDA missing raises).
 """
 
@@ -73,15 +87,20 @@ from nnal_tpu_torch.engine.common import (
     adopt_anchor_rounding,
     anchor_save_kwargs,
     check_slice_config,
+    dense_model_kwargs,
     inverse_frequency_weights,
+    is_dense,
     maybe_reset_opt,
     mt_rampdown,
     reconcile_membership,
     replay_prefix_lens,
+    warn_fcn_unsupported_keys,
     write_checkpoint,
 )
 from nnal_tpu_torch.evaluation.metrics import f_measure
 from nnal_tpu_torch.models.bridge import (
+    bn_state_to_jax,
+    bn_state_to_port,
     from_jax_params,
     to_jax_params,
     to_jax_tensors,
@@ -100,10 +119,16 @@ from nnal_tpu_torch.models.train import (
     MeanTeacher,
     TrainState,
     build_batch_index_matrix,
+    bn_refresh,
     build_unlabeled_index_matrix,
+    finetune_fcn_steps,
     finetune_steps,
     init_train_state,
     make_teacher,
+)
+from nnal_tpu_torch.scoring.fcn_eval import (
+    FCNGridPoolEvaluator,
+    normalized_slices,
 )
 from nnal_tpu_torch.scoring.grid_eval import GridPoolEvaluator
 from nnal_tpu_torch.scoring.pool_eval import eval_compute_dtype
@@ -161,6 +186,8 @@ class MultiImgExperiment:
         self._mu_sd: Dict = {}
         self._test_evs = self._mt_u_cat = None
         self._overseg_cache: Dict = {}
+        self._fcn_slices: Dict = {}
+        self._bn_sync = None       # the running BN state evaluators read
 
     def _subjects(self, kind: str) -> List:
         return {"train": self.train_subjects, "test": self.test_subjects,
@@ -206,15 +233,28 @@ class MultiImgExperiment:
         check_slice_config(self.config)
         m = self.config.model
         d1, d2, d3 = m.patch_shape
-        nmod = len(self.train_subjects[0][0])
+        vols = self.train_subjects[0][0]
+        if is_dense(m):
+            # one spec for every slice size: input_shape only traces the
+            # channels of a fully convolutional net
+            H, W = vols[0].shape[:2]
+            return create_model(m.model_name, nclass=m.nclass,
+                                input_shape=(int(H), int(W), len(vols)),
+                                **dense_model_kwargs(m))
         return create_model(m.model_name, nclass=m.nclass,
                             dropout_rate=m.dropout_rate,
-                            patch_shape=(d1, d2, nmod * d3))
+                            patch_shape=(d1, d2, len(vols) * d3))
 
-    def _evaluators(self, spec, kind: str, stats: np.ndarray
-                    ) -> List[GridPoolEvaluator]:
-        """One evaluator per subject, over its device-resident volume."""
+    def _evaluators(self, spec, kind: str, stats: np.ndarray) -> List:
+        """One evaluator per subject, over its device-resident volume (a
+        dense spec's: over its normalized slice stack)."""
         m = self.config.model
+        if spec.fcn:
+            return [FCNGridPoolEvaluator(
+                spec, vols, stats[i, 0::2], stats[i, 1::2],
+                tuple(vols[0].shape), compute_dtype=eval_compute_dtype(m.dtype),
+                device=self.device, hv_patch_shape=tuple(m.patch_shape))
+                for i, (vols, _) in enumerate(self._subjects(kind))]
         return [GridPoolEvaluator(
             spec, self.padded(kind, i), stats[i, 0::2], stats[i, 1::2],
             tuple(m.patch_shape), tuple(vols[0].shape),
@@ -239,7 +279,8 @@ class MultiImgExperiment:
         if not os.path.exists(init_w):
             model = init_cnn(self.build_model(),
                              self.rng.fold("init-w").next(), device="cpu")
-            save_checkpoint(init_w, to_jax_params(model.state_dict()))
+            save_checkpoint(init_w, to_jax_params(model.state_dict()),
+                            bn_state=bn_state_to_jax(model.init_state()))
         params, bn, _, _ = load_checkpoint(init_w)
         save_checkpoint(j.path("curr_weights.npz"), params, bn_state=bn)
         return j
@@ -300,6 +341,8 @@ class MultiImgExperiment:
         total = int(sum(len(v) for v in per))
         if total == 0 or epochs == 0:
             return state
+        if state.model.spec.fcn:
+            return self._finetune_fcn_multimg(state, per, epochs, rng_tag)
         dev = self.device
         xs, ys = [], []
         for si, vinds in enumerate(per):
@@ -354,6 +397,106 @@ class MultiImgExperiment:
                            mc_t=int(m.mc_t), lwf=lwf, mt=mt)
         return state
 
+    def _subject_slices(self, si: int) -> torch.Tensor:
+        """Training subject ``si``'s normalized (Z, H, W, C) slice stack on
+        the device, built once."""
+        if si not in self._fcn_slices:
+            stats = self._stats()[si]
+            self._fcn_slices[si] = torch.from_numpy(normalized_slices(
+                self.train_subjects[si][0], stats[0::2], stats[1::2])).to(
+                    self.device)
+        return self._fcn_slices[si]
+
+    def _finetune_fcn_multimg(self, state: TrainState, per, epochs: int,
+                              rng_tag: str) -> TrainState:
+        """The dense finetune across subjects (module docstring;
+        ``multi_experiment.py:383-561``)."""
+        m = self.config.model
+        warn_fcn_unsupported_keys(self, m, train_layers_ok=False)
+        dev = self.device
+        labs = [np.asarray(self.train_subjects[si][1]).reshape(-1)[v]
+                .astype(np.int64) for si, v in enumerate(per)]
+        cw = getattr(m, "class_weights", None)
+        if isinstance(cw, str) and cw == "auto":
+            cw = inverse_frequency_weights(
+                np.concatenate([l for l in labs if len(l)]), m.nclass)
+        # labeled slices grouped by slice shape, subject-major, each
+        # subject's in z order: (slices, labels, pixel weights, subjects)
+        groups: Dict = {}
+        for si, vinds in enumerate(per):
+            if vinds.size == 0:
+                continue
+            H, W, Z = self.train_subjects[si][0][0].shape
+            x_, y_, z_ = np.unravel_index(vinds, (H, W, Z))
+            zs = np.unique(z_)
+            xs, ys, ws, subs = groups.setdefault((H, W), ([], [], [], set()))
+            subs.add(si)
+            yv = np.zeros((len(zs), H, W), np.int64)
+            wv = np.zeros((len(zs), H, W), np.float32)
+            pos = np.searchsorted(zs, z_)
+            yv[pos, x_, y_] = labs[si]
+            wv[pos, x_, y_] = 1.0 if cw is None else np.asarray(cw)[labs[si]]
+            xs.append(self._subject_slices(si)[torch.as_tensor(zs).to(dev)])
+            ys.append(yv)
+            ws.append(wv)
+        fcn_b = max(1, min(int(m.b), 4))
+        train_cd = eval_compute_dtype(m.train_dtype)
+        cc, cc_scale = mt_rampdown(m, int(sum(len(v) for v in per)))
+        step0 = state.step
+        with deterministic_cudnn():
+            for gi, shape in enumerate(sorted(groups)):
+                xs, ys, ws, subs = groups[shape]
+                H, W = shape
+                x_all = torch.cat(xs)
+                S = x_all.shape[0]
+                pad = -(-S // 8) * 8 - S
+                x_all = torch.cat([x_all, x_all.new_zeros(
+                    (pad,) + tuple(x_all.shape[1:]))])
+                y_np = np.concatenate(ys + [np.zeros((pad, H, W), np.int64)])
+                wpix = np.concatenate(ws + [np.zeros((pad, H, W), np.float32)])
+                y_all = torch.as_tensor(make_onehot(
+                    y_np.reshape(-1), m.nclass).reshape(
+                        S + pad, H, W, m.nclass)).to(dev)
+                # keyed on the round's entry step; the group tag only with
+                # two or more shapes (``:486-492``)
+                gtag = f"g{gi}-" if len(groups) > 1 else ""
+                host = self.rng.fold(f"ft-multi-{rng_tag}{gtag}{step0}").host
+                seed = self.rng.fold(
+                    f"ft-multi-d-{rng_tag}{gtag}{step0}").next()
+                idx_mat, w_mat = build_batch_index_matrix(S, fcn_b, epochs,
+                                                          host, bucket=8)
+                mt = None
+                if cc > 0.0:
+                    if state.teacher is None:
+                        state.teacher = make_teacher(state.model)
+                    uhost = self.rng.fold(
+                        f"ft-multi-unlab-{rng_tag}{gtag}{step0}").host
+                    g_subs = sorted(subs)
+                    xu = []
+                    for gs in uhost.integers(0, len(g_subs), size=16):
+                        stack = self._subject_slices(g_subs[int(gs)])
+                        xu.append(stack[int(uhost.integers(
+                            0, stack.shape[0]))])
+                    ub = max(1, min(int(m.unlabeled_batch) or fcn_b, 4))
+                    mt = MeanTeacher(
+                        xu_all=torch.stack(xu),
+                        u_idx=build_unlabeled_index_matrix(
+                            16, ub, idx_mat.shape[0], uhost),
+                        coeff=cc, cc_scale=cc_scale,
+                        measure=str(m.consistency_measure),
+                        ramp=int(m.consistency_ramp),
+                        ema_decay=float(m.ema_decay), step0=step0)
+                finetune_fcn_steps(state, x_all, y_all, wpix, idx_mat, w_mat,
+                                   core_rng.fold_key(seed, step0), train_cd,
+                                   mt=mt)
+                if state.bn_state:
+                    for _ in range(8):
+                        bi = host.integers(0, S, size=fcn_b)
+                        state.bn_state = bn_refresh(
+                            state.model, state.bn_state,
+                            x_all[torch.as_tensor(bi).to(dev)], 0.6)
+        return state
+
     # ------------------------------------------------------------- committee
     def _build_committee(self, spec, state: TrainState, train_vox,
                          round_id: int) -> List[CNN]:
@@ -376,6 +519,9 @@ class MultiImgExperiment:
             mstate = init_train_state(copy.deepcopy(state.model),
                                       m.optimizer_name, m.learning_rate)
             mstate.step = state.step
+            # members keep params only: they score on the main model's BN
+            # statistics (``:569-596``)
+            mstate.bn_state = state.bn_state
             self.finetune_multimg(mstate, train_vox,
                                   rng_tag=f"ens-{round_id}-{i}-")
             members.append(mstate.model)
@@ -412,12 +558,20 @@ class MultiImgExperiment:
                 generate_grid_samples(vols[0].shape,
                                       self.config.data.grid_spacing, mask)
                 for vols, mask in self.test_subjects]
+        self._sync_bn(self._test_evs)
         preds, masks = {}, {}
         for i, ev in enumerate(self._test_evs):
             inds, labels = self._test_grids[i]
             preds[i] = ev.evaluate(model, inds, ("prediction",))["prediction"]
             masks[i] = labels
         return f_measure(preds, masks)
+
+    def _sync_bn(self, evs) -> None:
+        """Dense evaluators score on the engine's current BN running state
+        (``_bn_sync``, ``:639-646``)."""
+        for ev in evs:
+            if isinstance(ev, FCNGridPoolEvaluator):
+                ev.bn_state = self._bn_sync
 
     # ------------------------------------------------------------- saves
     def _save_round(self, j, state: TrainState, round_id: int, full: bool,
@@ -433,12 +587,16 @@ class MultiImgExperiment:
         if want_hist:
             hd = hist_dtype(m)
             hist = to_jax_tensors(state.model.state_dict())
+            hist_bn = {layer: {k: v.detach().clone() for k, v in d.items()}
+                       for layer, d in (state.bn_state or {}).items()}
             if hd == "float16":
-                hist = {layer: {k: v.to(torch.float16) for k, v in d.items()}
-                        for layer, d in hist.items()}
+                hist, hist_bn = ({layer: {k: v.to(torch.float16)
+                                          for k, v in d.items()}
+                                  for layer, d in tree.items()}
+                                 for tree in (hist, hist_bn))
             hist_path = j.path(f"curr_weights_{round_id}.npz")
             jobs.append(lambda: save_checkpoint(
-                hist_path, hist,
+                hist_path, hist, bn_state=hist_bn,
                 dtype="bfloat16" if hd == "bfloat16" else None))
         if full:
             akw = anchor_save_kwargs(m, state)
@@ -446,7 +604,7 @@ class MultiImgExperiment:
             al = {"step": int(state.step), "round": int(round_id)}
             ckpt = j.path("curr_weights.npz")
             jobs.append(lambda: save_checkpoint(
-                ckpt, akw["params"], al_state=al,
+                ckpt, akw["params"], al_state=al, bn_state=akw["bn_state"],
                 teacher_params=akw["teacher_params"],
                 opt_state=akw["opt_state"], dtype=akw["dtype"]))
         if jobs:
@@ -489,13 +647,10 @@ class MultiImgExperiment:
 
         ckpt = j.path("curr_weights.npz")
         params, bn, teacher, al_state = load_checkpoint(ckpt)
-        if bn:
-            raise NotImplementedError(
-                f"{ckpt}: batch-norm state — not supported by the PyTorch "
-                "port yet (ROADMAP Queue 1 item 9)")
         model = self._load_model(spec, params)
         state = init_train_state(model, cfg.model.optimizer_name,
                                  cfg.model.learning_rate)
+        state.bn_state = bn_state_to_port(bn, self.device)
         if teacher is not None:
             state.teacher = self._load_model(spec, teacher)
             state.teacher.requires_grad_(False)
@@ -521,6 +676,9 @@ class MultiImgExperiment:
             j, train_g, pool_g, matrix=True, to_global=qmat_to_global)
         state = self._replay_to_round(j, state, al_state, train_g, round_id,
                                       pools)
+        # after the replay, which re-centers the BN statistics
+        self._bn_sync = state.bn_state
+        self._sync_bn(evs)
 
         times_path = self._p("AL_running_times")
         os.makedirs(times_path, exist_ok=True)
@@ -597,6 +755,8 @@ class MultiImgExperiment:
             train_vox = [pools[i][per_train[i]] for i in range(n_sub)]
             with timer.phase("train"):
                 state = self.finetune_multimg(state, train_vox)
+            self._bn_sync = state.bn_state
+            self._sync_bn(evs)
             with timer.phase("eval"):
                 fm = self.test_eval(spec, model)
             j.append_eval([fm])

@@ -51,6 +51,21 @@ oversegmentation, computed once and kept across rounds, and
 ``influence_mode`` / ``arnoldi_rank``.  ``finetune_wpool`` finetunes on
 the labels plus confident pseudo-labels.
 
+``model_name: Tiramisu`` (or ``FCDenseNet103``) runs the dense-model path
+(``pw_experiment.py:103-117``, ``:364-512``): the FC-DenseNet-103 spec at
+the subject's slice size with ``model_kwargs`` (growth, depths,
+dropout_rate), scored by whole-slice sweeps
+(:class:`~nnal_tpu_torch.scoring.fcn_eval.FCNGridPoolEvaluator`), and
+finetuned on the labeled voxels' axial slices (bucketed to a multiple of
+8, batches of ``min(b, 4)``) with the per-pixel CE masked to the queried
+voxels (class weights folded into the pixel weights); under the mean
+teacher 16 unlabeled slices a round (batches of at most 4).  After each
+finetune the BN running statistics are refreshed at decay 0.6 over 8
+host-drawn batches; they are part of the resume point (``bn/``), and the
+evaluator scores on them from the resume on and after every finetune.
+Committee members are params only: they score on the main model's
+running statistics, as in the JAX package.
+
 Runs on ``device`` (default: the card; CUDA missing raises).
 """
 
@@ -90,15 +105,23 @@ from nnal_tpu_torch.engine.common import (
     adopt_anchor_rounding,
     anchor_save_kwargs,
     check_slice_config,
+    dense_model_kwargs,
     inverse_frequency_weights,
+    is_dense,
     maybe_reset_opt,
     mt_rampdown,
     reconcile_membership,
     replay_prefix_lens,
+    warn_fcn_unsupported_keys,
     write_checkpoint,
 )
 from nnal_tpu_torch.evaluation.metrics import f_measure
-from nnal_tpu_torch.models.bridge import from_jax_params, to_jax_params
+from nnal_tpu_torch.models.bridge import (
+    bn_state_to_jax,
+    bn_state_to_port,
+    from_jax_params,
+    to_jax_params,
+)
 from nnal_tpu_torch.models.checkpoint import (
     AsyncCheckpointWriter,
     load_checkpoint,
@@ -113,10 +136,16 @@ from nnal_tpu_torch.models.train import (
     MeanTeacher,
     TrainState,
     build_batch_index_matrix,
+    bn_refresh,
     build_unlabeled_index_matrix,
+    finetune_fcn_steps,
     finetune_steps,
     init_train_state,
     make_teacher,
+)
+from nnal_tpu_torch.scoring.fcn_eval import (
+    FCNGridPoolEvaluator,
+    normalized_slices,
 )
 from nnal_tpu_torch.scoring.grid_eval import GridPoolEvaluator
 from nnal_tpu_torch.scoring.pool_eval import eval_compute_dtype
@@ -144,6 +173,7 @@ class PWExperiment:
         self._vols: Optional[List[np.ndarray]] = None
         self._mask: Optional[np.ndarray] = None
         self._padded: Optional[torch.Tensor] = None
+        self._fcn_slices: Optional[torch.Tensor] = None   # dense models'
         self._overseg: Optional[np.ndarray] = None    # SuPix's SLIC labels
         # ensemble/QBC-JS committee: checkpoint paths (reference
         # pretrained_paths + model_holder)
@@ -154,7 +184,7 @@ class PWExperiment:
         """Provide the subject volumes in memory (tests/synthetic)."""
         self._vols = [np.asarray(v) for v in vols]
         self._mask = np.asarray(mask)
-        self._padded = None
+        self._padded = self._fcn_slices = None
 
     def _load_subject(self):
         if self._vols is None:
@@ -197,19 +227,33 @@ class PWExperiment:
     def build_model(self):
         m = self.config.model
         d1, d2, d3 = m.patch_shape
-        nmod = len(self._load_subject()[0])
-        spec = create_model(m.model_name, nclass=m.nclass,
-                            dropout_rate=m.dropout_rate,
-                            patch_shape=(d1, d2, nmod * d3))
+        vols = self._load_subject()[0]
+        if is_dense(m):
+            H, W = vols[0].shape[:2]
+            spec = create_model(m.model_name, nclass=m.nclass,
+                                input_shape=(int(H), int(W), len(vols)),
+                                **dense_model_kwargs(m))
+        else:
+            spec = create_model(m.model_name, nclass=m.nclass,
+                                dropout_rate=m.dropout_rate,
+                                patch_shape=(d1, d2, len(vols) * d3))
         return with_aleatoric_head(spec) if m.aleatoric else spec
 
     def _stats_arrays(self):
         stats = np.loadtxt(self._p("train_stats.txt")).reshape(1, -1)
         return stats[0, 0::2], stats[0, 1::2]
 
-    def make_evaluator(self, spec) -> GridPoolEvaluator:
-        """Grid pools sweep by im2col; off-grid sets fall back inside."""
+    def make_evaluator(self, spec):
+        """Grid pools sweep by im2col, off-grid sets fall back inside;
+        dense specs score by whole-slice sweeps."""
         mu, sd = self._stats_arrays()
+        if spec.fcn:
+            vols = self._load_subject()[0]
+            return FCNGridPoolEvaluator(
+                spec, vols, mu, sd, tuple(vols[0].shape),
+                compute_dtype=eval_compute_dtype(self.config.model.dtype),
+                device=self.device,
+                hv_patch_shape=tuple(self.config.model.patch_shape))
         return GridPoolEvaluator(
             spec, self.padded(), mu, sd, tuple(self.config.model.patch_shape),
             tuple(self._load_subject()[0][0].shape),
@@ -251,7 +295,8 @@ class PWExperiment:
             model = init_cnn(self.build_model(),
                              self.rng.fold("init-weights").next(),
                              device="cpu")
-            save_checkpoint(init_w, to_jax_params(model.state_dict()))
+            save_checkpoint(init_w, to_jax_params(model.state_dict()),
+                            bn_state=bn_state_to_jax(model.init_state()))
         params, bn, _, _ = load_checkpoint(init_w)
         save_checkpoint(j.path("curr_weights.npz"), params, bn_state=bn)
         return j
@@ -269,6 +314,8 @@ class PWExperiment:
         epochs = m.epochs if epochs is None else epochs
         if len(train_inds) == 0 or epochs == 0:
             return state
+        if state.model.spec.fcn:
+            return self._finetune_fcn(state, train_inds, rng_tag, epochs)
         vols, mask = self._load_subject()
         mu, sd = self._stats_arrays()
         orig_shape = tuple(vols[0].shape)
@@ -333,6 +380,85 @@ class PWExperiment:
                            mt=mt)
         return state
 
+    def _dense_slices(self) -> torch.Tensor:
+        """The subject's normalized (Z, H, W, C) slice stack on the device,
+        built once."""
+        if self._fcn_slices is None:
+            mu, sd = self._stats_arrays()
+            self._fcn_slices = torch.from_numpy(normalized_slices(
+                self._load_subject()[0], mu, sd)).to(self.device)
+        return self._fcn_slices
+
+    def _finetune_fcn(self, state: TrainState, train_inds, rng_tag: str,
+                      epochs: int) -> TrainState:
+        """The dense finetune (module docstring; ``pw_experiment.py:
+        364-512``): the labeled voxels' slices, a pixel weight of 1 (or
+        the class weight) at each labeled voxel, then the BN refresh."""
+        m = self.config.model
+        warn_fcn_unsupported_keys(self, m)
+        vols, mask = self._load_subject()
+        H, W, Z = vols[0].shape
+        slices = self._dense_slices()
+        train_inds = np.asarray(train_inds, np.int64)
+        x_, y_, z_ = np.unravel_index(train_inds, (H, W, Z))
+        lab = np.asarray(mask).reshape(-1)[train_inds].astype(np.int64)
+        zs = np.unique(z_)
+        S = len(zs)
+        s_bucket = -(-S // 8) * 8
+        z_pad = np.concatenate([zs, np.full(s_bucket - S, zs[0], np.int64)])
+        cw = getattr(m, "class_weights", None)
+        if isinstance(cw, str) and cw == "auto":
+            cw = inverse_frequency_weights(lab, m.nclass)
+        si = np.searchsorted(zs, z_)
+        y_vol = np.zeros((s_bucket, H, W), np.int64)
+        wpix = np.zeros((s_bucket, H, W), np.float32)
+        y_vol[si, x_, y_] = lab
+        wpix[si, x_, y_] = 1.0 if cw is None else np.asarray(cw)[lab]
+        dev = self.device
+        x_all = slices[torch.as_tensor(z_pad).to(dev)]
+        y_all = torch.as_tensor(make_onehot(y_vol.reshape(-1), m.nclass)
+                                .reshape(s_bucket, H, W, m.nclass)).to(dev)
+        host = self.rng.fold(f"finetune-{rng_tag}{state.step}").host
+        seed = self.rng.fold(f"finetune-dropout-{rng_tag}{state.step}").next()
+        fcn_b = max(1, min(int(m.b), 4))     # slices are whole images
+        idx_mat, w_mat = build_batch_index_matrix(S, fcn_b, epochs, host,
+                                                  bucket=8)
+        grad_mask = (layer_train_mask(state.model, m.train_layers)
+                     if m.train_layers else None)
+        with deterministic_cudnn():
+            mt = None
+            cc, cc_scale = mt_rampdown(m, len(train_inds))
+            if cc > 0.0:
+                if state.teacher is None:
+                    state.teacher = make_teacher(state.model)
+                # unlabeled whole slices of the subject, step-keyed
+                uhost = self.rng.fold(
+                    f"finetune-unlab-{rng_tag}{state.step}").host
+                n_u = min(16, Z)
+                u_z = uhost.integers(0, Z, size=n_u)
+                ub = max(1, min(int(m.unlabeled_batch) or fcn_b, 4))
+                mt = MeanTeacher(
+                    xu_all=slices[torch.as_tensor(u_z).to(dev)],
+                    u_idx=build_unlabeled_index_matrix(
+                        n_u, ub, idx_mat.shape[0], uhost),
+                    coeff=cc, cc_scale=cc_scale,
+                    measure=str(m.consistency_measure),
+                    ramp=int(m.consistency_ramp),
+                    ema_decay=float(m.ema_decay), step0=state.step)
+            finetune_fcn_steps(state, x_all, y_all, wpix, idx_mat, w_mat,
+                               core_rng.fold_key(seed, state.step),
+                               eval_compute_dtype(m.train_dtype),
+                               grad_mask=grad_mask, mt=mt)
+            if state.bn_state:
+                # the scan trains on batch statistics; re-center the
+                # running ones on the new weights (decay 0.6, 8 batches)
+                for _ in range(8):
+                    bi = host.integers(0, S, size=fcn_b)
+                    state.bn_state = bn_refresh(
+                        state.model, state.bn_state,
+                        x_all[torch.as_tensor(bi).to(dev)], 0.6)
+        return state
+
     def finetune_wpool(self, spec, state: TrainState, train_inds,
                        pool_inds, n_pseudo: int, *,
                        epochs: Optional[int] = None,
@@ -392,6 +518,10 @@ class PWExperiment:
             mstate = init_train_state(copy.deepcopy(state.model),
                                       m.optimizer_name, m.learning_rate)
             mstate.step = state.step
+            # a member's BN refresh moves its own copy of the running
+            # state, which is then dropped: members score on the main
+            # model's statistics (``pw_experiment.py:826-858``)
+            mstate.bn_state = state.bn_state
             self.finetune(mstate, train_inds,
                           rng_tag=f"ens-{round_id}-{i}-")
             members.append(mstate.model)
@@ -423,10 +553,19 @@ class PWExperiment:
         al = {"step": int(state.step), "round": int(round_id)}
         write_checkpoint(
             lambda: save_checkpoint(ckpt, akw["params"], al_state=al,
+                                    bn_state=akw["bn_state"],
                                     teacher_params=akw["teacher_params"],
                                     opt_state=akw["opt_state"],
                                     dtype=akw["dtype"]),
             writer, self.device)
+
+    @staticmethod
+    def _sync_bn(evaluator, state: TrainState) -> None:
+        """A dense evaluator scores on the current running statistics:
+        after the resume's replay (which re-centers them) and after every
+        finetune (``pw_experiment.py:594-600``, ``:678-681``)."""
+        if isinstance(evaluator, FCNGridPoolEvaluator):
+            evaluator.bn_state = state.bn_state
 
     # ------------------------------------------------------------- AL loop
     def run_method(self, method_name: str, max_queries: int) -> Dict:
@@ -441,13 +580,10 @@ class PWExperiment:
 
         ckpt = j.path("curr_weights.npz")
         params, bn, teacher, al_state = load_checkpoint(ckpt)
-        if bn:
-            raise NotImplementedError(
-                f"{ckpt}: batch-norm state — not supported by the PyTorch "
-                "port yet (ROADMAP Queue 1 item 9)")
         model = self._load_model(spec, params)
         state = init_train_state(model, cfg.model.optimizer_name,
                                  cfg.model.learning_rate)
+        state.bn_state = bn_state_to_port(bn, self.device)
         if teacher is not None:
             # the mean teacher is part of the resume point
             state.teacher = self._load_model(spec, teacher)
@@ -466,6 +602,7 @@ class PWExperiment:
                                                         pool_inds)
         state = self._replay_to_round(j, state, al_state, train_inds,
                                       round_id)
+        self._sync_bn(evaluator, state)
 
         timer = PhaseTimer(j.path("phases.jsonl"), self.device)
         writer = (AsyncCheckpointWriter()
@@ -539,6 +676,7 @@ class PWExperiment:
 
             with timer.phase("train"):
                 state = self.finetune(state, train_inds)
+            self._sync_bn(evaluator, state)
             with timer.phase("eval"):
                 preds = evaluator.evaluate(model, test_inds,
                                            ("prediction",))["prediction"]

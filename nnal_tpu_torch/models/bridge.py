@@ -1,11 +1,15 @@
 """Weights across frameworks: the JAX package's params pytree
-``{layer: {"W", "b"}}`` (conv W in HWIO, fc W as (in, out)) as numpy, and
-the port's ``state_dict`` (``<layer>.weight`` in OIHW or (out, in),
-``<layer>.bias``).
+``{layer: {"W", "b", "gamma", "beta"}}`` (conv and transposed-conv W in
+HWIO, fc W as (in, out)) as numpy, and the port's ``state_dict``
+(``<layer>.weight`` in OIHW or (out, in), ``<layer>.bias``,
+``<layer>.gamma``, ``<layer>.beta``); and the BN running state
+``{layer: {"mean", "var"}}``, the same dict in both packages.
 
-Both directions are pure layout moves (transposes), so a round trip is
-exact.  The fc flatten order needs no permutation here: the port flattens
-channels-last like the JAX package (see ``models/cnn.py``).
+Every direction is a pure layout move (transposes), so a round trip is
+exact.  A transposed conv's kernel moves like a conv's: the port holds it
+in the conv layout and flips it in the forward (``models/cnn.py``).  The
+fc flatten order needs no permutation here: the port flattens
+channels-last like the JAX package.
 """
 
 from __future__ import annotations
@@ -29,17 +33,34 @@ def from_jax_params(np_params: Mapping[str, Mapping[str, np.ndarray]]
     """JAX-layout params -> a ``state_dict`` for :class:`models.cnn.CNN`."""
     out = {}
     for layer, p in np_params.items():
-        unknown = set(p) - {"W", "b"}
+        unknown = set(p) - {"W", "b", "gamma", "beta"}
         if unknown:
             raise NotImplementedError(
-                f"params of {layer!r} carry {sorted(unknown)}; only W/b "
-                "layers are ported")
+                f"params of {layer!r} carry {sorted(unknown)}; only "
+                "W/b/gamma/beta layers are ported")
         w = np.asarray(p["W"], np.float32)
         out[f"{layer}.weight"] = torch.from_numpy(
             np.ascontiguousarray(_w_to_port(w)))
-        out[f"{layer}.bias"] = torch.from_numpy(
-            np.array(p["b"], np.float32))
+        for k, port_k in (("b", "bias"), ("gamma", "gamma"),
+                          ("beta", "beta")):
+            if k in p:
+                out[f"{layer}.{port_k}"] = torch.from_numpy(
+                    np.array(p[k], np.float32))
     return out
+
+
+def bn_state_to_port(np_state, device) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A BN running state (numpy, or None) as f32 tensors on ``device``."""
+    return {layer: {k: torch.from_numpy(np.array(v, np.float32)).to(device)
+                    for k, v in d.items()}
+            for layer, d in (np_state or {}).items()}
+
+
+def bn_state_to_jax(state) -> Dict[str, Dict[str, np.ndarray]]:
+    """A BN running state as host f32 numpy arrays."""
+    return {layer: {k: v.detach().to("cpu", torch.float32).numpy()
+                    for k, v in d.items()}
+            for layer, d in (state or {}).items()}
 
 
 def to_jax_tensors(state: Mapping[str, torch.Tensor]
@@ -57,8 +78,9 @@ def to_jax_tensors(state: Mapping[str, torch.Tensor]
             if w is None:
                 raise ValueError(f"unsupported weight rank {t.dim()}")
             out.setdefault(layer, {})["W"] = w.contiguous()
-        elif kind == "bias":
-            out.setdefault(layer, {})["b"] = t.clone()
+        elif kind in ("bias", "gamma", "beta"):
+            out.setdefault(layer, {})[
+                "b" if kind == "bias" else kind] = t.clone()
         else:
             raise ValueError(f"unexpected state key {key!r}")
     return out

@@ -2,6 +2,8 @@
 ``nnal_tpu/models/train.py``'s scan and of ``nnal_tpu/models/losses.py``).
 
 * :func:`masked_cross_entropy`: class-weighted CE, weighted-mean over rows;
+* :func:`fcn_cross_entropy`: the dense (per-pixel) CE over NaN-masked
+  one-hot label maps, with class weights or the focal form;
 * :func:`aleatoric_ce_per_sample` / :func:`aleatoric_ce`: the AU_4L
   heteroscedastic CE over ``mc_t`` logit-noise samples;
 * :func:`lwf_distillation`: the LwF term as the scan computes it;
@@ -28,6 +30,26 @@ def masked_cross_entropy(logits, y_onehot, class_weights, w):
     per = -(y_onehot * torch.log_softmax(logits, dim=-1)).sum(-1)
     per = per * (y_onehot * class_weights).sum(-1)
     return weighted_mean(per, w)
+
+
+def fcn_cross_entropy(logits, mask_onehot, class_weights=None,
+                      focal_gamma=None):
+    """Dense CE over per-pixel one-hots (``losses.py:53-74``): pixels whose
+    one-hot holds a NaN are unlabeled and drop out; the mean is over the
+    labeled pixels (at least 1).  ``logits`` and ``mask_onehot`` are
+    ``(b, H, W, c)``; ``focal_gamma`` gives ``-(1 - p)^gamma log p``."""
+    valid = ~torch.isnan(mask_onehot.sum(-1))
+    y = torch.nan_to_num(mask_onehot)
+    logp = torch.log_softmax(logits, dim=-1)
+    if focal_gamma is not None:
+        per = -(y * (1 - logp.exp()) ** focal_gamma * logp).sum(-1)
+    else:
+        per = -(y * logp).sum(-1)
+    if class_weights is not None:
+        per = per * (y * torch.as_tensor(class_weights, dtype=y.dtype,
+                                         device=y.device)).sum(-1)
+    per = torch.where(valid, per, torch.zeros_like(per))
+    return per.sum() / torch.clamp(valid.sum(), min=1)
 
 
 def _aleatoric_normal(shape, generator: torch.Generator,

@@ -1,5 +1,6 @@
-"""Finetuning (counterpart of the patch-wise branch of
-``nnal_tpu/models/train.py``: ``make_scanned_finetune`` with its levers).
+"""Finetuning (counterpart of ``nnal_tpu/models/train.py``: the patch-wise
+``make_scanned_finetune`` with its levers, the dense
+``make_scanned_finetune_fcn`` and the BN refresh).
 
 The JAX package runs a round's finetune as one jitted ``lax.scan`` over a
 precomputed ``(steps, b)`` index matrix; here it is a Python loop over the
@@ -36,6 +37,19 @@ reach the f32 parameters as f32.  The student's unlabeled pass reuses the
 step's bf16 copies, the teacher forwards on bf16 copies of its own, and
 the EMA stays f32.  ``torch.autocast`` is not used: it picks its own cast
 points, which would not mirror the JAX casts.
+
+The dense finetune (:func:`finetune_fcn_steps`, ``train.py:360-505``)
+trains on whole slices: the per-pixel CE is weighted by ``wpix`` (1, or
+the class weight, at the queried voxels and 0 elsewhere) and divided by
+the weights' sum (at least 1); a step whose weighted pixels sum to 0 is an
+exact no-op, as the scan's ``do = sum(wpix) > 0``.  Its keys are the
+patch finetune's (the labeled pass from ``key_i``, the student's unlabeled
+pass from ``fold_key(key_i, (1 << 21) + 3)``); the mean teacher's
+consistency runs over every pixel of the unlabeled slices, the teacher
+forwarding clean on its own batch statistics.  The training passes
+normalize by batch statistics and leave the BN running state alone;
+:func:`bn_refresh` (``_bn_refresh_fwd``) moves it afterwards with
+train-mode forwards without dropout, at f32.
 """
 
 from __future__ import annotations
@@ -73,6 +87,7 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     step: int = 0
     teacher: Optional[torch.nn.Module] = None   # the mean teacher (EMA)
+    bn_state: Optional[Dict] = None     # BN running stats {layer: {mean, var}}
 
 
 @dataclass
@@ -204,6 +219,26 @@ def _step_loss(model, x, y, w, class_weights, key, i, dropout,
     return loss
 
 
+def _run_steps(state: TrainState, steps, step_loss, grad_mask,
+               mt: Optional[MeanTeacher]) -> List[float]:
+    """One optimizer step per entry of ``steps`` with ``step_loss(i)``:
+    backward, the ``train_layers`` mask, the step and, under the mean
+    teacher, the EMA update after it.  Host floats of the losses are pulled
+    at the end, so the loop never waits on the card."""
+    model, opt = state.model, state.optimizer
+    losses = []
+    for i in steps:
+        loss = step_loss(int(i))
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        apply_grad_mask(model, grad_mask)
+        opt.step()
+        if mt is not None:
+            ema_update(state.teacher, model, mt.ema_decay)
+        losses.append(loss.detach())
+    return [float(v) for v in torch.stack(losses).cpu()] if losses else []
+
+
 def finetune_steps(state: TrainState, x_all: torch.Tensor,
                    y_all: torch.Tensor, idx_mat: np.ndarray,
                    w_mat: np.ndarray, class_weights: torch.Tensor,
@@ -217,9 +252,7 @@ def finetune_steps(state: TrainState, x_all: torch.Tensor,
     ``None`` turns dropout off, and the aleatoric normals then use key 0.
     ``grad_mask`` is :func:`models.optim.layer_train_mask`'s.  ``mt``
     needs ``state.teacher``.  Returns the per-step losses of the steps that
-    ran (host floats are pulled at the end, so the loop never waits on the
-    card)."""
-    model, opt = state.model, state.optimizer
+    ran."""
     dev = x_all.device
     if mt is not None and state.teacher is None:
         raise ValueError("the mean teacher's term needs state.teacher")
@@ -227,21 +260,100 @@ def finetune_steps(state: TrainState, x_all: torch.Tensor,
     w_t = torch.as_tensor(w_mat, dtype=torch.float32).to(dev)
     u_idx_t = (None if mt is None else
                torch.as_tensor(mt.u_idx, dtype=torch.int64).to(dev))
-    losses = []
-    for i in np.flatnonzero(w_mat.sum(axis=1) > 0):
+
+    def step_loss(i):
         idx = idx_t[i]
-        loss = _step_loss(
-            model, x_all[idx], y_all[idx], w_t[i], class_weights,
-            0 if key is None else key, int(i), key is not None,
+        return _step_loss(
+            state.model, x_all[idx], y_all[idx], w_t[i], class_weights,
+            0 if key is None else key, i, key is not None,
             compute_dtype, mc_t, lwf,
             None if lwf is None else lwf.old_logits[idx], state.teacher,
             mt, None if mt is None else mt.xu_all[u_idx_t[i]])
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        apply_grad_mask(model, grad_mask)
-        opt.step()
-        if mt is not None:
-            ema_update(state.teacher, model, mt.ema_decay)
-        losses.append(loss.detach())
+
+    losses = _run_steps(state, np.flatnonzero(w_mat.sum(axis=1) > 0),
+                        step_loss, grad_mask, mt)
     state.step += int(idx_mat.shape[0])
-    return [float(v) for v in torch.stack(losses).cpu()] if losses else []
+    return losses
+
+
+def _dense_step_loss(model, x, y, wpix, key, i, compute_dtype, teacher,
+                     mt: Optional[MeanTeacher], xu):
+    """Step ``i``'s dense loss (``train.py:401-424``)."""
+    dev = x.device
+    key_i = core_rng.fold_key(key, i)
+    fwd, xc = cast_for_forward(compute_dtype, model, x)
+    out = fwd(xc, train=True, generator=core_rng.key_generator(key, i, dev))
+    per = -(y * torch.log_softmax(out.logits, dim=-1)).sum(-1)
+    loss = weighted_mean(per, wpix)
+    if mt is not None:
+        s_out = fwd(xu if compute_dtype is None else xu.to(compute_dtype),
+                    train=True, generator=core_rng.key_generator(
+                        key_i, STUDENT_UNLAB_FOLD, dev))
+        with torch.no_grad():
+            t_fwd, xut = cast_for_forward(compute_dtype, teacher, xu)
+            t_logits = t_fwd(xut).logits
+        c = s_out.logits.shape[-1]
+        loss = loss + mt_coefficient(mt, i) * consistency_loss(
+            s_out.logits.reshape(-1, c), t_logits.reshape(-1, c),
+            mt.measure)
+    return loss
+
+
+def finetune_fcn_steps(state: TrainState, x_all: torch.Tensor,
+                       y_all: torch.Tensor, wpix_all: np.ndarray,
+                       idx_mat: np.ndarray, w_mat: np.ndarray, key,
+                       compute_dtype=None, *,
+                       grad_mask: Optional[Dict[str, float]] = None,
+                       mt: Optional[MeanTeacher] = None) -> List[float]:
+    """The dense finetune (module docstring) on ``state`` in place:
+    ``x_all`` (S, H, W, C) slices and ``y_all`` (S, H, W, nclass) one-hots
+    on the model's device, ``wpix_all`` (S, H, W) host pixel weights,
+    ``idx_mat`` / ``w_mat`` the slice batches.  ``key`` (an integer) keys
+    the dropout.  Returns the per-step losses of the steps that ran."""
+    dev = x_all.device
+    if mt is not None and state.teacher is None:
+        raise ValueError("the mean teacher's term needs state.teacher")
+    wpix_np = np.asarray(wpix_all, np.float32)
+    # the scan's ``do = sum(wpix) > 0``, from the host weights
+    do = (wpix_np.sum(axis=(1, 2))[idx_mat] * w_mat).sum(axis=1) > 0
+    wpix_t = torch.as_tensor(wpix_np).to(dev)
+    idx_t = torch.as_tensor(idx_mat, dtype=torch.int64).to(dev)
+    w_t = torch.as_tensor(w_mat, dtype=torch.float32).to(dev)
+    u_idx_t = (None if mt is None else
+               torch.as_tensor(mt.u_idx, dtype=torch.int64).to(dev))
+
+    def step_loss(i):
+        idx = idx_t[i]
+        return _dense_step_loss(
+            state.model, x_all[idx], y_all[idx],
+            wpix_t[idx] * w_t[i][:, None, None], key, i, compute_dtype,
+            state.teacher, mt, None if mt is None else mt.xu_all[u_idx_t[i]])
+
+    losses = _run_steps(state, np.flatnonzero(do), step_loss, grad_mask, mt)
+    state.step += int(idx_mat.shape[0])
+    return losses
+
+
+@torch.no_grad()
+def bn_refresh(model: torch.nn.Module, bn_state: Dict, x: torch.Tensor,
+               bn_decay: float) -> Dict:
+    """One BN-statistics refresh pass (``_bn_refresh_fwd``,
+    ``train.py:526-531``): a train-mode forward without dropout at f32
+    whose only product is the running state moved at ``bn_decay``."""
+    return model(x, train=True, state=bn_state, bn_decay=bn_decay).state
+
+
+def update_bn_stats(model: torch.nn.Module, bn_state: Dict, sample_gen,
+                    iters: int = 200, bn_decay: float = 0.999) -> Dict:
+    """Recompute the BN running statistics over ``sample_gen()`` batches
+    (``x`` or ``(x, y)``, channels-last, on the model's device or the
+    host) without touching the weights (reference ``update_BN_stats``,
+    ``train.py:534-553``).  Returns the refreshed state."""
+    dev = next(model.parameters()).device
+    state = bn_state
+    for _ in range(iters):
+        batch = sample_gen()
+        x = batch[0] if isinstance(batch, (tuple, list)) else batch
+        state = bn_refresh(model, state, torch.as_tensor(x).to(dev),
+                           bn_decay)
+    return state

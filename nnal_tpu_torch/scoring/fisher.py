@@ -5,8 +5,9 @@ Reference flow (PW_NNAL.py:89-163): uncertainty-filter the pool to B ->
 per-sample per-class 'sum'-shrunk gradients -> ``A_i = (1-p) g0 g0^T + p
 g1 g1^T + load*I`` -> the A-optimal SDP -> sample queries from the optimal
 PMF.  The A-matrices and the SDP stay on the device; only the PMF reaches
-the host.  ``hallucinated_class_grads`` (dense specs) is not ported
-(ROADMAP Queue 1 item 9).
+the host.  Dense (fcn) specs have no per-patch full-network gradient;
+their fi takes the A-matrices of :func:`hallucinated_class_grads`, the
+last-layer Fisher over the per-pixel probe features.
 """
 
 from __future__ import annotations
@@ -45,6 +46,25 @@ def a_matrices_multiclass(shrunk: torch.Tensor, posts: torch.Tensor,
     A = torch.einsum("bc,bcl,bcm->blm", posts, shrunk, shrunk)
     L = shrunk.shape[-1]
     return A + diag_load * torch.eye(L, dtype=A.dtype, device=A.device)
+
+
+def hallucinated_class_grads(F: torch.Tensor, posts: torch.Tensor
+                             ) -> torch.Tensor:
+    """Hallucinated last-layer class gradients over probe features
+    (``fisher.py:59-80``; the BADGE construction): the CE gradient of a
+    surrogate softmax layer ``z = W^T [f; 1]`` at ASSUMED label ``c`` is
+    ``(p_j - delta_jc) [f; 1]`` over the output classes ``j``.  ``F`` (b,
+    d) features, ``posts`` (b,) P(y=1) or (b, c).  Returns (b, c, c(d+1)),
+    the input of :func:`a_matrices` / :func:`a_matrices_multiclass`."""
+    if posts.dim() == 1:
+        posts = torch.stack([1.0 - posts, posts], dim=1)
+    b, d = F.shape
+    c = posts.shape[1]
+    f1 = torch.cat([F, F.new_ones((b, 1))], dim=1)
+    delta = torch.eye(c, dtype=F.dtype, device=F.device)
+    coeff = posts[:, None, :] - delta[None, :, :]      # (b, assumed, j)
+    g = coeff[..., None] * f1[:, None, None, :]        # (b, assumed, j, d+1)
+    return g.reshape(b, c, c * (d + 1))
 
 
 def refine_feature_matrix(F: np.ndarray, B: int,

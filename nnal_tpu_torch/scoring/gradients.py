@@ -15,9 +15,9 @@ taken with respect to E only, on detached parameters: no weight-gradient
 GEMM or convolution runs, only input gradients (about one forward's cost).
 
 The forward is driven off the :class:`~nnal_tpu_torch.models.cnn.CNN`
-module itself (its submodules' weights and its ``_pads``, so a conv's
-ones-filter sees the same SAME padding as the conv, asymmetric where XLA's
-is).  Not ported: the opt-in ``NNAL_CONV1_MM`` first-conv lowering (a TPU
+module itself (its submodules' weights and its ``pad_input``, so a
+conv's ones-filter sees the same SAME padding as the conv, asymmetric
+where XLA's is).  Not ported: the opt-in ``NNAL_CONV1_MM`` first-conv lowering (a TPU
 matrix-unit workaround).
 
 The full per-sample gradients (:func:`per_sample_grads`, ``vmap`` of
@@ -87,14 +87,12 @@ def _eps_layer(model, layer, h, E, li, cd=None):
     its output, not its input, which is what the JAX package's
     ``_relu_save_output`` custom VJP arranges."""
     if layer.kind == "pool":
-        h = F.pad(h, model._pads[layer.name], value=float("-inf"))
-        return F.max_pool2d(h, layer.ksize, layer.strides), li
+        return F.max_pool2d(model.pad_input(layer, h), layer.ksize,
+                            layer.strides), li
     mod = getattr(model, layer.name)
     W, b = mod.weight.detach(), mod.bias.detach()
     if layer.kind == "conv":
-        pad = model._pads.get(layer.name)
-        if pad is not None:
-            h = F.pad(h, pad)
+        h = model.pad_input(layer, h)
         if cd is None:
             z = F.conv2d(h, W, b, mod.stride, mod.padding)
         else:

@@ -42,7 +42,12 @@ from nnal_tpu_torch.models.perturb import measure_output_perturbation
 from nnal_tpu_torch.scoring import hessian
 from nnal_tpu_torch.scoring import influence as infl
 from nnal_tpu_torch.scoring.batchbald import batchbald_select
-from nnal_tpu_torch.scoring.fisher import refine_feature_matrix
+from nnal_tpu_torch.scoring.fisher import (
+    a_matrices,
+    a_matrices_multiclass,
+    hallucinated_class_grads,
+    refine_feature_matrix,
+)
 from nnal_tpu_torch.scoring.gradients import gather_shrunk_a_matrices
 from nnal_tpu_torch.scoring.grid_eval import GridPoolEvaluator
 from nnal_tpu_torch.scoring.pmf import sample_query_pmf
@@ -144,12 +149,16 @@ def cnn_query(ctx: QueryContext, method_name: str) -> np.ndarray:
 
 def _require_patch_evaluator(ev, method: str) -> None:
     """Per-patch gradient methods need the patch evaluator's device volume
-    (``ev.padded``); dense (fcn) evaluators have none.  Fail with a clear
-    message at strategy entry instead of an AttributeError mid-way."""
+    (``ev.padded``); dense (fcn) evaluators serve posteriors and per-pixel
+    features but no patch-level loss gradients.  Fail with a clear message
+    at strategy entry (``strategies.py:97-106``) instead of an
+    AttributeError mid-way."""
     if not hasattr(ev, "padded"):
         raise NotImplementedError(
-            f"{method} needs per-patch gradients: the dense-spec (fcn) "
-            "branch is not ported yet (ROADMAP Queue 1 item 9)")
+            f"{method} needs per-patch gradients — dense-model (fcn) specs "
+            "support the uncertainty + feature-space families and "
+            "last-layer fi; full-gradient methods need the patch-wise "
+            "evaluator")
 
 
 def _gather(ev, inds) -> torch.Tensor:
@@ -170,6 +179,12 @@ def _random(ctx: QueryContext):
     return ctx.rng.permutation(len(ctx.pool_inds))[:ctx.k]
 
 
+def _hv_patch(ev):
+    """The patch shape whose first radius is ps-random's variance window:
+    the evaluator's, or a dense evaluator's ``hv_patch_shape``."""
+    return getattr(ev, "hv_patch_shape", ev.patch_shape)
+
+
 @register_strategy("ps-random")
 def _ps_random(ctx: QueryContext):
     """Random picks among the pool voxels of high local variance
@@ -177,7 +192,7 @@ def _ps_random(ctx: QueryContext):
     device."""
     if ctx.raw_volume is None:
         raise ValueError("ps-random needs the raw volume")
-    valid = high_variance_filter(ctx.raw_volume, ctx.evaluator.patch_shape,
+    valid = high_variance_filter(ctx.raw_volume, _hv_patch(ctx.evaluator),
                                  ctx.hv_threshold, ctx.pool_inds,
                                  device=ctx.evaluator.device)
     return valid[ctx.rng.permutation(len(valid))[:ctx.k]]
@@ -222,7 +237,8 @@ def _fi(ctx: QueryContext):
     evaluator's device -> PMF draws on the host (with replacement, then
     deduplicated, so a round may return fewer than k)."""
     ev = ctx.evaluator
-    _require_patch_evaluator(ev, "fi")
+    if not hasattr(ev, "padded"):
+        return _fi_dense(ctx)
     with subphase("fi/posteriors"):
         p1 = _posteriors(ctx)
     B = min(ctx.B, len(ctx.pool_inds))
@@ -241,6 +257,46 @@ def _fi(ctx: QueryContext):
             feats = ev.evaluate(ctx.params, cand_inds,
                                 ("feature_layer",))["feature_layer"]
         ref_F = refine_feature_matrix(np.asarray(feats).T, len(sel))
+        X_pool = ref_F - ref_F.mean(axis=1, keepdims=True)
+    with subphase("fi/sdp"):
+        q = fi_query_distribution(A, ctx.lambda_, X_pool, ctx.k)
+    with subphase("fi/pmf"):
+        picks = sample_query_pmf(q, ctx.k, ctx.rng, replacement=True)
+    return sel[picks]
+
+
+def _dense_a_matrices(F_sel: torch.Tensor, p_sel: torch.Tensor,
+                      diag_load: float) -> torch.Tensor:
+    """A-matrices of hallucinated last-layer gradients (binary ``(b,)``
+    or multiclass ``(b, c)`` posteriors)."""
+    g = hallucinated_class_grads(F_sel, p_sel)
+    if p_sel.dim() == 1:
+        return a_matrices(g, p_sel, diag_load)
+    return a_matrices_multiclass(g, p_sel, diag_load)
+
+
+def _fi_dense(ctx: QueryContext):
+    """fi for dense (fcn) specs (``strategies.py:534-580``): one evaluate
+    of posteriors and per-pixel features, the uncertainty filter to B,
+    A-matrices of the hallucinated last-layer gradients of the candidates'
+    features (f32, on the device), with ``lambda_`` the refined feature
+    matrix, then the SDP and the PMF draws."""
+    with subphase("fi/posteriors"):
+        res = ctx.evaluator.evaluate(ctx.params, ctx.pool_inds,
+                                     ("posteriors", "feature_layer"),
+                                     as_device=True)
+        p1 = res["posteriors"].cpu().numpy()
+    with subphase("fi/filter"):
+        B = min(ctx.B, len(ctx.pool_inds))
+        sel = binary_uncertainty_filter(p1 if p1.ndim == 1 else p1[:, 1], B)
+    with subphase("fi/gather_grads_A"):
+        dev = res["feature_layer"].device
+        F_sel = res["feature_layer"][_to_dev(sel, dev)]
+        A = _dense_a_matrices(F_sel, torch.as_tensor(
+            np.asarray(p1[sel], np.float32)).to(dev), ctx.diag_load)
+    X_pool = None
+    if ctx.lambda_ > 0:
+        ref_F = refine_feature_matrix(F_sel.cpu().numpy().T, len(sel))
         X_pool = ref_F - ref_F.mean(axis=1, keepdims=True)
     with subphase("fi/sdp"):
         q = fi_query_distribution(A, ctx.lambda_, X_pool, ctx.k)
@@ -551,7 +607,7 @@ def query_multimg(contexts: Sequence[QueryContext], method_name: str,
         for c in contexts:
             if c.raw_volume is None:
                 raise ValueError("ps-random needs the raw volume")
-        valid = [high_variance_filter(c.raw_volume, c.evaluator.patch_shape,
+        valid = [high_variance_filter(c.raw_volume, _hv_patch(c.evaluator),
                                       c.hv_threshold, c.pool_inds,
                                       device=c.evaluator.device)
                  for c in contexts]
@@ -703,11 +759,43 @@ def _fi_multimg(contexts, k: int, rng) -> np.ndarray:
     return order[draws]
 
 
-def _fi_dense_multimg(contexts, k: int, rng):
-    """The dense-spec (fcn) fi across subjects (``strategies.py:879``)."""
-    raise NotImplementedError(
-        "fi on dense-spec (fcn) evaluators is not ported to the PyTorch "
-        "port yet (ROADMAP Queue 1 item 9)")
+def _fi_dense_multimg(contexts, k: int, rng) -> np.ndarray:
+    """Dense (fcn) fi across subjects (``strategies.py:879-932``): each
+    subject's sweep of posteriors and per-pixel features, one global
+    uncertainty filter to B, hallucinated last-layer A-matrices per
+    subject, one SDP over their concatenation and PMF draws.  ``lambda_``
+    is not read, as in the JAX package.  Returns global positions."""
+    ref = contexts[0]
+    sizes = [len(c.pool_inds) for c in contexts]
+    with subphase("fi/posteriors"):
+        results = [c.evaluator.evaluate(c.params, c.pool_inds,
+                                        ("posteriors", "feature_layer"),
+                                        as_device=True)
+                   for c in contexts]
+        p1 = np.concatenate([r["posteriors"].cpu().numpy() for r in results])
+    with subphase("fi/filter"):
+        B = min(ref.B, len(p1))
+        sel = binary_uncertainty_filter(p1 if p1.ndim == 1 else p1[:, 1], B)
+    sel_local = global2local_inds(sel, sizes)
+    A_list, order = [], []
+    with subphase("fi/gather_grads_A"):
+        for si, li in enumerate(sel_local):
+            if len(li) == 0:
+                continue
+            base = int(np.sum(sizes[:si]))
+            F = results[si]["feature_layer"]
+            A_list.append(_dense_a_matrices(
+                F[_to_dev(li, F.device)], torch.as_tensor(
+                    np.asarray(p1[base + li], np.float32)).to(F.device),
+                ref.diag_load))
+            order.append(base + li)
+    A = torch.cat(A_list)
+    order = np.concatenate(order)
+    with subphase("fi/sdp"):
+        q = fi_query_distribution(A, ref.lambda_, None, k)
+    with subphase("fi/pmf"):
+        draws = sample_query_pmf(q, k, rng, replacement=True)
+    return order[draws]
 
 
 def _influence_multimg(contexts, k: int) -> List[np.ndarray]:

@@ -139,7 +139,8 @@ def test_port_imports_no_jax_and_nothing_of_nnal_tpu():
     scanned = {str(f.relative_to(REPO)) for f in files}
     assert {f"nnal_tpu_torch/{m}.py" for m in (
         "engine/multi_experiment", "engine/sequential", "runtime/native",
-        "runtime/gxx", "data/loaders", "data/holders")} <= scanned
+        "runtime/gxx", "data/loaders", "data/holders",
+        "scoring/fcn_eval")} <= scanned
     banned = {"jax", "jaxlib", "optax", "flax", "nnal_tpu"}
     for f in files:
         for mod in _imported_modules(f):
@@ -162,11 +163,11 @@ def test_entry_points_raise_without_cuda(tmp_path, monkeypatch):
 # their cases now hold the values the JAX package rejects.  The training
 # levers (consistency_coeff, lwf_lambda, aleatoric, train_layers,
 # tb_logdir) are ported too: tests/test_torch_lever_engine.py holds them
-# accepted and run.
+# accepted and run, and so are the dense models (model_name: Tiramisu;
+# tests/test_torch_dense_engine.py).
 @pytest.mark.parametrize("override,exc,key", [
     ("data_parallel=2", NotImplementedError, "data_parallel"),
     ("ckpt_dtype=float16", ValueError, "unsupported ckpt_dtype"),
-    ("model_name=Tiramisu", NotImplementedError, "model_name"),
     ("dtype=float16", ValueError, "unsupported eval dtype"),
     ("train_dtype=float16", ValueError, "unsupported eval dtype"),
 ])

@@ -325,7 +325,6 @@ def test_sequential_al_warm_starts_and_resumes(tmp_path):
 
 @pytest.mark.parametrize("over,exc,key", [
     ({"data_parallel": 2}, NotImplementedError, "data_parallel"),
-    ({"model_name": "Tiramisu"}, NotImplementedError, "model_name"),
     ({"hist_dtype": "int8"}, ValueError, "unsupported hist_dtype"),
 ])
 def test_unsupported_keys_raise(tmp_path, over, exc, key):

@@ -211,5 +211,5 @@ def test_multimg_rejects_what_the_port_lacks(setup):
         patch_shape = PATCH
 
     tc[0].evaluator = Dense()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tstrat.query_multimg(tc, "fi", K, trng)
+    with pytest.raises(NotImplementedError, match="patch-wise evaluator"):
+        tstrat.query_multimg(tc, "influence", K, trng)
