@@ -88,8 +88,8 @@ Phases, each of which passes or exits non-zero:
    ``ps-random`` and ``SuPix`` (64 segments a slice, whole superpixels a
    round); launch counts are zeroed just before and read just
    after, and every kernel must have launched (K2 at least 4 times in
-   fi and in the mean teacher's run, at least 2 x (n_ensemble + 1) in
-   each committee method, whose rounds must hold a ``committee``
+   fi, twice a round in the mean teacher's run, n_ensemble + 1 times a
+   round in each committee method, whose rounds must hold a ``committee``
    phase; at least 6 in each influence run, whose rounds must hold the
    ``influence/*`` sub-spans); the mean teacher's ``teacher/`` group must
    be saved, and ``train_layers`` must leave every conv weight
@@ -131,7 +131,8 @@ Phases, each of which passes or exits non-zero:
    rep-entropy, BALD, BatchBALD and BADGE equal on the host with the same
    weights and draws, and fi's A-matrices of the card's candidates held
    on the host (the row rule below; ``multi picks ok``); 128-query
-   campaigns over three 128x128x32 subjects (131,072 grid voxels each), a
+   campaigns (64 for the f32 ``MULTI_ONE_ROUND``) over three 128x128x32
+   subjects (131,072 grid voxels each), a
    test and a held subject, from an empty start: f32 entropy, core-set
    (round 0 from the held subject's features through K1), fi, QBC-JS (3
    members), influence (64 labels seeded) and entropy with the mean
@@ -163,7 +164,8 @@ Phases, each of which passes or exits non-zero:
    bf16 sweep's top-1024 uncertainty overlap with f32 (tie-aware, at
    least 80%); K1 at d = 16 (P the pool's 65,536 per-pixel features, R
    256, 512 and a ragged 320) against its plain version within 1e-5,
-   with its ms beside the bound; 2-round dense campaigns (f32: entropy,
+   with its ms beside the bound; 2-round dense campaigns (1 for
+   ``DENSE_ONE_ROUND``; f32: entropy,
    core-set, fi, BALD with 10 MC passes, BADGE, QBC-JS with 3 members,
    entropy with the mean teacher; bf16: entropy and fi), each checked
    (rounds, picks, membership, no K2 launch, K1 in core-set, the ``bn/``
@@ -173,7 +175,37 @@ Phases, each of which passes or exits non-zero:
    entropy and fi over two 128x128x32 subjects and one 96x96x32 (two
    shape groups; 128 and 64 queries), every test evaluator on the
    engine's BN state;
-18. lines with the new methods' per-round seconds, the MC and perturb
+18. the classification engine (``phase_cls``): AlexNet at its published
+   width and 227x227x3 input (71,945,608 parameters, 2.5244 GFLOP an
+   image, counted from the spec by ``cls_flops``) from one seed's
+   weights, card vs host: posteriors of 4 images (1e-5) and fc7 features
+   (1e-4 relative), one SGD and one Adam (eps 1e-3) step of
+   ``make_train_step`` on a padded batch of 32 with the same dropout
+   uniforms (``KeyedDraws``), each device's update held to a float64
+   step on the card within 1e-2 of its size (2-norm; SGD's worst element
+   too; f32 moves some max-pool argmaxes, so ~1e-3 is its limit), and the
+   seconds
+   per Adam step; VGG19 at 224x224x3 on 2 images (1e-5, 1e-4); the pool
+   sweep's images/s and TFLOP/s at f32 and bf16 (4,096 images from host
+   RAM in chunks of 256, and one resident chunk); K1 at the
+   classification shape (P the campaign pool's 4,096-row bucket of fc7
+   features, R the 256-row labeled bucket of rounds 0 and 1) against its
+   plain version within 1e-5, with its ms beside the bound and
+   ``matmul + amax``; the campaign: ``run_classification_al(...,
+   device="cuda")`` at ``DEFAULT_CLS_PARS`` (k 10, B 100, ntb 256, b 32,
+   2 epochs, Adam 1e-3, dropout 0.5, init 20, test 20%) on 4,096
+   synthetic 8-class images of 227x227x3 (oriented gratings under noise,
+   ``benchmarks/cls_campaigns.make_dataset`` scaled up; 2.5 GB of f32 in
+   host RAM): 2 rounds of each of the 13 strategies (1 for
+   ``CLS_ONE_ROUND``; fi to 10 queries), ``entropy`` with the mean
+   teacher and with LwF, and ``random`` with ``train_dtype`` bfloat16,
+   each checked (accuracies, picks, membership, K1 in every core-set
+   round, no K2 launch, the committee phase, the teacher group);
+   classification resume == continue bit for bit (entropy, 3 rounds,
+   anchors every 2, crashed after round 2); one round each of entropy
+   and core-set with VGG19 on 512 images of 224x224x3 (K1 on VGG's fc2
+   features); and ``softmax_harness.run_comparison`` on the card;
+19. lines with the new methods' per-round seconds, the MC and perturb
    sweeps' rates, the committee campaigns' peak memory, the lever runs'
    per-round seconds, each lever's seconds per finetune step, the
    checkpoint bytes with the teacher, whether the TensorBoard mirror
@@ -185,7 +217,8 @@ Phases, each of which passes or exits non-zero:
    resume, MC, perturbation, selection, second-order, SLIC and
    ``finetune_wpool`` phases, the multi-subject and the dense ones) and
    one ``kernels`` JSON line (times, bounds, launches in every campaign;
-   K1's row also its times at d = 16 under ``at_d16``).
+   K1's row also its times at d = 16 under ``at_d16`` and at the
+   classification shape under ``at_cls``).
 
 The row and column tolerance rules for shrunk gradients and A-matrices:
 the linear head's column is zero in exact arithmetic (a constant added to
@@ -224,6 +257,10 @@ import torch
 from nnal_tpu_torch import ops
 from nnal_tpu_torch.ops._build import stream_ptr
 from nnal_tpu_torch.cli.expr_handler import DEFAULT_PARS, create_expr, do_expr
+from nnal_tpu_torch.cli import run_querying
+from nnal_tpu_torch.cli.softmax_harness import run_comparison, synthetic_mnist
+from nnal_tpu_torch.data.image_pool import InMemoryPool
+from nnal_tpu_torch.engine import experiment as experiment_mod
 from nnal_tpu_torch.core import rng as core_rng
 from nnal_tpu_torch.core.config import ExperimentConfig, set_parameters
 from nnal_tpu_torch.core.profiling import drain_subphases
@@ -277,7 +314,9 @@ from nnal_tpu_torch.models.train import (
     finetune_steps,
     init_train_state,
     make_teacher,
+    make_train_step,
 )
+from nnal_tpu_torch.scoring import cls_strategies as cls_mod
 from nnal_tpu_torch.scoring.fcn_eval import (
     FCNGridPoolEvaluator,
     normalized_slices,
@@ -381,7 +420,8 @@ F32_RUNS += REST_RUNS
 ONE_ROUND = {"random", "MC-entropy", "BALD", "BatchBALD", "AU_4U",
              "AU_4U@rotation", "rep-entropy", "BADGE", "entropy@lwf",
              "entropy@aleatoric", "random@train_layers", "ps-random",
-             "influence@arnoldi"}
+             "influence@arnoldi", "ensemble", "QBC-JS", "entropy@mt",
+             "influence"}
 BF16_RUNS += (("influence", INFLUENCE + BF16 + ",ckpt_dtype=bfloat16"),)
 INFLUENCE_SUBS = {"influence/labeled_gather", "influence/s_test",
                   "influence/posteriors", "influence/filter",
@@ -397,6 +437,8 @@ MULTI = ("patch_shape=[25,25,1],grid_spacing=2,k=64,B=200,b=128,epochs=1,"
 MULTI_RUNS = (("entropy", MULTI), ("core-set", MULTI), ("fi", MULTI),
               ("QBC-JS", MULTI + ",n_ensemble=3"), ("influence", MULTI),
               ("entropy@mt", MULTI + MT))
+# f32 multi runs whose second round runs no code their first does not
+MULTI_ONE_ROUND = {"QBC-JS", "influence"}
 MULTI_BF16 = (",dtype=bfloat16,train_dtype=bfloat16,ckpt_full_every=2,"
               "ckpt_dtype=int8,async_checkpoint=true,hist_every=2,"
               "hist_dtype=float16")
@@ -423,6 +465,8 @@ DENSE_RUNS = (("entropy", DENSE), ("core-set", DENSE),
               ("fi", DENSE + ",iter_k=[64,64,0]"),
               ("BALD", DENSE + ",MC_iters=10"), ("BADGE", DENSE),
               ("QBC-JS", DENSE + ",n_ensemble=3"), ("entropy@mt", DENSE + MT))
+# dense runs whose second round runs no code their first does not
+DENSE_ONE_ROUND = {"BALD", "BADGE", "QBC-JS"}
 DENSE_BF16_RUNS = (("entropy", DENSE + ",dtype=bfloat16,train_dtype=bfloat16"),
                    ("fi", DENSE + ",iter_k=[64,64,0],dtype=bfloat16,"
                     "train_dtype=bfloat16"))
@@ -433,6 +477,17 @@ DENSE_MULTI = MULTI + ",model_name=Tiramisu,dropout_rate=0.2,b=4"
 DENSE_MULTI_RUNS = (("entropy", DENSE_MULTI, 128), ("fi", DENSE_MULTI, 64))
 DENSE_GFLOP = 13.0          # per 128x128x2 slice, convs and convTs
 SWEEP_SHAPE = (256, 256, 64)        # bench.py's subject
+# the classification campaign (phase_cls): AlexNet at 227x227x3 on 4,096
+# synthetic 8-class images, run_querying.DEFAULT_CLS_PARS as they are
+CLS_N, CLS_HW, CLS_NCLASS, CLS_K = 4096, 227, 8, 10
+CLS_MT = ("consistency_coeff=1.0,consistency_measure=CE,consistency_ramp=20,"
+          "ema_decay=0.99")
+CLS_RUNS = (tuple((m, "") for m in cls_mod.METHODS)
+            + (("entropy@mt", CLS_MT), ("entropy@lwf", "lwf_lambda=1.0,lwf_T=2"),
+               ("random@bf16", "train_dtype=bfloat16")))
+CLS_ONE_ROUND = {"random", "MC-entropy", "BALD", "BatchBALD", "rep-entropy",
+                 "BADGE", "entropy@lwf", "random@bf16"}
+CLS_VGG_N, CLS_VGG_HW = 512, 224
 SWEEP_Z_CHUNK = 4
 
 
@@ -979,7 +1034,8 @@ class KeyedDraws(HostDraws):
     def __enter__(self):
         super().__enter__()
         self.saved += [(m, n, getattr(m, n)) for m, n in (
-            (core_rng, "key_generator"), (cnn_mod, "_dropout_uniform"),
+            (core_rng, "key_generator"), (core_rng, "key_stream"),
+            (cnn_mod, "_dropout_uniform"),
             (losses_mod, "_aleatoric_normal"))]
         fold = core_rng.fold_key
 
@@ -988,6 +1044,7 @@ class KeyedDraws(HostDraws):
 
         core_rng.key_generator = lambda key, tag, device: _Key(
             fold(key, tag))
+        core_rng.key_stream = lambda key, device: _Key(key)
         cnn_mod._dropout_uniform = lambda shape, gen, device, i: t(
             self._rng(5, gen.key, i).random(tuple(shape), np.float32),
             device)
@@ -2073,7 +2130,7 @@ def _campaign(dev, top, runs, tag):
             check(dk1 >= 2, f"{key}: K1 launched {dk1} times")
         if method in COMMITTEE:
             # every round: n_ensemble member finetunes and the main one
-            check(dk2 >= 2 * (N_ENSEMBLE + 1),
+            check(dk2 >= n_rounds * (N_ENSEMBLE + 1),
                   f"{key}: K2 launched {dk2} times in the committee rounds")
         with open(os.path.join(root, method, "phases.jsonl")) as f:
             phases[key] = [json.loads(line) for line in f]
@@ -2091,7 +2148,7 @@ def _campaign(dev, top, runs, tag):
                   f"{key}: sub spans missing from phases.jsonl: "
                   f"{[r.get('sub') for r in rounds]}")
             cg_mode = "influence_mode=arnoldi" not in overrides
-            check(len(cg_log) == (2 if cg_mode else 0),
+            check(len(cg_log) == (n_rounds if cg_mode else 0),
                   f"{key}: {len(cg_log)} CG solves")
             notes[key + " cg"] = cg_log
         if method == "fi":
@@ -2113,7 +2170,8 @@ def _campaign(dev, top, runs, tag):
         if "consistency_coeff" in overrides:
             # each MT round gathers the labeled set and 256 unlabeled
             # patches through K2
-            check(dk2 >= 4, f"{key}: K2 launched {dk2} times in 2 MT rounds")
+            check(dk2 >= 2 * n_rounds,
+                  f"{key}: K2 launched {dk2} times in {n_rounds} MT rounds")
             with np.load(curr) as z:
                 check(any(k.startswith("teacher/") for k in z.files),
                       f"{key}: no teacher group in {z.files[:6]}")
@@ -2557,7 +2615,8 @@ def _multi_expr(root, overrides, dev, subjects):
 
 def _multi_campaign(dev, top, runs, tag, subjects):
     """Each run in its own experiment directory (a fresh
-    ``MultiImgExperiment`` and its subjects' volumes), 128 queries: the
+    ``MultiImgExperiment`` and its subjects' volumes), 128 queries (64
+    for the f32 runs of ``MULTI_ONE_ROUND``): the
     journal, membership, rounds, sub-spans, history copies and each run's
     K1 / K2 launches checked, its checkpoints removed once checked.  The
     launch counts and K2's copy-cache counters are zeroed just before the
@@ -2590,7 +2649,8 @@ def _multi_campaign(dev, top, runs, tag, subjects):
             j.init_membership(seed_g, np.setdiff1d(pool_g, seed_g))
             seeded = 64
         k = expr.config.query.k
-        res = expr.run_method(method, 2 * k)
+        want = 1 if not tag and name in MULTI_ONE_ROUND else 2
+        res = expr.run_method(method, want * k)
         torch.cuda.synchronize()
         out["seconds"][key] = time.perf_counter() - t0
         out["peaks"][key] = torch.cuda.max_memory_allocated()
@@ -2602,15 +2662,16 @@ def _multi_campaign(dev, top, runs, tag, subjects):
                  for r in range(n_rounds)]
         check(sizes == [len(generate_grid_samples(SHAPE, 2))] * 3,
               f"{key}: pools {sizes}")
-        check(res["n_queries"] == 2 * k == sum(q.shape[1] for q in qmats)
-              and (n_rounds >= 2 if method == "fi" else n_rounds == 2),
+        check(res["n_queries"] == want * k
+              == sum(q.shape[1] for q in qmats)
+              and (n_rounds >= 2 if method == "fi" else n_rounds == want),
               f"{key}: {res['n_queries']} queries in {n_rounds} rounds")
         pools = expr._pools()
         check(all(q.shape[0] == 2 and set(q[1].tolist()) <= {0, 1, 2}
                   and all(v in set(pools[s].tolist()) for v, s in q.T)
                   for q in qmats), f"{key}: journal columns off the pools")
         tr, po = res["train_global"], res["pool_global"]
-        check(len(tr) == 2 * k + seeded == len(set(tr.tolist()))
+        check(len(tr) == want * k + seeded == len(set(tr.tolist()))
               and not set(tr.tolist()) & set(po.tolist())
               and len(tr) + len(po) == sum(sizes),
               f"{key}: membership broken")
@@ -2621,7 +2682,8 @@ def _multi_campaign(dev, top, runs, tag, subjects):
         out["by_method"][key] = {"rowmax_similarity": dk1,
                                  "gather_patches_normalized": dk2}
         # every round's finetune gathers at least one subject's labels
-        need = {"fi": 4, "QBC-JS": 5, "influence": 6, "entropy@mt": 8}
+        need = {"fi": 4, "QBC-JS": 5 * want // 2, "influence": 3 * want,
+                "entropy@mt": 8}
         check(dk2 >= need.get(name, 2),
               f"{key}: K2 launched {dk2} times")
         if method == "core-set":
@@ -3137,29 +3199,32 @@ def _dense_run_checks(key, method, root, res, n_rounds, dk1, dk2, k=64):
 
 
 def _dense_campaign(dev, top, runs, tag):
-    """2 rounds of each run through ``do_expr`` on the campaign subject,
-    launch counts zeroed just before each run and read just after."""
+    """2 rounds (1 for ``DENSE_ONE_ROUND``) of each run through
+    ``do_expr`` on the campaign subject, launch counts zeroed just before
+    each run and read just after."""
     out = {"seconds": {}, "phases": {}, "by_method": {}, "peaks": {}}
     ops.reset_launch_counts()
     for name, overrides in runs:
         method = name.split("@")[0]
         key = tag + name
         root = os.path.join(top, name)
+        n_rounds = 1 if not tag and name in DENSE_ONE_ROUND else 2
         k1_0 = ops.similarity.KERNEL.launches
         k2_0 = ops.gather.KERNEL.launches
         drain_subphases()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        res = do_expr(root, method, 128, overrides, synthetic=True,
-                      device=str(dev))
+        res = do_expr(root, method, 64 * n_rounds, overrides,
+                      synthetic=True, device=str(dev))
         out["seconds"][key] = time.perf_counter() - t0
         out["peaks"][key] = torch.cuda.max_memory_allocated()
         dk1 = ops.similarity.KERNEL.launches - k1_0
         dk2 = ops.gather.KERNEL.launches - k2_0
         out["by_method"][key] = {"rowmax_similarity": dk1,
                                  "gather_patches_normalized": dk2}
-        picks = _dense_run_checks(key, method, root, res, 2, dk1, dk2)
+        picks = _dense_run_checks(key, method, root, res, n_rounds, dk1,
+                                  dk2)
         with open(os.path.join(root, method, "phases.jsonl")) as f:
             out["phases"][key] = [json.loads(line) for line in f]
         rounds = [r for r in out["phases"][key] if not r.get("tail")]
@@ -3322,6 +3387,411 @@ def phase_dense(dev):
         shutil.rmtree(top, ignore_errors=True)
 
 
+def cls_flops(spec) -> float:
+    """FLOPs (2 per multiply-add) of one image's forward through the
+    convs and fcs of a classification spec, from its traced shapes."""
+    total = 0.0
+    for layer, (in_c, in_d, out) in zip(spec.layers,
+                                        cnn_mod._trace_channels(spec)):
+        if layer.kind == "conv":
+            total += 2.0 * np.prod(out) * np.prod(layer.ksize) * in_c
+        elif layer.kind == "fc":
+            total += 2.0 * in_d * layer.out
+    return float(total)
+
+
+def cls_dataset(dev, n, hw, nclass=CLS_NCLASS, sigma=1.0, seed=0):
+    """``benchmarks/cls_campaigns.make_dataset``'s oriented gratings (one
+    orientation per class, random phase) under additive noise, at hw x hw
+    x 3 with the period scaled by hw / 16; drawn on the card in chunks and
+    kept as a host float32 array, as a user's image pool is."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    y = torch.randint(0, nclass, (n,), generator=gen, device=dev)
+    yy, xx = torch.meshgrid(torch.arange(hw, device=dev, dtype=torch.float32),
+                            torch.arange(hw, device=dev, dtype=torch.float32),
+                            indexing="ij")
+    angles = np.pi * torch.arange(nclass, device=dev) / nclass
+    period = 6.0 * hw / 16.0
+    X = np.empty((n, hw, hw, 3), np.float32)
+    for lo in range(0, n, 256):
+        yc = y[lo:lo + 256]
+        phase = 2 * np.pi * torch.rand(len(yc), generator=gen, device=dev)
+        t = (torch.cos(angles[yc])[:, None, None] * xx
+             + torch.sin(angles[yc])[:, None, None] * yy)
+        g = torch.sin(2 * np.pi * t / period + phase[:, None, None])
+        x = g[..., None] + sigma * torch.randn((len(yc), hw, hw, 3),
+                                               generator=gen, device=dev)
+        X[lo:lo + len(yc)] = x.cpu().numpy()
+    return X, y.cpu().numpy()
+
+
+def _update_errs(p, want, p0):
+    """(max |update - float64 update| over max |float64 update|, the same
+    in the 2-norm over every parameter)."""
+    big = max(float((want[k] - p0[k]).abs().max()) for k in p0)
+    worst = max(float((p[k] - want[k]).abs().max()) for k in p0)
+    num = sum(float(((p[k] - want[k]) ** 2).sum()) for k in p0)
+    den = sum(float(((want[k] - p0[k]) ** 2).sum()) for k in p0)
+    return worst / big, (num / den) ** 0.5
+
+
+def phase_cls_parity(dev, X, y, seed=41):
+    """AlexNet at 227x227x3 card vs host from one seed's weights: the
+    posteriors and fc7 features of 4 images, one SGD and one Adam (eps
+    1e-3) step of ``make_train_step`` on a padded batch of 32 with the
+    same dropout uniforms (``KeyedDraws``), each device's update held to a
+    float64 step on the card within 1e-2 of its size (in the 2-norm, and
+    at its worst element for SGD); VGG19 at 224x224x3 on 2 images; the pool
+    sweep's images/s and TFLOP/s at f32 and bf16; seconds per Adam
+    step."""
+    spec = create_model("Alex", nclass=CLS_NCLASS, dropout_rate=0.5,
+                        input_shape=(CLS_HW, CLS_HW, 3))
+    host = init_cnn(spec, seed, device="cpu")
+    n_params = sum(p.numel() for p in host.parameters())
+    gflop = cls_flops(spec) / 1e9
+    check(n_params == 71_945_608 and abs(gflop - 2.5244) < 1e-3,
+          f"AlexNet: {n_params} params, {gflop} GFLOP")
+    card = copy.deepcopy(host).to(dev)
+    res = {"params": n_params, "gflop_per_image": gflop}
+    x4 = torch.from_numpy(X[:4])
+    with torch.no_grad():
+        oh, oc = host(x4), card(x4.to(dev))
+    res["posteriors"] = float((oc.posteriors.cpu() - oh.posteriors)
+                              .abs().max())
+    res["feature_rel"] = float((oc.feature.cpu() - oh.feature).abs().max()
+                               / oh.feature.abs().max())
+    check(res["posteriors"] <= 1e-5 and res["feature_rel"] <= 1e-4,
+          f"AlexNet forward card vs host: {res}")
+    # one step on the engine's padded batch: 28 images and 4 zero rows of
+    # weight 0, one-hots, the inverse-frequency class weights
+    b, n_real = 32, 28
+    xb = X[:b].copy()
+    xb[n_real:] = 0.0
+    lab = y[:b].copy()
+    lab[n_real:] = 0
+    w = (np.arange(b) < n_real).astype(np.float32)
+    cw = np.bincount(lab[:n_real], minlength=CLS_NCLASS).astype(np.float64)
+    cw = (cw.sum() / np.maximum(cw, 1.0))
+    cw = (cw / cw.sum() * CLS_NCLASS).astype(np.float32)
+    onehot = np.eye(CLS_NCLASS, dtype=np.float32)[lab]
+    p0 = {k: v.double() for k, v in host.state_dict().items()}
+
+    def stepped(device, opt, dtype=torch.float32):
+        m = copy.deepcopy(host).to(device, dtype)
+        o = (torch.optim.SGD(m.parameters(), lr=0.01) if opt == "sgd" else
+             torch.optim.Adam(m.parameters(), lr=1e-3, eps=1e-3))
+        st = TrainState(model=m, optimizer=o, step=3)
+
+        def t(a):
+            return torch.from_numpy(a).to(device, dtype)
+
+        with deterministic_cudnn():
+            make_train_step(mc_t=10)(st, t(xb), t(onehot), 17, t(w), None,
+                                     t(cw), 1.0)
+        return {k: v.detach().cpu().double()
+                for k, v in m.state_dict().items()}
+
+    for opt in ("sgd", "adam"):
+        with KeyedDraws(seed):
+            sh, sc = stepped("cpu", opt), stepped(dev, opt)
+            s64 = stepped(dev, opt, torch.float64)
+        (mc, nc), (mh, nh) = _update_errs(sc, s64, p0), _update_errs(
+            sh, s64, p0)
+        r = {"update_err_card": mc, "update_err_host": mh,
+             "update_norm_err_card": nc, "update_norm_err_host": nh,
+             "params_card_vs_host": max(float((sc[k] - sh[k]).abs().max())
+                                        for k in p0)}
+        res[f"step_{opt}"] = r
+        # f32 puts AlexNet's forward ~2e-6 off float64, which moves some
+        # argmaxes of the overlapping 3x3 max-pools: the f32 update is only
+        # good to ~1e-3 of its size on either device (a wrong mask, weight
+        # or pad would be off by O(0.1-1)).  Adam's first step divides
+        # each entry by its own |g|, so an entry a moved argmax touches
+        # may move by lr: its worst element says nothing, its norm does
+        worst_ok = opt == "adam" or max(mc, mh) <= 1e-2
+        check(worst_ok and max(nc, nh) <= 1e-2,
+              f"AlexNet {opt} step card vs float64: {r}")
+        del sh, sc, s64
+    # seconds per Adam step (eps 1e-8, the engine's) on the card
+    st = TrainState(model=copy.deepcopy(card),
+                    optimizer=None, step=0)
+    st.optimizer = make_optimizer("Adam", 1e-3, st.model.parameters())
+    fn = make_train_step(mc_t=10)
+    args = [torch.from_numpy(a).to(dev) for a in (xb, onehot, w, cw)]
+    times = []
+    with deterministic_cudnn():
+        for r in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(st, args[0], args[1], 100 + r, args[2], None, args[3], 1.0)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    res["adam_step_s"] = min(times[1:])
+    del st
+    # VGG19 at 224x224x3: 2 images card vs host
+    vspec = create_model("VGG19", nclass=CLS_NCLASS, dropout_rate=0.5,
+                         input_shape=(CLS_VGG_HW, CLS_VGG_HW, 3))
+    vhost = init_cnn(vspec, seed, device="cpu")
+    xv = torch.from_numpy(np.ascontiguousarray(
+        X[4:6, :CLS_VGG_HW, :CLS_VGG_HW]))
+    with torch.no_grad():
+        vh = vhost(xv)
+        vc = copy.deepcopy(vhost).to(dev)(xv.to(dev))
+    res["vgg19"] = {"params": sum(p.numel() for p in vhost.parameters()),
+                    "gflop_per_image": cls_flops(vspec) / 1e9,
+                    "posteriors": float((vc.posteriors.cpu() - vh.posteriors)
+                                        .abs().max()),
+                    "feature_rel": float((vc.feature.cpu() - vh.feature)
+                                         .abs().max()
+                                         / vh.feature.abs().max())}
+    check(res["vgg19"]["posteriors"] <= 1e-5
+          and res["vgg19"]["feature_rel"] <= 1e-4,
+          f"VGG19 forward card vs host: {res['vgg19']}")
+    del vhost, vh, vc
+    # the pool sweep (posteriors + features, chunks of 256 from host
+    # memory) at f32 and bf16, and the forward of one resident chunk
+    sweep = {}
+    xs = torch.from_numpy(X[:256]).to(dev)
+    for name, cd in (("float32", None), ("bfloat16", torch.bfloat16)):
+        cls_mod.batched_forward(spec, card, X[:512], 256,
+                                ("posteriors", "feature_layer"),
+                                as_device=True, compute_dtype=cd)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cls_mod.batched_forward(spec, card, X, 256,
+                                ("posteriors", "feature_layer"),
+                                as_device=True, compute_dtype=cd)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: card(xs if cd is None else xs.to(cd)),
+                             reps=5)
+        sweep[name] = {"seconds": sec, "images_per_s": len(X) / sec,
+                       "tflops": len(X) * gflop / sec / 1e3,
+                       "peak_bytes": torch.cuda.max_memory_allocated(),
+                       "resident_chunk_ms": fwd_ms,
+                       "resident_tflops": 256 * gflop / fwd_ms}
+    res["sweep"] = sweep
+    print(f"cls parity ok (AlexNet {n_params} params, {gflop:.4f} GFLOP an "
+          f"image; VGG19 {res['vgg19']['params']} params, "
+          f"{res['vgg19']['gflop_per_image']:.3f} GFLOP): "
+          f"{json.dumps(res)}")
+    return res, spec, card
+
+
+def phase_cls_k1(dev, spec, card, X):
+    """K1 at the classification shape: P the campaign pool's ``pad_rows``
+    bucket (3,257 AlexNet fc7 rows zero-padded to 4,096) x 4096, R the
+    labeled bucket of rounds 0 and 1 (20 and 30 rows, repeat-padded to
+    256) x 4096, against the plain version within 1e-5; ms beside the
+    bound and ``matmul + amax``."""
+    n_pool = CLS_N - int(0.2 * CLS_N) - 20
+    F = cls_mod.batched_forward(spec, card, X[:n_pool + 30], 256,
+                                ("feature_layer",),
+                                as_device=True)["feature_layer"]
+    P = normalize_rows(rep_mod.pad_rows(F[:n_pool])[0]).contiguous()
+    n, d = P.shape
+    check((n, d) == (4096, 4096), f"cls pool bucket {tuple(P.shape)}")
+    base = ops.similarity.KERNEL.launches
+    errs, Rs = {}, {}
+    for m in (20, 30):
+        R = normalize_rows(rep_mod.pad_rows_repeat(F[n_pool:n_pool + m],
+                                                   256)).contiguous()
+        Rs[m] = R
+        got = rowmax_similarity(P, R)
+        torch.cuda.synchronize()
+        errs[f"labeled{m}"] = float((got - rowmax_similarity_plain(P, R))
+                                    .abs().max())
+    check(all(e <= 1e-5 for e in errs.values()),
+          f"K1 at the classification shape: max |delta| {errs}")
+    R = Rs[30]
+    ms = time_ms(lambda: rowmax_similarity(P, R), reps=50)
+    plain = time_ms(lambda: rowmax_similarity_plain(P, R), reps=20)
+    lib = time_ms(lambda: torch.matmul(P, R.T).amax(dim=1), reps=50)
+    ops.similarity.KERNEL.launches = base
+    m = R.shape[0]
+    flops, nbytes = 2.0 * n * m * d, (n * d + m * d + n) * 4
+    b_ms, b_by = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
+    res = {"errors": errs, "shapes": {"P": [n, d], "R": [m, d]},
+           "ms": ms, "plain_ms": plain, "library_ms": lib,
+           "bound_ms": b_ms, "bound_by": b_by,
+           "bytes_bound_ms": nbytes / PEAK_HBM_BYTES * 1e3}
+    print(f"K1 at the classification shape ok: {json.dumps(res)}")
+    return res
+
+
+def _drop_method_npz(root, method):
+    mdir = os.path.join(root, "0", method)
+    if os.path.isdir(mdir):
+        _drop_checkpoints(mdir)
+
+
+def _cls_runs(dev, top, pool, runs, tag, k=CLS_K):
+    """Each run through ``run_classification_al(..., device="cuda")``: the
+    13 strategies share one root (one split and initial model), each
+    extra run has its own; launch counts zeroed just before each run and
+    read just after, its checkpoints dropped once checked."""
+    out = {"seconds": {}, "phases": {}, "by_method": {}, "peaks": {},
+           "accs": {}}
+    ops.reset_launch_counts()
+    for name, overrides, rounds in runs:
+        method = name.split("@")[0]
+        key = tag + name
+        root = os.path.join(top, name.replace("@", "_") if "@" in name
+                            else "main")
+        # fi may return fewer than k picks a round (its PMF is drawn with
+        # replacement and deduplicated): it runs to k queries, in as many
+        # rounds as that takes
+        budget = k if rounds is None else k * rounds
+        k1_0 = ops.similarity.KERNEL.launches
+        k2_0 = ops.gather.KERNEL.launches
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        accs = run_querying.run_classification_al(
+            root, pool, [method], budget, overrides, device=str(dev))
+        out["seconds"][key] = time.perf_counter() - t0
+        out["peaks"][key] = torch.cuda.max_memory_allocated()
+        dk1 = ops.similarity.KERNEL.launches - k1_0
+        dk2 = ops.gather.KERNEL.launches - k2_0
+        out["by_method"][key] = {"rowmax_similarity": dk1,
+                                 "gather_patches_normalized": dk2}
+        accs = np.atleast_1d(accs[method])
+        out["accs"][key] = accs.tolist()
+        mdir = os.path.join(root, "0", method)
+        picks = [np.atleast_1d(np.loadtxt(os.path.join(
+            mdir, "queries", f"{i}.txt"), dtype=np.int64))
+            for i in range(len(accs))]
+        n_rounds = len(accs)
+        check((n_rounds == rounds if rounds else 1 <= n_rounds <= k)
+              and bool(np.isfinite(accs).all())
+              and bool(((accs >= 0) & (accs <= 1)).all())
+              and all(1 <= len(q) <= k for q in picks)
+              and sum(len(q) for q in picks) == budget
+              and (method == "fi" or all(len(q) == k for q in picks)),
+              f"cls {key}: accs {accs}, picks {[len(q) for q in picks]}")
+        check(dk2 == 0, f"cls {key}: K2 launched {dk2} times")
+        if method == "core-set":
+            check(dk1 >= n_rounds, f"cls {key}: K1 launched {dk1} times")
+        with open(os.path.join(mdir, "phases.jsonl")) as f:
+            out["phases"][key] = [json.loads(line) for line in f]
+        rows = out["phases"][key]
+        check(len(rows) == n_rounds and all(
+            ("committee" in r) == (method in COMMITTEE) for r in rows),
+            f"cls {key}: phase rows {rows}")
+        if "consistency_coeff" in overrides:
+            with np.load(os.path.join(mdir, "curr_weights.npz")) as z:
+                check(any(f.startswith("teacher/") for f in z.files),
+                      f"cls {key}: no teacher group")
+        _drop_method_npz(root, method)
+        print(f"cls campaign {key}: accuracy per round {accs.tolist()}, "
+              f"picks per round {[len(q) for q in picks]}, "
+              f"{out['seconds'][key]:.3f} s, K1 +{dk1}, K2 +{dk2}, peak "
+              f"{out['peaks'][key] / 2**30:.2f} GiB, rounds "
+              + json.dumps([{p: r[p] for p in (
+                  "score_select", "committee", "train", "eval",
+                  "checkpoint") if p in r} for r in rows]))
+    out["counts"] = {kk.name: kk.launches for kk in ops.KERNELS}
+    return out
+
+
+def phase_cls_resume(dev, top, pool):
+    """Classification resume == continue: entropy, 3 rounds, anchors every
+    2 rounds; the second run loses its resume-point writes for 2 rounds
+    and the next ``run_classification_al`` call replays both retrains:
+    ``queries/``, ``accs.txt``, ``predicts.txt`` and ``curr_weights.npz``
+    bit-identical."""
+    roots = [os.path.join(top, "resume", n) for n in ("a", "b")]
+    ov = "ckpt_full_every=2"
+
+    def artifacts(root):
+        mdir = os.path.join(root, "0", "entropy")
+        with np.load(os.path.join(mdir, "curr_weights.npz")) as z:
+            w = {k: z[k] for k in z.files}
+        txt = {f: open(os.path.join(mdir, f)).read()
+               for f in ("accs.txt", "predicts.txt")}
+        txt.update({f: open(os.path.join(mdir, "queries", f)).read()
+                    for f in sorted(os.listdir(os.path.join(mdir,
+                                                            "queries")))})
+        return w, txt
+
+    t0 = time.perf_counter()
+    run_querying.run_classification_al(roots[0], pool, ["entropy"],
+                                       3 * CLS_K, ov, device=str(dev))
+    a_s = time.perf_counter() - t0
+    # the run and the method first (0 queries), then 2 rounds whose
+    # resume-point writes are lost
+    run_querying.run_classification_al(roots[1], pool, ["entropy"], 0, ov,
+                                       device=str(dev))
+    orig = experiment_mod.save_checkpoint
+    experiment_mod.save_checkpoint, dropped = _suppressed_resume_writes(orig)
+    try:
+        run_querying.run_classification_al(roots[1], pool, ["entropy"],
+                                           2 * CLS_K, ov, device=str(dev))
+    finally:
+        experiment_mod.save_checkpoint = orig
+    check(len(dropped) >= 1, f"cls resume: dropped writes {dropped}")
+    t0 = time.perf_counter()
+    run_querying.run_classification_al(roots[1], pool, ["entropy"],
+                                       3 * CLS_K, ov, device=str(dev))
+    resume_s = time.perf_counter() - t0
+    (wa, ta), (wb, tb) = artifacts(roots[0]), artifacts(roots[1])
+    diff = sorted(k for k in set(wa) | set(wb)
+                  if k not in wa or k not in wb
+                  or not np.array_equal(wa[k], wb[k]))
+    res = {"rounds": 3, "ckpt_full_every": 2, "entries": len(wa),
+           "differing_entries": diff, "texts_equal": ta == tb,
+           "files": sorted(ta), "uninterrupted_s": a_s,
+           "resume_with_replay_s": resume_s}
+    check(not diff and ta == tb and len(ta) == 5,
+          f"cls resume != continue on the card: {res}")
+    shutil.rmtree(os.path.join(top, "resume"), ignore_errors=True)
+    print(f"cls resume == continue ok (bit for bit): {json.dumps(res)}")
+    return res
+
+
+def phase_cls(dev):
+    """The classification phases (module docstring)."""
+    top = os.path.join(ROOT, "_smoke_expr", "cls")
+    shutil.rmtree(top, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        X, y = cls_dataset(dev, CLS_N, CLS_HW)
+        data_s = time.perf_counter() - t0
+        parity, spec, card = phase_cls_parity(dev, X, y)
+        k1 = phase_cls_k1(dev, spec, card, X)
+        del card
+        pool = InMemoryPool(X, y)
+        runs = [(n, ov, None if n == "fi" else
+                 1 if n in CLS_ONE_ROUND else 2) for n, ov in CLS_RUNS]
+        campaign = _cls_runs(dev, top, pool, runs, "")
+        resume = phase_cls_resume(dev, top, pool)
+        del pool, X, y
+        Xv, yv = cls_dataset(dev, CLS_VGG_N, CLS_VGG_HW, seed=1)
+        vgg = _cls_runs(dev, os.path.join(top, "vgg"), InMemoryPool(Xv, yv),
+                        [(m, "model_name=VGG19", 1)
+                         for m in ("entropy", "core-set")], "vgg19/")
+        del Xv, yv
+        Xs, ys = synthetic_mnist()
+        t1 = time.perf_counter()
+        harness = run_comparison(Xs, ys, 10, device=str(dev))
+        harness_s = time.perf_counter() - t1
+        check(all(len(c) == 10 and np.isfinite(c).all()
+                  for c in harness.values()), f"softmax harness {harness}")
+        print("softmax harness on the card ok ({:.3f} s): {}".format(
+            harness_s, json.dumps({m: c.tolist()
+                                   for m, c in harness.items()})))
+        return {"parity": parity, "k1": k1, "campaign": campaign,
+                "resume": resume, "vgg": vgg, "data_s": data_s,
+                "harness": {"seconds": harness_s,
+                            "curves": {m: c.tolist()
+                                       for m, c in harness.items()}},
+                "seconds": time.perf_counter() - t0}
+    finally:
+        shutil.rmtree(top, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3367,6 +3837,7 @@ def main() -> int:
     determinism = phase_determinism_cost(dev)
     multi = phase_multi(dev)
     dense = phase_dense(dev)
+    cls = phase_cls(dev)
     phases, seconds, by_method, peaks, notes = {}, {}, {}, {}, {}
     for _, ph, sec, bym, pk, nt in (f32, bf16):
         phases.update(ph)
@@ -3435,11 +3906,29 @@ def main() -> int:
          for k in ("float32", "bfloat16")})
         + f" at {DENSE_GFLOP} GFLOP a slice; dense phases "
         f"{dense['seconds']:.3f} s")
+    cc, cv = cls["campaign"], cls["vgg"]
+    print("per-round seconds of the classification runs (AlexNet "
+          "227x227x3, VGG19 224x224x3; card above), with campaign seconds "
+          "and peak bytes: " + json.dumps({
+              k: {"rounds": [{p: r[p] for p in (
+                  "score_select", "committee", "train", "eval",
+                  "checkpoint") if p in r} for r in c["phases"][k]],
+                  "campaign_s": c["seconds"][k],
+                  "peak_bytes": c["peaks"][k]}
+              for c in (cc, cv) for k in c["phases"]}))
+    print("classification pool sweep (AlexNet, 4,096 images of "
+          "227x227x3, card above): " + json.dumps(cls["parity"]["sweep"])
+          + f"; classification phases {cls['seconds']:.3f} s")
     for r in rows:
         n = r["name"]
         r["launches"] = (f32[0][n] + bf16[0][n] + mf["counts"][n]
                          + mb["counts"][n] + df["counts"][n]
-                         + db["counts"][n] + dm["counts"][n])
+                         + db["counts"][n] + dm["counts"][n]
+                         + cc["counts"][n] + cv["counts"][n])
+        r["launches_cls_campaign"] = cc["counts"][n]
+        r["launches_cls_vgg19"] = cv["counts"][n]
+        r["launches_by_cls_run"] = {m: c[n] for d in (cc, cv)
+                                    for m, c in d["by_method"].items()}
         r["launches_dense_f32_campaign"] = df["counts"][n]
         r["launches_dense_bf16_campaign"] = db["counts"][n]
         r["launches_dense_multi_campaign"] = dm["counts"][n]
@@ -3455,6 +3944,7 @@ def main() -> int:
         r["kernel_ms"], r["max_err"] = r["ms"], r["max_abs_err"]
         if n == "rowmax_similarity":
             r["at_d16"] = dense["k1"]
+            r["at_cls"] = cls["k1"]
     print(json.dumps({"phases": phases, "campaign_s": seconds,
                       "build_s": build_s,
                       "build_s_per_kernel": {k.name: k.build_s
@@ -3473,6 +3963,11 @@ def main() -> int:
                       "campaign_peak_bytes": peaks,
                       "dense": {k: dense[k] for k in (
                           "parity", "sweep", "resume", "seconds")},
+                      "cls": {k: cls[k] for k in (
+                          "parity", "resume", "harness", "data_s",
+                          "seconds")},
+                      "cls_phases": {**cc["phases"], **cv["phases"]},
+                      "cls_accs": {**cc["accs"], **cv["accs"]},
                       "dense_phases": {**df["phases"], **db["phases"],
                                        **{"multi/" + k: v for k, v in
                                           dm["phases"].items()}},

@@ -16,9 +16,10 @@ every per-round stream is a ``fold`` of the seed, not of the live key.
 Device keys are plain integer seeds.  :func:`fold_key` is the
 counterpart of ``jax.random.fold_in`` (a keyed consumer's seed from a
 parent seed and a tag) and :func:`key_generator` turns a key and a tag
-into a ``torch.Generator`` on a device.  Every stochastic scoring pass
-(MC-dropout chunks, perturbation noise, BatchBALD and BADGE draws) gets
-its generator from these two alone and treats the key as opaque, so a
+into a ``torch.Generator`` on a device (:func:`key_stream` without a
+tag; :func:`int_key` makes a key of a host-drawn integer).  Every
+stochastic scoring pass (MC-dropout chunks, perturbation noise,
+BatchBALD and BADGE draws) gets its generator from these alone and treats the key as opaque, so a
 test can substitute both, and the draw functions of the consumers (and
 :func:`gumbel`, which BatchBALD and BADGE share), to feed JAX's own
 threefry draws through the port.
@@ -49,6 +50,20 @@ def key_generator(key: int, tag, device) -> torch.Generator:
     keyed consumer's stream (a chunk of a sweep, a selection's draws).  A
     consumer keyed this way draws the same whatever ran before it."""
     return torch.Generator(device=device).manual_seed(fold_key(key, tag))
+
+
+def key_stream(key: int, device) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` drawing from ``key`` itself, no
+    tag folded in: where JAX hands a key straight to its consumer (the
+    classification step's dropout, the classification BADGE's draws)."""
+    return torch.Generator(device=device).manual_seed(int(key))
+
+
+def int_key(n: int) -> int:
+    """The device key of a host-drawn integer (JAX's
+    ``jax.random.key(n)``): the classification strategies draw ``n`` from
+    the round's host stream and key their device draws on it."""
+    return int(n)
 
 
 def gumbel(shape, generator: torch.Generator, device,

@@ -3,7 +3,8 @@
 The resume arithmetic (``replay_prefix_lens``, ``reconcile_membership``,
 both with the multi-subject engine's ``matrix`` journals) is copied as is,
 so a crash-resumed port campaign replays exactly like a JAX one;
-``maybe_reset_opt`` is ``opt_reset_per_round``'s warm restart and
+``maybe_reset_opt`` is ``opt_reset_per_round``'s warm restart,
+``cached_tx`` the classification engine's optimizer reuse, and
 ``write_checkpoint`` runs a save now or from the writer thread.
 ``check_slice_config`` rejects the one configuration key whose code path
 the port does not carry yet — ``data_parallel`` > 1 — naming it, rather
@@ -51,16 +52,25 @@ def dense_model_kwargs(model_cfg) -> dict:
     return kw
 
 
-def check_slice_config(cfg) -> None:
+def check_slice_config(cfg, classification: bool = False) -> None:
     """Raise ``NotImplementedError`` naming the first config key that
     selects a path the port does not have yet, and ``ValueError`` for a
     ``dtype`` / ``train_dtype`` / ``ckpt_dtype`` or a
-    ``consistency_measure`` the JAX package rejects."""
+    ``consistency_measure`` the JAX package rejects.  The classification
+    engine warns on ``data_parallel`` > 1 instead, as the JAX package's
+    does (``experiment.py:47-55``): that key shards the patch-wise
+    engines' sweeps only."""
     m, q = cfg.model, cfg.query
     if int(getattr(q, "data_parallel", 1)) > 1:
-        raise NotImplementedError(
-            "config key data_parallel is not supported by the PyTorch port "
-            "yet")
+        if not classification:
+            raise NotImplementedError(
+                "config key data_parallel is not supported by the PyTorch "
+                "port yet")
+        import warnings
+
+        warnings.warn("data_parallel > 1 applies to the patch-wise "
+                      "engines' grid-pool scoring; the classification "
+                      "engine runs single-device", stacklevel=3)
     # the dtype strings and the consistency measure: raise where the JAX
     # package would, but up front
     if (float(getattr(m, "consistency_coeff", 0.0)) > 0.0
@@ -195,6 +205,19 @@ def maybe_reset_opt(state, model_cfg) -> None:
     without the moments in any checkpoint."""
     if getattr(model_cfg, "opt_reset_per_round", False):
         state.optimizer.state.clear()
+
+
+def cached_tx(engine, model_cfg):
+    """The optimizer factory of the last ``run_method`` call when the
+    (optimizer, lr) config is unchanged, else None (the caller builds one
+    and stores it as ``engine._tx``; JAX ``common.py:123-135``).  The
+    port's "transformation" is ``tx(params) -> torch.optim.Optimizer``,
+    the counterpart of optax's ``tx.init(params)``."""
+    key = (model_cfg.optimizer_name, model_cfg.learning_rate)
+    if getattr(engine, "_tx_key", None) == key:
+        return getattr(engine, "_tx", None)
+    engine._tx_key = key
+    return None
 
 
 def reconcile_membership(j, train_inds, pool_inds, *, matrix: bool = False,

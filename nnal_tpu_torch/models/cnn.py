@@ -57,7 +57,8 @@ Semantics kept from the JAX package:
   the bias in f32 and rounds once to bf16 (``_main_op``, ``cnn.py:329-367``);
   a transposed conv runs in bf16 and adds a bf16 bias, batch norm,
   activations, pools and dropout run in bf16, and the logits are upcast to
-  f32 before softmax and argmax (``cnn.py:247``);
+  f32 before softmax and argmax (``cnn.py:247``); a float64 input (the
+  reference steps of ``chip_smoke.py``) runs every op at float64;
 * an aleatoric spec (``specs.with_aleatoric_head``) doubles the last
   layer: its output splits into ``logits`` (the first ``nclass``
   columns, which the posteriors and the prediction read) and
@@ -366,7 +367,7 @@ class CNN(nn.Module):
         if layer.kind in ("conv", "pool", "avgpool"):
             h = self.pad_input(layer, h)
         if layer.kind == "conv":
-            if dt == torch.float32:
+            if dt.itemsize >= 4:               # f32, or an f64 reference
                 return mod(h)
             return (conv2d_f32acc(h, mod.weight.to(dt), mod.stride,
                                   mod.padding)
@@ -383,7 +384,7 @@ class CNN(nn.Module):
             return s / h.new_full((), float(np.prod(layer.ksize)))
         if h.dim() > 2:
             h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
-        if dt == torch.float32:
+        if dt.itemsize >= 4:
             return mod(h)
         return (linear_f32acc(h, mod.weight.to(dt)) + mod.bias.to(dt)).to(dt)
 
@@ -393,7 +394,7 @@ class CNN(nn.Module):
         conv of the flipped kernel, cropped (or zero-extended) by ``F.pad``
         to XLA's window, plus the bias at ``h``'s dtype."""
         w = mod.weight.transpose(0, 1).flip(2, 3)
-        if dt == torch.float32 or h.device.type == "cuda":
+        if dt.itemsize >= 4 or h.device.type == "cuda":
             y = F.conv_transpose2d(h, w.to(dt), None, mod.stride)
         else:
             # the host's bf16 transposed conv: f32 sums rounded once
@@ -473,7 +474,7 @@ class CNN(nn.Module):
         log_sigma = None
         if self.spec.aleatoric:
             h, log_sigma = h.chunk(2, dim=-1)
-        logits = h.float()
+        logits = h if h.dtype == torch.float64 else h.float()
         return CNNOutput(logits=logits,
                          posteriors=torch.softmax(logits, dim=-1),
                          prediction=torch.argmax(logits, dim=-1),

@@ -2,9 +2,11 @@
 
 ``extend_params_to_aleatoric`` works on the JAX-layout params tree (numpy
 in, numpy out), so a checkpoint of either package can be extended; load
-the result into a ``CNN`` built from ``specs.with_aleatoric_head``.  The
-VGG19 h5 import waits for the classification engine (ROADMAP Queue 1
-item 10).
+the result into a ``CNN`` built from ``specs.with_aleatoric_head``.
+``import_keras_vgg_weights`` (the VGG19 Keras-h5 import,
+NNAL_tools.py:986-1048) returns the same JAX-layout tree; load it with
+``CNN.load_state_dict(bridge.from_jax_params(...))``.  ``h5py`` is
+imported only when a file is read.
 """
 
 from __future__ import annotations
@@ -27,4 +29,31 @@ def extend_params_to_aleatoric(params: Dict, last_layer: str) -> Dict:
     extb[:b.shape[0]] = b
     out[last_layer]["W"] = extW
     out[last_layer]["b"] = extb
+    return out
+
+
+def import_keras_vgg_weights(h5_path: str, params_template: Dict,
+                             layer_map: Dict[str, str]) -> Dict:
+    """Import Keras-layout VGG weights (reference ``read_pretrained_VGG19``
+    / ``load_weights_VGG19``, NNAL_tools.py:986-1048): conv kernels are
+    already HWIO; dense kernels are (in, out), as in the JAX-layout tree, so
+    only naming differs.  ``layer_map``: our layer name -> h5 group name."""
+    import h5py
+
+    out = {k: {kk: np.asarray(vv) for kk, vv in v.items()}
+           for k, v in params_template.items()}
+    with h5py.File(h5_path, "r") as f:
+        for ours, theirs in layer_map.items():
+            grp = f[theirs]
+            keys = sorted(grp.keys())
+            w_key = next(k for k in keys if "W" in k or "kernel" in k)
+            b_key = next(k for k in keys if "b" in k.lower()
+                         and k != w_key)
+            W = np.asarray(grp[w_key])
+            if W.shape != out[ours]["W"].shape and \
+                    W.T.shape == out[ours]["W"].shape:
+                W = W.T
+            out[ours]["W"] = W
+            out[ours]["b"] = np.asarray(grp[b_key]).reshape(
+                out[ours]["b"].shape)
     return out

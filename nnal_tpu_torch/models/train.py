@@ -38,6 +38,16 @@ step's bf16 copies, the teacher forwards on bf16 copies of its own, and
 the EMA stays f32.  ``torch.autocast`` is not used: it picks its own cast
 points, which would not mirror the JAX casts.
 
+The classification engine's step (:func:`make_train_step`,
+``train.py:65-147``) takes one optimizer step on one padded batch: the
+same labeled terms (without class weights on the aleatoric CE, as that
+step has none there), and the mean teacher's consistency of the
+student's labeled pass (with dropout) with the teacher on the SAME batch
+(clean, on its batch statistics), times ``coeff(step) x cc_scale``.  Its
+dropout reads the step key the engine folds (``fold_key(jrng, step)``)
+as is (``core/rng.key_stream``), and the aleatoric normals take
+``fold_key(key, 1)``.  The engine does the EMA update after the step.
+
 The dense finetune (:func:`finetune_fcn_steps`, ``train.py:360-505``)
 trains on whole slices: the per-pixel CE is weighted by ``wpix`` (1, or
 the class weight, at the queried voxels and 0 elsewhere) and divided by
@@ -185,6 +195,30 @@ def cast_for_forward(compute_dtype, model, x):
             x.to(compute_dtype))
 
 
+def _labeled_loss(out, y, w, class_weights, key_i, mc_t,
+                  lwf: Optional[LwF], lwf_old, cw_on_aleatoric: bool = True):
+    """The labeled terms of a step's loss from the student's forward
+    ``out``: the CE (the aleatoric CE on a sigma head, its normals keyed
+    ``fold_key(key_i, 1)``) times the class weight (None: unweighted; the
+    classification step leaves the aleatoric CE unweighted), as a
+    ``w``-weighted mean, plus LwF against ``lwf_old``."""
+    if out.log_sigma is not None:
+        per = aleatoric_ce_per_sample(
+            out.logits, out.log_sigma.float(), y,
+            core_rng.key_generator(key_i, ALEATORIC_FOLD, y.device), mc_t)
+        weighted = cw_on_aleatoric
+    else:
+        per = -(y * torch.log_softmax(out.logits, dim=-1)).sum(-1)
+        weighted = True
+    if weighted and class_weights is not None:
+        per = per * (y * class_weights).sum(-1)
+    loss = weighted_mean(per, w)
+    if lwf is not None:
+        loss = loss + lwf.lam * lwf_distillation(out.logits, lwf_old, w,
+                                                 lwf.T)
+    return loss
+
+
 def _step_loss(model, x, y, w, class_weights, key, i, dropout,
                compute_dtype, mc_t, lwf: Optional[LwF], lwf_old, teacher,
                mt: Optional[MeanTeacher], xu):
@@ -198,16 +232,8 @@ def _step_loss(model, x, y, w, class_weights, key, i, dropout,
 
     fwd, xc = cast_for_forward(compute_dtype, model, x)
     out = fwd(xc, train=True, generator=gen(key, i))
-    if out.log_sigma is not None:
-        per = aleatoric_ce_per_sample(
-            out.logits, out.log_sigma.float(), y,
-            core_rng.key_generator(key_i, ALEATORIC_FOLD, dev), mc_t)
-    else:
-        per = -(y * torch.log_softmax(out.logits, dim=-1)).sum(-1)
-    loss = weighted_mean(per * (y * class_weights).sum(-1), w)
-    if lwf is not None:
-        loss = loss + lwf.lam * lwf_distillation(out.logits, lwf_old, w,
-                                                 lwf.T)
+    loss = _labeled_loss(out, y, w, class_weights, key_i, mc_t, lwf,
+                         lwf_old)
     if mt is not None:
         s_out = fwd(xu if compute_dtype is None else xu.to(compute_dtype),
                     train=True, generator=gen(key_i, STUDENT_UNLAB_FOLD))
@@ -219,22 +245,27 @@ def _step_loss(model, x, y, w, class_weights, key, i, dropout,
     return loss
 
 
+def _opt_step(state: TrainState, loss: torch.Tensor, grad_mask,
+              mt: Optional[MeanTeacher]) -> None:
+    """Backward, the ``train_layers`` mask, the optimizer step and, under
+    the mean teacher, the EMA update after it."""
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    apply_grad_mask(state.model, grad_mask)
+    state.optimizer.step()
+    if mt is not None:
+        ema_update(state.teacher, state.model, mt.ema_decay)
+
+
 def _run_steps(state: TrainState, steps, step_loss, grad_mask,
                mt: Optional[MeanTeacher]) -> List[float]:
-    """One optimizer step per entry of ``steps`` with ``step_loss(i)``:
-    backward, the ``train_layers`` mask, the step and, under the mean
-    teacher, the EMA update after it.  Host floats of the losses are pulled
-    at the end, so the loop never waits on the card."""
-    model, opt = state.model, state.optimizer
+    """One :func:`_opt_step` per entry of ``steps`` with ``step_loss(i)``.
+    Host floats of the losses are pulled at the end, so the loop never
+    waits on the card."""
     losses = []
     for i in steps:
         loss = step_loss(int(i))
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        apply_grad_mask(model, grad_mask)
-        opt.step()
-        if mt is not None:
-            ema_update(state.teacher, model, mt.ema_decay)
+        _opt_step(state, loss, grad_mask, mt)
         losses.append(loss.detach())
     return [float(v) for v in torch.stack(losses).cpu()] if losses else []
 
@@ -274,6 +305,49 @@ def finetune_steps(state: TrainState, x_all: torch.Tensor,
                         step_loss, grad_mask, mt)
     state.step += int(idx_mat.shape[0])
     return losses
+
+
+def make_train_step(*, mc_t: int = 10, lwf_lambda: float = 0.0,
+                    lwf_T: float = 2.0, compute_dtype=None,
+                    grad_mask: Optional[Dict[str, float]] = None,
+                    consistency_coeff=None,
+                    consistency_measure: str = "CE"):
+    """The classification engine's train step (``make_train_step``,
+    ``train.py:65-147``; module docstring): returns ``step_fn(state, x,
+    y, key, w=None, old_logits=None, cw=None, cc_scale=1.0)``, which
+    takes one optimizer step of ``state`` on the batch ``x`` (channels
+    last) with one-hots ``y``, row weights ``w`` (zero on padding rows),
+    the runtime class-weight vector ``cw`` and, with ``lwf_lambda > 0``,
+    the previous model's logits ``old_logits`` of ``x``; ``key`` is the
+    step's dropout key.  ``consistency_coeff(step)`` (host float32, the
+    engine's ramp) times ``cc_scale`` weighs the mean teacher's term when
+    ``state.teacher`` is set.  Returns the loss (a device scalar); the
+    caller advances ``state.step`` and updates the teacher."""
+    def step_fn(state: TrainState, x, y, key, w=None, old_logits=None,
+                cw=None, cc_scale: float = 1.0) -> torch.Tensor:
+        model = state.model
+        if w is None:
+            w = x.new_ones(x.shape[0])
+        fwd, xc = cast_for_forward(compute_dtype, model, x)
+        out = fwd(xc, train=True,
+                  generator=core_rng.key_stream(key, x.device))
+        lwf = (LwF(old_logits, lwf_lambda, lwf_T)
+               if lwf_lambda > 0.0 and old_logits is not None else None)
+        loss = _labeled_loss(out, y, w, cw, key, mc_t, lwf, old_logits,
+                             cw_on_aleatoric=False)
+        if consistency_coeff is not None and state.teacher is not None:
+            with torch.no_grad():
+                t_fwd, _ = cast_for_forward(compute_dtype, state.teacher, x)
+                t_logits = t_fwd(xc).logits
+            # ``consistency_coeff(step) * cc_scale``, float32 as traced
+            coeff = float(np.float32(consistency_coeff(state.step))
+                          * np.float32(cc_scale))
+            loss = loss + coeff * consistency_loss(out.logits, t_logits,
+                                                   consistency_measure)
+        _opt_step(state, loss, grad_mask, None)
+        return loss.detach()
+
+    return step_fn
 
 
 def _dense_step_loss(model, x, y, wpix, key, i, compute_dtype, teacher,

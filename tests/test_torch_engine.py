@@ -135,12 +135,15 @@ def test_port_imports_no_jax_and_nothing_of_nnal_tpu():
     files = sorted((REPO / "nnal_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
-    # the multi-subject slice's modules are among the scanned
+    # the multi-subject, dense and classification slices' modules are
+    # among the scanned
     scanned = {str(f.relative_to(REPO)) for f in files}
     assert {f"nnal_tpu_torch/{m}.py" for m in (
         "engine/multi_experiment", "engine/sequential", "runtime/native",
         "runtime/gxx", "data/loaders", "data/holders",
-        "scoring/fcn_eval")} <= scanned
+        "scoring/fcn_eval", "engine/experiment", "scoring/cls_strategies",
+        "data/image_pool", "cli/run_querying",
+        "cli/softmax_harness")} <= scanned
     banned = {"jax", "jaxlib", "optax", "flax", "nnal_tpu"}
     for f in files:
         for mod in _imported_modules(f):

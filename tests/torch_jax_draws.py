@@ -60,6 +60,9 @@ def lanczos_start(params, key, device):
 def inject(monkeypatch):
     fold = jax.random.fold_in
     monkeypatch.setattr(core_rng, "fold_key", lambda key, tag: fold(key, tag))
+    monkeypatch.setattr(core_rng, "int_key", lambda n: jax.random.key(n))
+    monkeypatch.setattr(core_rng, "key_stream",
+                        lambda key, device: KeyGen(key))
     monkeypatch.setattr(core_rng, "key_generator",
                         lambda key, tag, device: KeyGen(fold(key, tag)))
     monkeypatch.setattr(
