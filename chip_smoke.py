@@ -205,7 +205,33 @@ Phases, each of which passes or exits non-zero:
    anchors every 2, crashed after round 2); one round each of entropy
    and core-set with VGG19 on 512 images of 224x224x3 (K1 on VGG's fc2
    features); and ``softmax_harness.run_comparison`` on the card;
-19. lines with the new methods' per-round seconds, the MC and perturb
+19. serving (``phase_serving``; ``run_on_subjects`` runs inside the
+   f32 campaign, on its entropy state): PW1 full-volume segmentation of
+   inference_bench.py's 256x256x64 two-modality subject at stride 1
+   (4,194,304 voxels) through ``full_volume_patchwise``, posteriors at
+   f32, bf16 and int8 (``models/quant``, bf16 around it), each after a
+   one-slice warm-up: voxels/s, TFLOP/s, peak memory; bf16's and int8's
+   p1 against f32's (agreement at least 0.9 where |p1 - 0.5| > 0.05);
+   card vs host at f32 on 256 voxels of each of 4 slices (the host's
+   gather route, atol 1e-4); a ``torch.profiler`` window over one int8
+   z-chunk (device time under the ``int8/quantize``, ``int8/im2col``,
+   ``int8/int_mm`` and ``int8/rescale`` ranges, the idle share); the
+   off-grid routes at bf16 (65,536 scattered voxels through the K2
+   gather, K2 launched; a 6-slice ROI through the stride-1 slab sweep,
+   K2 not launched; slab and gather within 2e-2); FC-DenseNet-103
+   ``FCNInference`` over 64 slices of 256x256x2, batch 2, at f32, bf16
+   and int8, and its ``MC-posteriors`` (T 10) card vs host on two
+   128x128 crops with the same draws (1e-4); ``int8_matmul``
+   (``torch._int_mm``) bit-equal to the host's exact sums for every PW1
+   layer and FC-DenseNet-103's widest conv, timed; ``meanfield_crf_2d``
+   card vs host on 256x256 (1e-5) and the native 2-D and 3-D dense CRF
+   (128x128x32), timed, deterministic and lowering the error;
+   ``run_on_subjects`` over two held 128x128x32 subjects, float and int8
+   (F-measures, seconds, the files; int8 segmentations agree with float's
+   on at least 90% of voxels); and a 2-round ``random`` campaign under
+   ``optimizer_name: RMSProp`` stopped after round 1 and resumed, equal
+   to the uninterrupted run bit for bit;
+20. lines with the new methods' per-round seconds, the MC and perturb
    sweeps' rates, the committee campaigns' peak memory, the lever runs'
    per-round seconds, each lever's seconds per finetune step, the
    checkpoint bytes with the teacher, whether the TensorBoard mirror
@@ -216,9 +242,9 @@ Phases, each of which passes or exits non-zero:
    campaigns, build seconds, K1's SASS counts, the FIM, bf16, codec,
    resume, MC, perturbation, selection, second-order, SLIC and
    ``finetune_wpool`` phases, the multi-subject and the dense ones) and
-   one ``kernels`` JSON line (times, bounds, launches in every campaign;
-   K1's row also its times at d = 16 under ``at_d16`` and at the
-   classification shape under ``at_cls``).
+   one ``kernels`` JSON line (times, bounds, launches in every campaign
+   and in the serving phases; K1's row also its times at d = 16 under
+   ``at_d16`` and at the classification shape under ``at_cls``).
 
 The row and column tolerance rules for shrunk gradients and A-matrices:
 the linear head's column is zero in exact arithmetic (a constant added to
@@ -257,6 +283,7 @@ import torch
 from nnal_tpu_torch import ops
 from nnal_tpu_torch.ops._build import stream_ptr
 from nnal_tpu_torch.cli.expr_handler import DEFAULT_PARS, create_expr, do_expr
+from nnal_tpu_torch.cli.run_on_subjects import run_on_subjects
 from nnal_tpu_torch.cli import run_querying
 from nnal_tpu_torch.cli.softmax_harness import run_comparison, synthetic_mnist
 from nnal_tpu_torch.data.image_pool import InMemoryPool
@@ -290,7 +317,23 @@ from nnal_tpu_torch.models.bridge import (
     to_jax_params,
     to_jax_tensors,
 )
-from nnal_tpu_torch.models.cnn import CNN, init_cnn, linear_f32acc
+from nnal_tpu_torch.models.cnn import CNN, init_cnn, int8_matmul, linear_f32acc
+from nnal_tpu_torch.models.quant import (
+    is_quantized,
+    quantize_model,
+    quantize_params,
+)
+from nnal_tpu_torch.evaluation.crf import (
+    dcrf_postprocess_2d,
+    dcrf_postprocess_3d,
+    meanfield_crf_2d,
+)
+from nnal_tpu_torch.evaluation.inference import (
+    FCNInference,
+    full_slice_patchwise,
+    full_volume_patchwise,
+)
+from nnal_tpu_torch.runtime import crf_native
 from nnal_tpu_torch.models.optim import (
     layer_train_mask,
     load_opt_state,
@@ -489,6 +532,19 @@ CLS_ONE_ROUND = {"random", "MC-entropy", "BALD", "BatchBALD", "rep-entropy",
                  "BADGE", "entropy@lwf", "random@bf16"}
 CLS_VGG_N, CLS_VGG_HW = 512, 224
 SWEEP_Z_CHUNK = 4
+# serving (phase_serving): PW1 25x25 patches at stride 1 over SWEEP_SHAPE;
+# card vs host on 256 voxels of each of 4 slices; inference_bench.py's
+# 65,536 scattered off-grid voxels; its fcn_volume (64 slices of
+# 256x256x2, batch 2); the CRF's 256x256 map and 128x128x32 volume; two
+# held subjects for run_on_subjects; RMSProp's resume == continue
+SERVE_PS = (25, 25, 1)
+SERVE_CHECK_SLICES = (0, 21, 42, 63)
+SERVE_CHECK_N = 256
+SERVE_SCATTERED = 65536
+FCN_SERVE = (64, 256, 2)
+CRF_2D, CRF_VOL = 256, (128, 128, 32)
+HELD_SEEDS = (41, 42)
+RMSPROP = OVERRIDES.replace("optimizer_name=Adam", "optimizer_name=RMSProp")
 
 
 class SmokeFailure(Exception):
@@ -2024,8 +2080,8 @@ def phase_fim_sweep(dev, n_check=64, cd=None, ref_unc=None):
 
 def phase_campaign(dev):
     """Each run in its own experiment directory: the f32 campaign,
-    ``finetune_wpool`` and the checkpoint codecs on its entropy state,
-    then the bf16
+    ``finetune_wpool``, the checkpoint codecs and ``run_on_subjects`` on
+    its entropy state, then the bf16
     campaign, each with the launch counts zeroed just before it and read
     just after.  A run's ~0.2-0.4 GB checkpoints are removed once it is
     checked (the f32 entropy state after the codecs), the directories at
@@ -2038,8 +2094,9 @@ def phase_campaign(dev):
         codecs = phase_ckpt_codecs(
             dev, os.path.join(top, "entropy", "entropy", "curr_weights.npz"),
             top)
+        served = phase_run_on_subjects(dev, os.path.join(top, "entropy"))
         bf16 = _campaign(dev, os.path.join(top, "bf16"), BF16_RUNS, "bf16/")
-        return f32, bf16, codecs, wpool
+        return f32, bf16, codecs, wpool, served
     finally:
         shutil.rmtree(top, ignore_errors=True)
 
@@ -3792,6 +3849,468 @@ def phase_cls(dev):
         shutil.rmtree(top, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- serving
+def forward_flops(model, x) -> float:
+    """FLOPs (2 per multiply-add) of the convs and fcs of one forward of a
+    float :class:`CNN` on the one-row batch ``x``, read off its shapes."""
+    total = [0.0]
+
+    def hook(mod, inp, out):
+        per_out = mod.weight[0].numel()         # in * kh * kw, or in
+        total[0] += 2.0 * per_out * out[0].numel()
+
+    hooks = [m.register_forward_hook(hook) for m in model.children()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def _serve_subject(dev):
+    """inference_bench.py's pw_full_volume subject: 256x256x64, two
+    modalities, seed 0, padded for 25x25 patches on the card."""
+    vols, mask = synthetic_subject(shape=SWEEP_SHAPE, n_modalities=2, seed=0)
+    mu = np.array([float(v.mean()) for v in vols])
+    sd = np.array([float(v.std()) for v in vols])
+    return vols, mask, mu, sd, pad_volumes(vols, SERVE_PS, dev)
+
+
+def _serve_ev(spec, padded, mu, sd, cd):
+    """The bench's evaluator: grid spacing 2, z-chunk 4 (its stride-1
+    clone sweeps one 65,536-patch slice a chunk)."""
+    return GridPoolEvaluator(spec, padded, mu, sd, SERVE_PS, SWEEP_SHAPE,
+                             grid_spacing=2, z_chunk=SWEEP_Z_CHUNK,
+                             compute_dtype=cd)
+
+
+def int8_profile(qmodel, ev):
+    """``torch.profiler`` window over one stride-1 int8 z-chunk (65,536
+    patches: extraction, the int8 layers, softmax): device time under each
+    ``int8/*`` range of ``models/cnn._int8_main``, the rest, the top
+    kernels and the card's idle share between the first and last
+    kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ev1 = ev.with_spacing(1)
+    torch.cuda.synchronize()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        ev1._sweep_block(qmodel, 5, ("posteriors",))
+        torch.cuda.synchronize()
+    # the int8/* ranges also appear on the device timeline: kernels only
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("int8/")]
+    busy = sum(e.time_range.elapsed_us() for e in kernels)
+    span = (max(e.time_range.end for e in kernels)
+            - min(e.time_range.start for e in kernels))
+    parts = {}
+    for e in prof.key_averages():
+        if e.key.startswith("int8/"):
+            t = getattr(e, "device_time_total", None)
+            if t is None:
+                t = getattr(e, "cuda_time_total", 0.0)
+            parts[e.key] = t
+    by_kernel = {}
+    for e in kernels:
+        by_kernel[e.name] = by_kernel.get(e.name, 0.0) + \
+            e.time_range.elapsed_us()
+    res = {"device_busy_us": busy, "span_us": span,
+           "idle_share": 1.0 - busy / span,
+           "int8_range_device_us": parts,
+           "outside_int8_ranges_us": busy - sum(parts.values()),
+           "top_kernels_us": sorted(by_kernel.items(),
+                                    key=lambda kv: -kv[1])[:10]}
+    check(set(parts) >= {"int8/quantize", "int8/im2col", "int8/int_mm",
+                         "int8/rescale"} and busy > 0,
+          f"int8 profile ranges missing: {sorted(parts)}")
+    return res
+
+
+def phase_serve_pw(dev):
+    """PW1 full-volume serving (inference_bench.py's pw_full_volume): every
+    voxel of the 256x256x64 subject at stride 1, ``posteriors``, at f32,
+    bf16 and int8 (bf16 surroundings), each after a one-slice warm-up;
+    int8's and bf16's p1 against f32's, card vs host at f32 on 256
+    voxels of each of 4 slices (the host's gather route, atol 1e-4), and
+    a profiler window over one int8 z-chunk."""
+    spec = create_pw1(2, 0.5, (25, 25, 2))
+    model = init_cnn(spec, seed=0, device=dev)
+    qmodel = quantize_model(model)
+    check(is_quantized(qmodel), "quantize_model left float layers")
+    vols, _, mu, sd, padded = _serve_subject(dev)
+    n = int(np.prod(SWEEP_SHAPE))
+    flops = forward_flops(model, torch.zeros((1, 25, 25, 2), device=dev))
+    res, vol = {"flops_per_voxel": flops}, {}
+    for name, cd, m in (("float32", None, model),
+                        ("bfloat16", torch.bfloat16, model),
+                        ("int8", torch.bfloat16, qmodel)):
+        ev = _serve_ev(spec, padded, mu, sd, cd)
+        full_slice_patchwise(ev, m, [0], "posteriors")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        v = full_volume_patchwise(ev, m, "posteriors")
+        secs = time.perf_counter() - t0
+        check(v.shape == SWEEP_SHAPE and v.dtype == np.float32
+              and bool(np.isfinite(v).all()) and 0.0 <= v.min()
+              and v.max() <= 1.0, f"{name} volume {v.shape} {v.dtype}")
+        res[name] = {"voxels_per_s": n / secs, "wall_s": secs,
+                     "tflops": n * flops / secs / 1e12,
+                     "peak_bytes": torch.cuda.max_memory_allocated()}
+        vol[name] = v
+        if name == "int8":
+            res["int8_profile"] = int8_profile(m, ev)
+    p32 = vol["float32"]
+    sure = np.abs(p32 - 0.5) > 0.05
+    for name in ("bfloat16", "int8"):
+        agree = (float(np.mean((vol[name][sure] > 0.5) == (p32[sure] > 0.5)))
+                 if sure.any() else 1.0)
+        res[name].update(
+            max_abs_dp1_vs_f32=float(np.abs(vol[name] - p32).max()),
+            agree_vs_f32=agree, confident_share=float(sure.mean()))
+        check(agree >= 0.9, f"{name} agrees with f32 on {agree:.4f} of the "
+              "confident voxels")
+    s1, s2, s3 = SWEEP_SHAPE
+    rng = np.random.default_rng(7)
+    inds = np.concatenate([rng.choice(s1 * s2, SERVE_CHECK_N, replace=False)
+                           * s3 + z for z in SERVE_CHECK_SLICES])
+    host_ev = PoolEvaluator(spec, pad_volumes(vols, SERVE_PS, "cpu"), mu, sd,
+                            SERVE_PS, SWEEP_SHAPE, ntb=1024)
+    host = host_ev.evaluate(init_cnn(spec, seed=0, device="cpu"), inds,
+                            ("posteriors",))["posteriors"]
+    err = float(np.abs(host - p32.reshape(-1)[inds]).max())
+    res["card_vs_host_f32"] = {"voxels": len(inds),
+                               "slices": list(SERVE_CHECK_SLICES),
+                               "max_abs": err}
+    check(err <= 1e-4, f"full-volume p1 card vs host {err}")
+    print("PW1 full-volume serving ok (256x256x64, stride 1; card above): "
+          + json.dumps({k: res[k] for k in ("float32", "bfloat16", "int8",
+                                            "card_vs_host_f32")}))
+    print("int8 z-chunk profile: " + json.dumps(res["int8_profile"]))
+    return res, spec, model, qmodel, padded, mu, sd
+
+
+def phase_int8_mm(dev, qmodel, dense_q):
+    """``int8_matmul`` (``torch._int_mm``) on the card against its int32
+    plain version on the host, on the same int8 codes: every PW1 layer's
+    weight against a 256-patch batch of codes (convs at their unfolded
+    row counts), and FC-DenseNet-103's widest conv against one 128x128
+    slice.  The accumulators must be bit-equal; each call is timed."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    res = {}
+    layers = [(l.name, getattr(qmodel, l.name), {"conv1": 625, "conv2": 625,
+                                                 "conv3": 169, "conv4": 169
+                                                 }.get(l.name, 1) * 256)
+              for l in qmodel.spec.layers if l.kind in ("conv", "fc")]
+    widest = max((l for l in dense_q.spec.layers if l.kind == "conv"),
+                 key=lambda l: getattr(dense_q, l.name).W_q[0].numel())
+    layers.append((f"dense/{widest.name}", getattr(dense_q, widest.name),
+                   128 * 128))
+    for name, mod, rows in layers:
+        w = mod.W_q.reshape(mod.W_q.shape[0], -1)
+        a = torch.randint(-127, 128, (rows, w.shape[1]), generator=gen,
+                          device=dev, dtype=torch.int8)
+        card = int8_matmul(a, w)
+        host = int8_matmul(a.cpu(), w.cpu())
+        equal = bool(torch.equal(card.cpu(), host))
+        res[name] = {"m": rows, "k": int(w.shape[1]), "n": int(w.shape[0]),
+                     "bit_equal": equal,
+                     "ms": time_ms(lambda: int8_matmul(a, w), 5)}
+        check(equal, f"_int_mm vs its int32 plain version at {name}")
+    print("int8 GEMM card == host (bit for bit): " + json.dumps(res))
+    return res
+
+
+def phase_serve_offgrid(dev, spec, model, padded, mu, sd):
+    """inference_bench.py's offgrid_pool at bf16: 65,536 scattered voxels
+    (the router keeps the per-patch gather: K2 must launch) and a
+    clustered ROI of 80% of 6 slices (the router takes the stride-1 slab
+    sweep), with the gather route's rate on 8,192 of its voxels."""
+    ev = _serve_ev(spec, padded, mu, sd, torch.bfloat16)
+    s1, s2, s3 = SWEEP_SHAPE
+    rng = np.random.RandomState(0)
+    scat = (rng.randint(0, s1, SERVE_SCATTERED) * s2
+            + rng.randint(0, s2, SERVE_SCATTERED)) * s3 \
+        + rng.randint(0, s3, SERVE_SCATTERED)
+    scat[0] = (1 * s2 + 1) * s3 + 1
+    check(not ev._offgrid_dense_worthwhile(scat), "scattered set routed "
+          "to the slab sweep")
+    plane = np.nonzero(rng.rand(s1, s2) < 0.8)
+    base = (plane[0] * s2 + plane[1]) * s3
+    clus = np.concatenate([base + z for z in range(6)])
+    clus[0] = (1 * s2 + 1) * s3
+    check(ev._offgrid_dense_worthwhile(clus), "ROI routed to the gather")
+
+    def timed(fn, inds):
+        fn(inds[:4096])
+        torch.cuda.synchronize()
+        k2 = ops.gather.KERNEL.launches
+        t0 = time.perf_counter()
+        out = fn(inds)
+        return time.perf_counter() - t0, out, ops.gather.KERNEL.launches - k2
+
+    def routed(inds):
+        return ev.evaluate(model, inds, ("posteriors",))["posteriors"]
+
+    def gather(inds):
+        return PoolEvaluator.evaluate(ev, model, inds,
+                                      ("posteriors",))["posteriors"]
+
+    dt_s, out_s, k2_s = timed(routed, scat)
+    dt_c, out_c, k2_c = timed(routed, clus)
+    dt_g, out_g, k2_g = timed(gather, clus[:8192])
+    err = float(np.abs(out_c[:8192] - out_g).max())
+    res = {"scattered": {"n": len(scat), "patches_per_s": len(scat) / dt_s,
+                         "wall_s": dt_s, "k2_launches": k2_s},
+           "clustered": {"n": len(clus), "slices": 6,
+                         "patches_per_s": len(clus) / dt_c, "wall_s": dt_c,
+                         "k2_launches": k2_c},
+           "clustered_gather_route": {"n": 8192,
+                                      "patches_per_s": 8192 / dt_g,
+                                      "k2_launches": k2_g},
+           "slab_vs_gather_max_abs_bf16": err}
+    check(k2_s >= len(scat) // 4096 and k2_c == 0 and k2_g >= 2,
+          f"K2 launches: scattered {k2_s}, ROI {k2_c}, gather {k2_g}")
+    check(bool(np.isfinite(out_s).all()) and err <= 2e-2,
+          f"off-grid routes part: {err}")
+    print("off-grid serving ok (bf16, card above): " + json.dumps(res))
+    return res
+
+
+def phase_serve_fcn(dev):
+    """inference_bench.py's fcn_volume: ``FCNInference`` on FC-DenseNet-103
+    at its published width and depth over 64 random 256x256x2 slices,
+    batch 2, posteriors at f32, bf16 and int8 (the transposed convs
+    float), on the model's BN state; then ``MC-posteriors`` (T 10) card vs
+    host on two 128x128 crops with the same numpy dropout draws
+    (``KeyedDraws``), atol 1e-4."""
+    n, hw, batch = FCN_SERVE
+    spec = create_model("Tiramisu", nclass=2, input_shape=(hw, hw, 2),
+                        dropout_rate=0.2)
+    model = init_cnn(spec, seed=0, device=dev)
+    qmodel = quantize_model(model)
+    bn = model.init_state()
+    x = np.random.default_rng(0).normal(size=(n, hw, hw, 2)).astype(
+        np.float32)
+    flops = dense_flops(spec, (hw, hw))
+    res, post = {"gflop_per_slice": flops / 1e9}, {}
+    for name, cd, m in (("float32", None, model),
+                        ("bfloat16", torch.bfloat16, model),
+                        ("int8", None, qmodel)):
+        inf = FCNInference(spec, batch=batch, compute_dtype=cd, bn_state=bn,
+                           device=dev)
+        inf.segment(m, x[:batch], "posteriors")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        p = inf.segment(m, x, "posteriors")
+        secs = time.perf_counter() - t0
+        check(p.shape == (n, hw, hw, 2) and bool(np.isfinite(p).all()),
+              f"FCN {name} posteriors {p.shape}")
+        res[name] = {"voxels_per_s": n * hw * hw / secs, "wall_s": secs,
+                     "slices_per_s": n / secs,
+                     "tflops": n * flops / secs / 1e12,
+                     "peak_bytes": torch.cuda.max_memory_allocated()}
+        post[name] = p[..., 1]
+    for name in ("bfloat16", "int8"):
+        res[name]["max_abs_dp1_vs_f32"] = float(
+            np.abs(post[name] - post["float32"]).max())
+        res[name]["agree_vs_f32"] = float(np.mean(
+            (post[name] > 0.5) == (post["float32"] > 0.5)))
+    crop = x[:2, :128, :128]
+    host = init_cnn(spec, seed=0, device="cpu")
+    with KeyedDraws(17):
+        t0 = time.perf_counter()
+        mc_card = FCNInference(spec, batch=batch, bn_state=bn, device=dev
+                               ).segment(model, crop, "MC-posteriors",
+                                         mc_T=10, rng=5)
+        mc_s = time.perf_counter() - t0
+        mc_host = FCNInference(spec, batch=batch,
+                               bn_state=host.init_state(), device="cpu"
+                               ).segment(host, crop, "MC-posteriors",
+                                         mc_T=10, rng=5)
+    err = float(np.abs(mc_card - mc_host).max())
+    res["mc_posteriors_card_vs_host"] = {"T": 10, "slices": 2, "side": 128,
+                                         "max_abs": err, "card_s": mc_s}
+    check(err <= 1e-4, f"FCN MC-posteriors card vs host {err}")
+    print("FCN serving ok (FC-DenseNet-103, 64 x 256x256x2, card above): "
+          + json.dumps(res))
+    return res, qmodel
+
+
+def _noisy_map(shape, seed, corrupt=True):
+    """A blob, its guide image and a noisy posterior of it (the JAX
+    package's CRF test fixture at a larger size)."""
+    rng = np.random.default_rng(seed)
+    truth = np.zeros(shape)
+    sl = tuple(slice(s // 4, 3 * s // 4) for s in shape)
+    truth[sl] = 1.0
+    img = truth * 60 + rng.normal(0, 3, shape)
+    p1 = np.clip(0.8 * truth + 0.1 + rng.normal(0, 0.2, shape), 0.01, 0.99)
+    return p1.astype(np.float32), img.astype(np.float32), truth
+
+
+def phase_serve_crf(dev):
+    """``meanfield_crf_2d`` card vs host on a 256x256 map (q within 1e-5),
+    timed; the native solver's ``dcrf_postprocess_2d`` (``native`` equal
+    to ``auto``) and ``dcrf_postprocess_3d`` on a 128x128x32 posterior
+    volume, timed, each deterministic and lowering the error against the
+    blob it was made from (the JAX package's CRF tests' rules)."""
+    p1, img, truth = _noisy_map((CRF_2D, CRF_2D), 3)
+    posts = torch.from_numpy(np.stack([1 - p1, p1], -1))
+    imgt = torch.from_numpy(img)
+    q_card = meanfield_crf_2d(posts.to(dev), imgt.to(dev))
+    ms = time_ms(lambda: meanfield_crf_2d(posts.to(dev), imgt.to(dev)), 3,
+                 warmup=1)
+    t0 = time.perf_counter()
+    q_host = meanfield_crf_2d(posts, imgt)
+    host_s = time.perf_counter() - t0
+    err = float((q_card.cpu() - q_host).abs().max())
+    check(err <= 1e-5, f"meanfield_crf_2d card vs host {err}")
+    check(crf_native.crf_native_available(), "native CRF did not build")
+    t0 = time.perf_counter()
+    lab = dcrf_postprocess_2d(p1, img, backend="native")
+    native_2d_s = time.perf_counter() - t0
+    check(np.array_equal(lab, dcrf_postprocess_2d(p1, img, backend="auto"))
+          and np.mean(lab != truth) <= np.mean((p1 > 0.5) != truth),
+          "native 2-D CRF")
+    p3, img3, truth3 = _noisy_map(CRF_VOL, 4)
+    t0 = time.perf_counter()
+    lab3 = dcrf_postprocess_3d(p3, img3)
+    native_3d_s = time.perf_counter() - t0
+    err3 = (float(np.mean((p3 > 0.5) != truth3)),
+            float(np.mean(lab3 != truth3)))
+    check(lab3.shape == CRF_VOL and err3[1] < err3[0]
+          and np.array_equal(lab3, dcrf_postprocess_3d(p3, img3)),
+          f"native 3-D CRF errors {err3}")
+    res = {"meanfield_2d": {"side": CRF_2D, "card_ms": ms, "host_s": host_s,
+                            "card_vs_host_max_abs": err},
+           "native_2d_s": native_2d_s, "native_3d_s": native_3d_s,
+           "native_3d_shape": list(CRF_VOL),
+           "native_3d_error_before_after": err3}
+    print("CRF ok (card above; the native solver runs on the host): "
+          + json.dumps(res))
+    return res
+
+
+def phase_run_on_subjects(dev, root):
+    """``run_on_subjects`` on the f32 campaign's entropy weights over two
+    synthetic held subjects (the campaign's shape, other seeds), float
+    and int8: F-measures, seconds per subject, the files written."""
+    expr = create_expr(root, synthetic=True, device=str(dev))
+    held = [synthetic_subject(shape=SHAPE, n_modalities=2, n_blobs=3,
+                              seed=s) for s in HELD_SEEDS]
+    params = ckpt.load_checkpoint(os.path.join(
+        root, "entropy", "curr_weights.npz"))[0]
+    res, segs = {}, {}
+    for name, p in (("float32", None),
+                    ("int8", quantize_params(expr.build_model(), params))):
+        out_dir = os.path.join(root, f"served_{name}")
+        t0 = time.perf_counter()
+        f = run_on_subjects(expr, "entropy", held, save_dir=out_dir,
+                            params=p, device=str(dev))
+        secs = time.perf_counter() - t0
+        files = sorted(os.path.relpath(os.path.join(d, x), out_dir)
+                       for d, _, fs in os.walk(out_dir) for x in fs)
+        segs[name] = [np.load(os.path.join(out_dir, str(i), "segs.npy"))
+                      for i in range(len(held))]
+        check(files == [f"{i}/{x}" for i in range(len(held))
+                        for x in ("F1_score.txt", "segs.npy")]
+              and all(s.shape == SHAPE and s.dtype == np.uint8
+                      for s in segs[name])
+              and all(np.isfinite(v) for v in f.values()),
+              f"run_on_subjects {name}: {files} {f}")
+        res[name] = {"f_measure": [f[i] for i in range(len(held))],
+                     "seconds_per_subject": secs / len(held),
+                     "files": files}
+    res["int8_vs_float_voxel_agreement"] = float(np.mean(
+        [np.mean(a == b) for a, b in zip(segs["int8"], segs["float32"])]))
+    check(res["int8_vs_float_voxel_agreement"] >= 0.9,
+          f"int8 segmentations part from float: {res}")
+    print("run_on_subjects ok (card above): " + json.dumps(res))
+    return res
+
+
+def phase_rmsprop_resume(dev):
+    """``optimizer_name: RMSProp``: a 2-round random campaign run
+    uninterrupted, and again stopped after round 1 and resumed by a fresh
+    ``PWExperiment`` from its resume point (``nu`` and ``trace`` in the
+    file): the final ``curr_weights.npz``, the journal and
+    ``perf_evals.txt`` bit-identical."""
+    top = os.path.join(ROOT, "_smoke_expr", "rmsprop")
+    shutil.rmtree(top, ignore_errors=True)
+    vols, mask = synthetic_subject(shape=SHAPE, n_modalities=2, n_blobs=3,
+                                   seed=0)
+    pars = set_parameters(DEFAULT_PARS, RMSPROP)
+
+    def fresh(root):
+        expr = pw_experiment.PWExperiment(
+            root, ExperimentConfig.from_pars(pars), device=dev)
+        expr.attach_subject(vols, mask)
+        return expr
+
+    def artifacts(root):
+        mdir = os.path.join(root, "random")
+        with np.load(os.path.join(mdir, "curr_weights.npz")) as z:
+            w = {k: z[k] for k in z.files}
+        q = {n: open(os.path.join(mdir, "queries", n)).read()
+             for n in sorted(os.listdir(os.path.join(mdir, "queries")))}
+        with open(os.path.join(mdir, "perf_evals.txt")) as f:
+            return w, q, f.read()
+
+    try:
+        t0 = time.perf_counter()
+        for name, stops in (("a", (128,)), ("b", (64, 128))):
+            expr = fresh(os.path.join(top, name))
+            expr.prep_data()
+            expr.add_method("random")
+            for n_q in stops:
+                expr.run_method("random", n_q)
+                expr = fresh(os.path.join(top, name))
+        wa, qa, ea = artifacts(os.path.join(top, "a"))
+        wb, qb, eb = artifacts(os.path.join(top, "b"))
+        diff = sorted(k for k in set(wa) | set(wb)
+                      if k not in wa or k not in wb
+                      or not np.array_equal(wa[k], wb[k]))
+        n_opt = sum(k.startswith("opt/") for k in wa)
+        res = {"rounds": 2, "opt_leaves": n_opt, "differing_entries": diff,
+               "queries_equal": qa == qb, "perf_evals_equal": ea == eb,
+               "seconds": time.perf_counter() - t0}
+        check(not diff and qa == qb and ea == eb and len(qa) == 2
+              and n_opt == 2 * 14, f"RMSProp resume != continue: {res}")
+        print(f"RMSProp resume == continue ok (bit for bit): "
+              f"{json.dumps(res)}")
+        return res
+    finally:
+        shutil.rmtree(top, ignore_errors=True)
+
+
+def phase_serving(dev):
+    """The serving phases (module docstring), the launch counts zeroed
+    just before and read just after."""
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    pw, spec, model, qmodel, padded, mu, sd = phase_serve_pw(dev)
+    offgrid = phase_serve_offgrid(dev, spec, model, padded, mu, sd)
+    del padded
+    fcn, dense_q = phase_serve_fcn(dev)
+    int8_mm = phase_int8_mm(dev, qmodel, dense_q)
+    del model, qmodel, dense_q
+    crf = phase_serve_crf(dev)
+    rmsprop = phase_rmsprop_resume(dev)
+    counts = {k.name: k.launches for k in ops.KERNELS}
+    check(counts["gather_patches_normalized"] > 0,
+          "K2 never launched in the serving phases")
+    return {"pw": pw, "offgrid": offgrid, "fcn": fcn, "int8_mm": int8_mm,
+            "crf": crf, "rmsprop_resume": rmsprop, "counts": counts,
+            "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3831,13 +4350,14 @@ def main() -> int:
     sweep, unc32 = phase_fim_sweep(dev)
     sweep16, _ = phase_fim_sweep(dev, cd=torch.bfloat16, ref_unc=unc32)
     del unc32
-    f32, bf16, codecs, wpool = phase_campaign(dev)
+    f32, bf16, codecs, wpool, served = phase_campaign(dev)
     resume = phase_resume(dev)
     resume_mt = phase_resume(dev, mt=True)
     determinism = phase_determinism_cost(dev)
     multi = phase_multi(dev)
     dense = phase_dense(dev)
     cls = phase_cls(dev)
+    serving = phase_serving(dev)
     phases, seconds, by_method, peaks, notes = {}, {}, {}, {}, {}
     for _, ph, sec, bym, pk, nt in (f32, bf16):
         phases.update(ph)
@@ -3919,12 +4439,30 @@ def main() -> int:
     print("classification pool sweep (AlexNet, 4,096 images of "
           "227x227x3, card above): " + json.dumps(cls["parity"]["sweep"])
           + f"; classification phases {cls['seconds']:.3f} s")
+    sp = serving["pw"]
+    print("serving (card above): PW1 full volume voxels/s " + json.dumps(
+        {k: sp[k]["voxels_per_s"] for k in ("float32", "bfloat16", "int8")})
+        + ", FC-DenseNet-103 voxels/s " + json.dumps(
+            {k: serving["fcn"][k]["voxels_per_s"]
+             for k in ("float32", "bfloat16", "int8")})
+        + ", off-grid patches/s " + json.dumps(
+            {k: serving["offgrid"][k]["patches_per_s"]
+             for k in ("scattered", "clustered")})
+        + ", CRF s " + json.dumps(
+            {"meanfield_2d_card": serving["crf"]["meanfield_2d"]["card_ms"]
+             / 1e3, "native_2d": serving["crf"]["native_2d_s"],
+             "native_3d": serving["crf"]["native_3d_s"]})
+        + ", run_on_subjects F " + json.dumps(
+            {k: served[k]["f_measure"] for k in ("float32", "int8")})
+        + f"; serving phases {serving['seconds']:.3f} s")
     for r in rows:
         n = r["name"]
         r["launches"] = (f32[0][n] + bf16[0][n] + mf["counts"][n]
                          + mb["counts"][n] + df["counts"][n]
                          + db["counts"][n] + dm["counts"][n]
-                         + cc["counts"][n] + cv["counts"][n])
+                         + cc["counts"][n] + cv["counts"][n]
+                         + serving["counts"][n])
+        r["launches_serving"] = serving["counts"][n]
         r["launches_cls_campaign"] = cc["counts"][n]
         r["launches_cls_vgg19"] = cv["counts"][n]
         r["launches_by_cls_run"] = {m: c[n] for d in (cc, cv)
@@ -3960,6 +4498,10 @@ def main() -> int:
                       "batch_selections": batch_select,
                       "second_order": second_order, "slic_variance": slic,
                       "finetune_wpool": wpool,
+                      "serving": {**{k: serving[k] for k in (
+                          "pw", "offgrid", "fcn", "int8_mm", "crf",
+                          "rmsprop_resume", "seconds")},
+                          "run_on_subjects": served},
                       "campaign_peak_bytes": peaks,
                       "dense": {k: dense[k] for k in (
                           "parity", "sweep", "resume", "seconds")},

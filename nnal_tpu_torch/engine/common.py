@@ -120,7 +120,7 @@ def anchor_dtype(model_cfg) -> str:
 def adopt_anchor_rounding(state, model_cfg) -> bool:
     """Round the live parameters, the mean teacher's (when there is one),
     the BN running state and, unless ``opt_reset_per_round``, the Adam
-    moments in place to what the anchor stores, right before a full save
+    or RMSProp moments in place to what the anchor stores, right before a full save
     at ``ckpt_dtype`` bfloat16 or int8: the file then decodes to exactly
     the state the uninterrupted process trains on, so resume == continue
     bit for bit.  bfloat16 rounds every tensor; int8 quantize-dequantizes
@@ -146,7 +146,7 @@ def adopt_anchor_rounding(state, model_cfg) -> bool:
             t.copy_(round_trip_bf16(t))
     if not getattr(model_cfg, "opt_reset_per_round", False):
         for st in state.optimizer.state.values():
-            for key in ("exp_avg", "exp_avg_sq"):
+            for key in ("exp_avg", "exp_avg_sq", "nu", "trace"):
                 if key in st:
                     st[key].copy_(round_trip_bf16(st[key]))
     return True

@@ -73,6 +73,7 @@ from __future__ import annotations
 
 import copy
 import os
+import shutil
 import time
 from typing import Dict, List, Optional
 
@@ -487,6 +488,31 @@ class PWExperiment:
                                  epochs=epochs)
         finally:
             self._mask = orig_mask
+
+    def modify_parameters(self, **kw) -> None:
+        """In-place config edits persisted back to ``parameters.txt``
+        (``pw_experiment.py:801-809``).  The finetune builds its
+        ``train_layers`` mask from the config at each call, so an edit
+        takes effect at the next finetune; a dense run's ignored keys warn
+        the first time (``warn_fcn_unsupported_keys``)."""
+        pars = self.config.pars
+        pars.update(kw)
+        config = ExperimentConfig.from_pars(pars)
+        check_slice_config(config)
+        self.config = config
+        config.to_yaml(self._p("parameters.txt"))
+
+    def reset_method(self, method_name: str) -> None:
+        """Wipe a method's state back to the initial membership and weights
+        (``pw_experiment.py:811-819``)."""
+        mdir = os.path.join(self.root_dir, method_name)
+        if os.path.exists(mdir):
+            shutil.rmtree(mdir)
+        self.add_method(method_name)
+
+    def load_results(self, method_name: str) -> np.ndarray:
+        """Per-round F-measures (``pw_experiment.py:861-864``)."""
+        return MethodJournal(self.root_dir, method_name).load_evals()
 
     def _ensemble_params(self, spec):
         """The committee of ``ensemble_paths`` (None when unset)."""

@@ -64,7 +64,18 @@ Semantics kept from the JAX package:
   columns, which the posteriors and the prediction read) and
   ``log_sigma`` (the rest, at the compute dtype), as
   ``cnn.py:243-252`` does.  An fcn spec's logits, posteriors and
-  prediction are per pixel, channels-last.
+  prediction are per pixel, channels-last;
+* a conv or fc module that holds an int8 ``W_q`` buffer and an f32
+  per-output ``w_scale`` in place of its ``weight`` (``models/quant``)
+  runs the int8 branch (``_int8_main``, ``cnn.py:301-331``): the layer
+  input is quantized per tensor (:func:`_quantize_act`), a conv's is
+  unfolded (im2col of the int8 codes, at the module's and ``pad_input``'s
+  SAME padding), and the int8 x int8 products are summed in int32 by
+  :func:`int8_matmul` (``torch._int_mm`` on the card, exact integer sums
+  through f32 GEMMs on the host); the accumulator is rescaled by ``s_x *
+  w_scale`` and the bias added as one fused multiply-add, as the jitted
+  XLA program computes it, then rounded to the incoming dtype (under
+  bf16 the bias is rounded to bf16 first, as ``cast_float_params`` does).
 """
 
 from __future__ import annotations
@@ -76,6 +87,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
 from nnal_tpu_torch.core.device import resolve_device
 from nnal_tpu_torch.models.specs import CNNSpec
@@ -140,6 +152,116 @@ def linear_f32acc(h, W) -> torch.Tensor:
     if h.device.type == "cuda":
         return _MmF32Acc.apply(h, W)
     return h.float() @ W.float().t()
+
+
+# 1/127 in f32: XLA folds the jitted ``max|h| / 127.0`` of
+# ``_quantize_act`` into a multiply by this constant, and the evaluators
+# run it jitted
+_INV127 = float(np.float32(1.0) / np.float32(127.0))
+# bytes of int8 columns, int32 and float64 partial results per row chunk
+_INT8_CHUNK_BYTES = 1 << 29
+
+
+def _quantize_act(h: torch.Tensor):
+    """Dynamic symmetric per-tensor int8 (``cnn.py:301-307``): ``s_x =
+    max(max|h|, 1e-12) * f32(1/127)`` and ``q = clip(round(h / s_x),
+    +-127)`` (round half to even), in f32 whatever ``h``'s dtype.  ``s_x``
+    stays a device tensor, so the division is a true one on the card too
+    (a host-scalar divisor becomes a reciprocal multiply there)."""
+    h32 = h.float()
+    s_x = torch.clamp_min(h32.abs().amax(), 1e-12) * _INV127
+    q = torch.clamp(torch.round(h32 / s_x), -127, 127).to(torch.int8)
+    return q, s_x
+
+
+# f32 sums of at most this many int8 x int8 products are exact integers
+# (127^2 * 1024 < 2^24)
+_EXACT_F32_K = 1024
+
+
+def int8_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w.T`` of int8 ``a`` (m, k) and ``w`` (n, k), summed exactly in
+    int32, as XLA's int32 accumulator.  On the card ``torch._int_mm``
+    (cuBLASLt's int8 GEMM), which wants m > 16 and k, n multiples of 8:
+    the operands are zero-padded to that, which adds zeros to the sums,
+    and the output is sliced back.  On the host (the plain version) the
+    codes go through f32 GEMMs over k-slices of at most 1,024, whose every
+    partial sum is an integer below 2^24 and so exact, added in int32:
+    the same integers, at BLAS speed (an int32 ``torch.mm`` has no BLAS
+    path and is ~10x slower)."""
+    if a.device.type != "cuda":
+        a32, w32 = a.float(), w.float()
+        out = None
+        for k0 in range(0, a.shape[1], _EXACT_F32_K):
+            part = torch.mm(a32[:, k0:k0 + _EXACT_F32_K],
+                            w32[:, k0:k0 + _EXACT_F32_K].t()).to(torch.int32)
+            out = part if out is None else out + part
+        return out
+    m, k = a.shape
+    n = w.shape[0]
+    pad_k, pad_n, pad_m = -k % 8, -n % 8, max(17 - m, 0)
+    if pad_k or pad_m:
+        a = F.pad(a, (0, pad_k, 0, pad_m))
+    if pad_k or pad_n:
+        w = F.pad(w, (0, pad_k, 0, pad_n))
+    return torch._int_mm(a.contiguous(), w.contiguous().t())[:m, :n]
+
+
+def _rescale_int8(acc, s_x, w_scale, bias, dt) -> torch.Tensor:
+    """``acc * (s_x * w_scale) + b`` rounded once to f32, then to ``dt``.
+    XLA fuses the multiply and the bias add of ``_int8_main`` into one
+    fused multiply-add; here the f32 accumulator value times the f32 scale
+    is exact in float64, so a float64 add rounded to f32 is that FMA (up
+    to a double rounding of probability ~2^-29 a value)."""
+    scale = (s_x * w_scale).double()
+    y = acc.float().double() * scale + bias.double()
+    return y.float().to(dt)
+
+
+def _int8_main(layer, mod, h: torch.Tensor, dt) -> torch.Tensor:
+    """The int8 branch of a quantized conv (NCHW ``h``, already padded by
+    ``pad_input`` where the module does not pad itself) or fc layer, in
+    row chunks of about ``_INT8_CHUNK_BYTES``.  Its parts run under
+    ``int8/quantize``, ``int8/im2col``, ``int8/int_mm`` and
+    ``int8/rescale`` profiler ranges (a profile of a sweep splits its
+    device time by them)."""
+    bias = mod.bias.to(dt)
+    if layer.kind == "fc" and h.dim() > 2:
+        h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
+    with record_function("int8/quantize"):
+        q, s_x = _quantize_act(h)
+    wmat = mod.W_q.reshape(mod.W_q.shape[0], -1)
+    n_out, k = wmat.shape
+    if layer.kind == "fc":
+        step = max(1, _INT8_CHUNK_BYTES // (k + 12 * n_out))
+        outs = []
+        for lo in range(0, q.shape[0], step):
+            with record_function("int8/int_mm"):
+                acc = int8_matmul(q[lo:lo + step], wmat)
+            with record_function("int8/rescale"):
+                outs.append(_rescale_int8(acc, s_x, mod.w_scale, bias, dt))
+        return torch.cat(outs) if len(outs) > 1 else outs[0]
+    ph, pw = mod.padding
+    (kh, kw), (sh, sw) = layer.ksize, layer.strides
+    b, _, hh, ww = q.shape
+    ho = (hh + 2 * ph - kh) // sh + 1
+    wo = (ww + 2 * pw - kw) // sw + 1
+    step = max(1, _INT8_CHUNK_BYTES // (ho * wo * (k + 12 * n_out)))
+    outs = []
+    for lo in range(0, b, step):
+        with record_function("int8/im2col"):
+            blk = q[lo:lo + step]
+            if ph or pw:
+                blk = F.pad(blk, (pw, pw, ph, ph))
+            cols = blk.unfold(2, kh, sh).unfold(3, kw, sw).permute(
+                0, 2, 3, 1, 4, 5).reshape(-1, k)    # (c, kh, kw) features
+        with record_function("int8/int_mm"):
+            acc = int8_matmul(cols, wmat)
+        with record_function("int8/rescale"):
+            y = _rescale_int8(acc, s_x, mod.w_scale, bias, dt)
+        outs.append(y.reshape(blk.shape[0], ho, wo, n_out).permute(
+            0, 3, 1, 2))
+    return torch.cat(outs) if len(outs) > 1 else outs[0]
 
 
 def _conv_dim(n, k, s, padding):
@@ -366,6 +488,8 @@ class CNN(nn.Module):
         """The layer's main op on NCHW (or flat) ``h`` at dtype ``dt``."""
         if layer.kind in ("conv", "pool", "avgpool"):
             h = self.pad_input(layer, h)
+        if getattr(mod, "W_q", None) is not None:
+            return _int8_main(layer, mod, h, dt)
         if layer.kind == "conv":
             if dt.itemsize >= 4:               # f32, or an f64 reference
                 return mod(h)

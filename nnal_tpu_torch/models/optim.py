@@ -3,9 +3,15 @@
 
 ``make_optimizer`` builds ``torch.optim`` SGD/Adam with optax's
 hyperparameters (``optax.sgd(lr)``: no momentum; ``optax.adam(lr)``:
-b1 0.9, b2 0.999, eps 1e-8).  ``opt_state_leaves``/``load_opt_state``
+b1 0.9, b2 0.999, eps 1e-8) and :class:`RMSProp`, optax's
+``rmsprop(lr, decay=0.9, eps=1e-10, momentum=0.0)`` written out, since
+``torch.optim.RMSprop`` divides by ``sqrt(v) + eps`` where optax scales by
+``rsqrt(nu + eps)``.  ``opt_state_leaves``/``load_opt_state``
 convert the optimizer state to and from optax's leaf order, which is what
-checkpoints store (see ``models/checkpoint.py``).
+checkpoints store (see ``models/checkpoint.py``): ``[]`` for SGD,
+``[count, *mu, *nu]`` for Adam and ``[*nu, *trace]`` for RMSProp (optax's
+state is ``(ScaleByRmsState(nu), EmptyState(), TraceState(trace))``:
+``momentum=0.0`` is not ``None``, so the trace is kept).
 
 ``sigmoid_rampup`` / ``sigmoid_rampdown`` evaluate in float32 on the host,
 as JAX traces them.  ``layer_train_mask`` / ``apply_grad_mask`` freeze
@@ -29,6 +35,41 @@ from nnal_tpu_torch.models.bridge import (
 )
 
 
+class RMSProp(torch.optim.Optimizer):
+    """``optax.rmsprop(lr, decay, eps, momentum=0.0)`` (``optim.py:54-66``),
+    each step in optax's f32 operations: ``nu = (1 - decay) * g**2 + decay
+    * nu`` (``nu`` starts at 0, no bias correction), ``u = rsqrt(nu + eps)
+    * g * -lr``, ``trace = u + 0 * trace`` (the momentum-0 trace, which
+    optax keeps in its state) and ``p += trace``.  ``1 - decay`` and the
+    other constants are rounded to f32 first, as JAX's weak types do."""
+
+    def __init__(self, params, lr: float, decay: float = 0.9,
+                 eps: float = 1e-10):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            keep = float(np.float32(group["decay"]))
+            move = float(np.float32(1.0 - group["decay"]))
+            eps = float(np.float32(group["eps"]))
+            neg_lr = float(np.float32(-group["lr"]))
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st["nu"] = torch.zeros_like(p)
+                    st["trace"] = torch.zeros_like(p)
+                g = p.grad
+                # in place, each op the f32 rounding of optax's: the sum
+                # (1 - decay) * g**2 + decay * nu commutes
+                nu = st["nu"].mul_(keep).add_((g * g).mul_(move))
+                u = torch.rsqrt(nu + eps).mul_(g).mul_(neg_lr)
+                st["trace"].mul_(0.0).add_(u)
+                p.add_(st["trace"])
+
+
 def make_optimizer(name: str, learning_rate: float, params
                    ) -> torch.optim.Optimizer:
     lr = float(learning_rate)
@@ -37,7 +78,7 @@ def make_optimizer(name: str, learning_rate: float, params
     if name == "Adam":
         return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
     if name == "RMSProp":
-        raise NotImplementedError("optimizer_name='RMSProp' is not ported")
+        return RMSProp(params, lr=lr, decay=0.9, eps=1e-10)
     raise ValueError(name)
 
 
@@ -52,19 +93,28 @@ def opt_state_tensors(optimizer: torch.optim.Optimizer,
     """Optimizer state as optax's leaves: ``[]`` for SGD; for Adam
     ``[count, *mu, *nu]`` with the moments as JAX-layout copies on the
     parameters' device (``bridge.to_jax_tensors``) and ``count`` an int32
-    numpy scalar."""
+    numpy scalar; for :class:`RMSProp` ``[*nu, *trace]``."""
     if isinstance(optimizer, torch.optim.SGD):
         return []
     named = dict(model.named_parameters())
     st = {name: optimizer.state.get(p, {}) for name, p in named.items()}
-    count = max((int(s["step"]) for s in st.values() if "step" in s),
-                default=0)
     moments = []
-    for key in ("exp_avg", "exp_avg_sq"):
+    for key in _moment_keys(optimizer):
         sd = {name: s[key] if key in s else torch.zeros_like(named[name])
               for name, s in st.items()}
         moments += _ordered(to_jax_tensors(sd))
+    if isinstance(optimizer, RMSProp):
+        return moments
+    count = max((int(s["step"]) for s in st.values() if "step" in s),
+                default=0)
     return [np.asarray(count, np.int32)] + moments
+
+
+def _moment_keys(optimizer):
+    """The per-parameter state slots in optax's leaf order."""
+    if isinstance(optimizer, RMSProp):
+        return ("nu", "trace")
+    return ("exp_avg", "exp_avg_sq")
 
 
 def opt_state_leaves(optimizer: torch.optim.Optimizer,
@@ -87,21 +137,24 @@ def load_opt_state(optimizer: torch.optim.Optimizer, model: torch.nn.Module,
     template = to_jax_params({k: v for k, v in named.items()})
     slots = [(layer, k) for layer in sorted(template)
              for k in sorted(template[layer])]
-    if len(leaves) != 1 + 2 * len(slots):
+    rms = isinstance(optimizer, RMSProp)
+    head = 0 if rms else 1          # Adam's count leads
+    if len(leaves) != head + 2 * len(slots):
         raise ValueError(f"checkpoint has {len(leaves)} opt leaves, "
-                         f"Adam needs {1 + 2 * len(slots)}")
-    count = int(leaves[0])
+                         f"{type(optimizer).__name__} needs "
+                         f"{head + 2 * len(slots)}")
     moments = []
-    for part in (leaves[1:1 + len(slots)], leaves[1 + len(slots):]):
+    for part in (leaves[head:head + len(slots)], leaves[head + len(slots):]):
         tree: dict = {}
         for (layer, k), v in zip(slots, part):
             tree.setdefault(layer, {})[k] = v
         moments.append(from_jax_params(tree))
+    keys = _moment_keys(optimizer)
     for name, p in named.items():
-        optimizer.state[p] = {
-            "step": torch.tensor(float(count)),
-            "exp_avg": moments[0][name].to(p.device),
-            "exp_avg_sq": moments[1][name].to(p.device)}
+        st = {key: m[name].to(p.device) for key, m in zip(keys, moments)}
+        if not rms:
+            st["step"] = torch.tensor(float(int(leaves[0])))
+        optimizer.state[p] = st
 
 
 def sigmoid_rampup(length: int):

@@ -52,6 +52,18 @@ def normalized_slices(vols, mu, sd) -> np.ndarray:
     return np.transpose(stack, (2, 0, 1, 3)).astype(np.float32)
 
 
+def fcn_forward(model, x, compute_dtype=None, bn_state=None, mc=False,
+                generator=None):
+    """One dense forward of the ``(b, H, W, C)`` slices ``x`` at
+    ``compute_dtype`` on the BN running state ``bn_state``, on
+    deterministic cuDNN (module docstring); ``mc`` turns dropout on, drawn
+    from ``generator``.  The evaluator's sweep and
+    ``evaluation/inference.FCNInference`` both run it."""
+    with deterministic_cudnn():
+        return model(cast_input(x, compute_dtype), mc_dropout=mc,
+                     generator=generator, state=bn_state)
+
+
 class FCNGridPoolEvaluator:
     """Whole-slice dense scoring of voxel index sets for ``spec.fcn``
     models."""
@@ -81,11 +93,8 @@ class FCNGridPoolEvaluator:
         for lo in range(0, self.slices.shape[0], self.batch):
             gen = (core_rng.key_generator(mc_rng, lo, self.device)
                    if mc else None)
-            with deterministic_cudnn():
-                out = model(cast_input(self.slices[lo:lo + self.batch],
-                                       self.compute_dtype),
-                            mc_dropout=mc, generator=gen,
-                            state=self.bn_state)
+            out = fcn_forward(model, self.slices[lo:lo + self.batch],
+                              self.compute_dtype, self.bn_state, mc, gen)
             posts.append(out.posteriors)
             preds.append(out.prediction)
             if want_feat:

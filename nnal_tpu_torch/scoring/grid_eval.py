@@ -21,8 +21,9 @@ generator on the chunk's global index, as the JAX package folds
 evaluation that starts at chunk c draws what the whole sweep draws for
 chunk c, so both routes give the same rows bit for bit.  Their ragged last
 chunk is zero-padded to ``z_chunk`` slices, as JAX pads the slice stack,
-so every chunk's draws have one shape.  The stride-1 clone of the
-off-grid route keeps its own chunking, as in JAX.
+so every chunk's draws have one shape; so is an int8-quantized model's,
+whose per-tensor activation scales JAX takes over the padded chunk.  The
+stride-1 clone of the off-grid route keeps its own chunking, as in JAX.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import torch.nn.functional as F
 
 from nnal_tpu_torch.core import rng as core_rng
 from nnal_tpu_torch.models.perturb import measure_output_perturbation
+from nnal_tpu_torch.models.quant import is_quantized
 from nnal_tpu_torch.ops.scoring_fused import pool_score_fused
 from nnal_tpu_torch.scoring.pool_eval import (
     PoolEvaluator,
@@ -96,13 +98,14 @@ class GridPoolEvaluator(PoolEvaluator):
         self._mu_c = self.mu.repeat_interleave(d3)
         self._sd_c = self.sd.repeat_interleave(d3)
 
-    def _block(self, step: int, stochastic: bool):
-        """Z-chunk ``step`` of the slice stack; a stochastic sweep's ragged
-        last chunk is zero-padded to ``z_chunk`` slices."""
+    def _block(self, step: int, padded: bool):
+        """Z-chunk ``step`` of the slice stack; with ``padded`` (stochastic
+        and int8 sweeps) a ragged last chunk is zero-padded to ``z_chunk``
+        slices."""
         z0 = step * self.z_chunk
         block = self._slices[z0:z0 + self.z_chunk]
         pad = self.z_chunk - block.shape[0]
-        if stochastic and pad:
+        if padded and pad:
             block = torch.cat([block, block.new_zeros(
                 (pad,) + tuple(block.shape[1:]))])
         return block
@@ -119,7 +122,8 @@ class GridPoolEvaluator(PoolEvaluator):
         mc = mc_rng is not None
         gen = (core_rng.key_generator(mc_rng, step, self.device)
                if mc else None)
-        out = model(self._extract(self._block(step, mc)), nchw=True,
+        pad = mc or is_quantized(model)
+        out = model(self._extract(self._block(step, pad)), nchw=True,
                     mc_dropout=mc, generator=gen)
         return [select_output(out, op, self.spec.nclass) for op in ops]
 

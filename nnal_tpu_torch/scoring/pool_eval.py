@@ -17,7 +17,9 @@ key and the chunk's start ``lo`` as the JAX package folds it
 (``pool_eval.py:143``), so a chunk's masks do not depend on what ran
 before it; MC chunks keep the full ``ntb`` rows, the ragged last one
 padded with index 0 and trimmed as in JAX, so a row's mask depends only
-on (key, chunk, row).
+on (key, chunk, row).  An int8-quantized model (``models/quant``) pads
+the same way: its per-tensor activation scales are taken over the whole
+chunk, padding rows included, as in JAX.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 
 from nnal_tpu_torch.core import rng as core_rng
 from nnal_tpu_torch.data.patches import gather_patches_normalized
+from nnal_tpu_torch.models.quant import is_quantized
 from nnal_tpu_torch.scoring.uncertainty import running_average
 
 
@@ -94,7 +97,7 @@ class PoolEvaluator:
         inds_np = np.asarray(pool_inds, np.int64)
         n = len(inds_np)
         mc = mc_rng is not None
-        if mc and n % self.ntb:
+        if (mc or is_quantized(model)) and n % self.ntb:
             inds_np = np.concatenate(
                 [inds_np, np.zeros(-n % self.ntb, np.int64)])
         inds = torch.as_tensor(inds_np).to(self.device)
