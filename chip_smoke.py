@@ -75,10 +75,10 @@ Phases, each of which passes or exits non-zero:
 10. the campaign: ``do_expr(..., device="cuda")`` on a synthetic
    128x128x32 subject (pool of 65,536 grid voxels), 2 rounds (1 for the
    runs in ``ONE_ROUND``, whose second round runs no other code) each of
-   ``entropy``, ``core-set``, ``random`` and ``fi`` (init 256, k 64, b
+   ``entropy``, ``core-set`` and ``fi`` (init 256, k 64, b
    128, Adam 1e-3; fi: B 200, lambda_ 0), and of ``MC-entropy``,
-   ``BALD``, ``BatchBALD``, ``ensemble``, ``QBC-JS``, ``AU_4U`` (and
-   once more with a 0.3 rad rotation), ``rep-entropy`` and ``BADGE`` at
+   ``BALD``, ``BatchBALD``, ``ensemble``, ``QBC-JS``, ``AU_4U`` (noise
+   then a 0.3 rad rotation), ``rep-entropy`` and ``BADGE`` at
    the JAX package's defaults (MC_iters 10, n_ensemble 5, B 200, noise
    std 0.05, CE), and the training levers: ``entropy`` with the mean
    teacher (coefficient 1, CE, ramp 20, EMA 0.99, 128 unlabeled patches a
@@ -110,10 +110,10 @@ Phases, each of which passes or exits non-zero:
    card bit-equal to the numpy encode, the card's file encode equal to
    the host's, and the seconds and bytes of one save at f32, bf16, int8,
    also with a mean teacher's group;
-14. the bf16 campaign: 2 rounds each of entropy, core-set, BALD,
-   QBC-JS, entropy with the mean teacher (bf16 anchors, the teacher's
-   too) and influence (cg; bf16 posteriors, f32 s_test) and fi (int8
-   anchors), bf16 sweeps (MC ones too) and finetunes
+14. the bf16 campaign: 2 rounds each of core-set, entropy with the mean
+   teacher (bf16 anchors, the teacher's too) and influence (cg; bf16
+   posteriors, f32 s_test) and fi (int8 anchors), bf16 sweeps and
+   finetunes
    (the committee's and the teacher's forwards too), ``ckpt_full_every``
    2,
    ``async_checkpoint``; its launch counts are zeroed before and read
@@ -131,13 +131,15 @@ Phases, each of which passes or exits non-zero:
    rep-entropy, BALD, BatchBALD and BADGE equal on the host with the same
    weights and draws, and fi's A-matrices of the card's candidates held
    on the host (the row rule below; ``multi picks ok``); 128-query
-   campaigns (64 for the f32 ``MULTI_ONE_ROUND``) over three 128x128x32
+   campaigns (64 for ``MULTI_ONE_ROUND``: QBC-JS, influence, and fi at
+   f32 and bf16 in 2-3 rounds) over three 128x128x32
    subjects (131,072 grid voxels each), a
-   test and a held subject, from an empty start: f32 entropy, core-set
-   (round 0 from the held subject's features through K1), fi, QBC-JS (3
+   test and a held subject, from an empty start: f32 core-set (round 0
+   from the held subject's features through K1), fi, QBC-JS (3
    members), influence (64 labels seeded) and entropy with the mean
-   teacher, every finetune gathering each subject's labels through K2,
-   and bf16 entropy and fi (int8 anchors every 2 rounds, async writes, a
+   teacher (its directory kept for phase 21), every finetune gathering
+   each subject's labels through K2,
+   and bf16 fi (int8 anchors every 2 rounds, async writes, a
    float16 history copy every 2 rounds), each checked (journal columns,
    membership, rounds, sub-spans, history copies, anchors, K1 / K2
    launches) with the launch counts zeroed just before each campaign and
@@ -164,17 +166,17 @@ Phases, each of which passes or exits non-zero:
    bf16 sweep's top-1024 uncertainty overlap with f32 (tie-aware, at
    least 80%); K1 at d = 16 (P the pool's 65,536 per-pixel features, R
    256, 512 and a ragged 320) against its plain version within 1e-5,
-   with its ms beside the bound; 2-round dense campaigns (1 for
-   ``DENSE_ONE_ROUND``; f32: entropy,
-   core-set, fi, BALD with 10 MC passes, BADGE, QBC-JS with 3 members,
-   entropy with the mean teacher; bf16: entropy and fi), each checked
+   with its ms beside the bound; one-round dense campaigns (their second
+   rounds run no new code, ``DENSE_ONE_ROUND``; f32: core-set, fi, BALD
+   with 10 MC passes,
+   BADGE, QBC-JS with 3 members, entropy with the mean teacher; bf16:
+   fi), each checked
    (rounds, picks, membership, no K2 launch, K1 in core-set, the ``bn/``
    group, fi's sub-spans, the committee phase, the teacher group); dense
    resume == continue bit for bit (entropy, 3 rounds, int8 anchors every
-   2, crashed after round 2); and a multi-subject dense campaign of
-   entropy and fi over two 128x128x32 subjects and one 96x96x32 (two
-   shape groups; 128 and 64 queries), every test evaluator on the
-   engine's BN state;
+   2, crashed after round 2); and a multi-subject dense fi campaign
+   over two 128x128x32 subjects and one 96x96x32 (two shape groups; 64
+   queries), every test evaluator on the engine's BN state;
 18. the classification engine (``phase_cls``): AlexNet at its published
    width and 227x227x3 input (71,945,608 parameters, 2.5244 GFLOP an
    image, counted from the spec by ``cls_flops``) from one seed's
@@ -196,15 +198,16 @@ Phases, each of which passes or exits non-zero:
    2 epochs, Adam 1e-3, dropout 0.5, init 20, test 20%) on 4,096
    synthetic 8-class images of 227x227x3 (oriented gratings under noise,
    ``benchmarks/cls_campaigns.make_dataset`` scaled up; 2.5 GB of f32 in
-   host RAM): 2 rounds of each of the 13 strategies (1 for
-   ``CLS_ONE_ROUND``; fi to 10 queries), ``entropy`` with the mean
-   teacher and with LwF, and ``random`` with ``train_dtype`` bfloat16,
+   host RAM): 2 rounds of each of the 13 strategies but ``random`` and
+   ``entropy`` (1 for ``CLS_ONE_ROUND``; fi to ``CLS_FI_QUERIES``
+   queries), ``entropy`` with the mean teacher and with LwF, and
+   ``random`` with ``train_dtype`` bfloat16,
    each checked (accuracies, picks, membership, K1 in every core-set
    round, no K2 launch, the committee phase, the teacher group);
    classification resume == continue bit for bit (entropy, 3 rounds,
-   anchors every 2, crashed after round 2); one round each of entropy
-   and core-set with VGG19 on 512 images of 224x224x3 (K1 on VGG's fc2
-   features); and ``softmax_harness.run_comparison`` on the card;
+   anchors every 2, crashed after round 2); one round of core-set with
+   VGG19 on 512 images of 224x224x3 (K1 on VGG's fc2 features); and
+   ``softmax_harness.run_comparison`` on the card;
 19. serving (``phase_serving``; ``run_on_subjects`` runs inside the
    f32 campaign, on its entropy state): PW1 full-volume segmentation of
    inference_bench.py's 256x256x64 two-modality subject at stride 1
@@ -231,20 +234,48 @@ Phases, each of which passes or exits non-zero:
    on at least 90% of voxels); and a 2-round ``random`` campaign under
    ``optimizer_name: RMSProp`` stopped after round 1 and resumed, equal
    to the uninterrupted run bit for bit;
-20. lines with the new methods' per-round seconds, the MC and perturb
+20. the multi-device phases (``phase_parallel``; 2 data shards on the
+   one card, given as an explicit device list): ``ShardedGridPoolEvaluator``
+   against the unsharded evaluator on the f32 campaign's subject with its
+   entropy weights (the 131,072-row test grid): posteriors, the
+   ``MC_ITERS`` MC passes averaged, ``fim_sweep`` and ``perturb_sweep``
+   bit for bit, each timed on both; one round each of entropy and
+   core-set at ``data_parallel`` 2 through ``PWExperiment(...,
+   mesh=...)``, whose round-0 picks must equal the f32 campaign's at
+   ``data_parallel`` 1 (K1 in core-set); the sharded pool selector (K2 per
+   shard over the 65,536-voxel pool), grid selector (top 64) and FIM-grid
+   selector (top 200) and the bf16 dense segmenter over the serving
+   phase's 256x256x64 subject, values and volumes bit-equal to their
+   unsharded references and indices equal; an in-process ``nccl`` group
+   of world size 1 whose DP step equals a plain Adam step bit for bit and
+   whose ``sharded_pool_topk`` equals a plain top-k; ``make_mesh(2)``
+   without a device list must raise on one card; launch counts zeroed
+   just before the campaigns and read just after the selectors;
+21. the analysis routines (``phase_analysis``): ``full_model_eval`` and
+   ``full_model_pred_dcrf`` (native CRF) on one slice of a held
+   64x64x32 subject with the f32 entropy weights, card against host
+   (predictions equal wherever the card's p1 is more than 1e-4 from 0.5,
+   F within 1e-3, CRF labels on at least 99.9% of the slice);
+   ``test_scores_matrix`` over the kept multi-subject ``entropy@mt`` run's
+   history copies, and resumed from its file (equal); and
+   ``train_with_registries`` for 6 Adam steps of PW1 on 128 patches
+   gathered by K2 (streams, best-model files, finite losses);
+22. lines with the new methods' per-round seconds, the MC and perturb
    sweeps' rates, the committee campaigns' peak memory, the lever runs'
    per-round seconds, each lever's seconds per finetune step, the
    checkpoint bytes with the teacher, whether the TensorBoard mirror
    was active (it needs the ``tensorboard`` package), and the influence,
    ps-random and SuPix runs' per-round seconds with the ``influence/*``
-   spans, CG iterations and peak memory, then one
-   ``phases`` JSON line (per-round seconds from ``phases.jsonl`` of both
-   campaigns, build seconds, K1's SASS counts, the FIM, bf16, codec,
-   resume, MC, perturbation, selection, second-order, SLIC and
-   ``finetune_wpool`` phases, the multi-subject and the dense ones) and
+   spans, CG iterations and peak memory, then a ``phase seconds`` line
+   (each phase's wall seconds and the whole script's), one ``phases``
+   JSON line (per-round seconds from ``phases.jsonl`` of both campaigns,
+   build seconds, K1's SASS counts, the FIM, bf16, codec, resume, MC,
+   perturbation, selection, second-order, SLIC and ``finetune_wpool``
+   phases, the multi-subject, dense, multi-device and analysis ones) and
    one ``kernels`` JSON line (times, bounds, launches in every campaign
-   and in the serving phases; K1's row also its times at d = 16 under
-   ``at_d16`` and at the classification shape under ``at_cls``).
+   and in the serving, multi-device and analysis phases; K1's row also
+   its times at d = 16 under ``at_d16`` and at the classification shape
+   under ``at_cls``).
 
 The row and column tolerance rules for shrunk gradients and A-matrices:
 the linear head's column is zero in exact arithmetic (a constant added to
@@ -301,6 +332,7 @@ from nnal_tpu_torch.data.samplers import (
     high_variance_filter,
 )
 from nnal_tpu_torch.engine import multi_experiment, pw_experiment
+from nnal_tpu_torch.engine.analysis import test_scores_matrix
 from nnal_tpu_torch.engine.sequential import sequential_al
 from nnal_tpu_torch.data.loaders import (
     patch_batch_source,
@@ -334,6 +366,33 @@ from nnal_tpu_torch.evaluation.inference import (
     full_volume_patchwise,
 )
 from nnal_tpu_torch.runtime import crf_native
+from nnal_tpu_torch.evaluation.analysis import (
+    full_model_eval,
+    full_model_pred_dcrf,
+)
+from nnal_tpu_torch.evaluation.registry import (
+    MetricRegistry,
+    train_with_registries,
+)
+from nnal_tpu_torch.parallel.dryrun import free_port
+from nnal_tpu_torch.parallel.grid_sharded import ShardedGridPoolEvaluator
+from nnal_tpu_torch.parallel.mesh import make_mesh, stable_topk
+from nnal_tpu_torch.parallel.multihost import (
+    init_distributed,
+    make_multihost_mesh,
+)
+from nnal_tpu_torch.parallel.pool_sharded import (
+    grid_row_to_voxel,
+    make_sharded_dense_segmenter,
+    make_sharded_fim_grid_selector,
+    make_sharded_grid_selector,
+    make_sharded_pool_selector,
+)
+from nnal_tpu_torch.parallel.sharding import (
+    make_sharded_train_step,
+    shard_params,
+    sharded_pool_topk,
+)
 from nnal_tpu_torch.models.optim import (
     layer_train_mask,
     load_opt_state,
@@ -377,7 +436,11 @@ from nnal_tpu_torch.scoring import influence as infl_mod
 from nnal_tpu_torch.scoring import representative as rep_mod
 from nnal_tpu_torch.scoring import sdp
 from nnal_tpu_torch.scoring import superpixel as sp_mod
-from nnal_tpu_torch.scoring.pool_eval import PoolEvaluator, mc_stack_posteriors
+from nnal_tpu_torch.scoring.pool_eval import (
+    PoolEvaluator,
+    mc_average_posteriors,
+    mc_stack_posteriors,
+)
 from nnal_tpu_torch.scoring.pseudo import confident_samples
 from nnal_tpu_torch.scoring.uncertainty import binary_uncertainty_filter
 from nnal_tpu_torch.scoring.fisher import refine_feature_matrix
@@ -393,6 +456,7 @@ from nnal_tpu_torch.ops.similarity import (
     rowmax_similarity_plain,
 )
 
+T_START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12        # float32 outside the tensor cores
@@ -422,14 +486,18 @@ MC_ITERS = 10
 # fi) every 2 rounds, written from the checkpoint thread
 BF16 = (",dtype=bfloat16,train_dtype=bfloat16,ckpt_full_every=2,"
         "async_checkpoint=true")
-BF16_RUNS = (("entropy", OVERRIDES + BF16 + ",ckpt_dtype=bfloat16"),
-             ("core-set", OVERRIDES + BF16 + ",ckpt_dtype=bfloat16"),
-             ("fi", OVERRIDES_FI + BF16 + ",ckpt_dtype=int8"),
-             ("BALD", OVERRIDES_NEW + BF16 + ",ckpt_dtype=bfloat16"),
-             ("QBC-JS", OVERRIDES_NEW + BF16 + ",ckpt_dtype=bfloat16"))
+# (``entropy``, ``BALD`` and ``QBC-JS`` alone are left out:
+# ``entropy@mt`` drives the bf16 entropy selection, the MC sweep phase
+# the bf16 MC passes, the f32 runs BALD's selection and the committee,
+# the other bf16 runs the bf16 finetune and anchors)
+BF16_RUNS = (("core-set", OVERRIDES + BF16 + ",ckpt_dtype=bfloat16"),
+             ("fi", OVERRIDES_FI + BF16 + ",ckpt_dtype=int8"))
+# ``random`` alone is left out: ``random@train_layers`` drives its
+# selection, every other run the plain finetune
 F32_RUNS = (tuple((m, OVERRIDES_FI if m == "fi" else OVERRIDES)
-                  for m in METHODS)
-            + tuple((m, OVERRIDES_NEW) for m in NEW_METHODS)
+                  for m in METHODS if m != "random")
+            + tuple((m, OVERRIDES_NEW) for m in NEW_METHODS if m != "AU_4U")
+            # noise, then a 0.3 rad rotation: AU_4U's noise-only path too
             + (("AU_4U@rotation", OVERRIDES_NEW + ",rotation_angle=0.3"),))
 # the training levers: the mean teacher (mirrored to TensorBoard), LwF,
 # the aleatoric head and train_layers, 2 rounds each
@@ -460,7 +528,7 @@ F32_RUNS += REST_RUNS
 # round each, to keep the whole script near half its time limit (the
 # committees, core-set, fi, SuPix, the mean teacher and influence (cg)
 # keep two: their second round takes another branch)
-ONE_ROUND = {"random", "MC-entropy", "BALD", "BatchBALD", "AU_4U",
+ONE_ROUND = {"entropy", "MC-entropy", "BALD", "BatchBALD", "AU_4U",
              "AU_4U@rotation", "rep-entropy", "BADGE", "entropy@lwf",
              "entropy@aleatoric", "random@train_layers", "ps-random",
              "influence@arnoldi", "ensemble", "QBC-JS", "entropy@mt",
@@ -477,16 +545,23 @@ RESUME_OVERRIDES = OVERRIDES + ",ckpt_full_every=3,ckpt_dtype=int8"
 # (influence: 64 labels seeded), k 64, B 200, 128 queries a run
 MULTI = ("patch_shape=[25,25,1],grid_spacing=2,k=64,B=200,b=128,epochs=1,"
          "learning_rate=1e-3,optimizer_name=Adam,ntb=4096,seed=0")
-MULTI_RUNS = (("entropy", MULTI), ("core-set", MULTI), ("fi", MULTI),
+# (``entropy`` alone is left out: ``entropy@mt`` and the bf16 run drive
+# its selection, core-set and fi the plain multi finetune)
+MULTI_RUNS = (("core-set", MULTI), ("fi", MULTI),
               ("QBC-JS", MULTI + ",n_ensemble=3"), ("influence", MULTI),
               ("entropy@mt", MULTI + MT))
-# f32 multi runs whose second round runs no code their first does not
-MULTI_ONE_ROUND = {"QBC-JS", "influence"}
+# multi runs whose second round runs no code their first does not (64
+# queries); fi's picks shrink round over round (8, 53, 53, 13, 1 at 128
+# queries on an H100 80GB HBM3 at 700 W), so at 64 it still runs 2-3
+# rounds
+MULTI_ONE_ROUND = {"QBC-JS", "influence", "fi", "bf16/fi"}
 MULTI_BF16 = (",dtype=bfloat16,train_dtype=bfloat16,ckpt_full_every=2,"
               "ckpt_dtype=int8,async_checkpoint=true,hist_every=2,"
               "hist_dtype=float16")
-MULTI_BF16_RUNS = (("entropy", MULTI + MULTI_BF16),
-                   ("fi", MULTI + MULTI_BF16))
+# (bf16 ``entropy`` alone is left out: fi drives the bf16 multi finetune,
+# the bf16 test sweeps, the anchors and the float16 history copies, the
+# f32 ``entropy@mt`` the entropy selection)
+MULTI_BF16_RUNS = (("fi", MULTI + MULTI_BF16),)
 MULTI_RESUME = MULTI + ",ckpt_full_every=3,ckpt_dtype=int8,hist_every=0"
 MULTI_SUBS = {"fi": FI_SUBS, "influence": INFLUENCE_SUBS}
 # query_multimg card vs host: three 64x64x16 subjects at grid spacing 4
@@ -504,20 +579,26 @@ DENSE = ("model_name=Tiramisu,dropout_rate=0.2,patch_shape=[25,25,1],"
          "grid_spacing=2,k=64,B=200,b=4,epochs=1,init_size=256,"
          "learning_rate=1e-3,optimizer_name=Adam,ntb=4096,"
          "synthetic_shape=[128,128,32],seed=0")
-DENSE_RUNS = (("entropy", DENSE), ("core-set", DENSE),
-              ("fi", DENSE + ",iter_k=[64,64,0]"),
+# ``entropy`` alone is left out: ``entropy@mt``, the bf16 run and the
+# resume phase drive its selection, every other run the plain finetune
+DENSE_RUNS = (("core-set", DENSE),
+              ("fi", DENSE + ",iter_k=[64,0]"),
               ("BALD", DENSE + ",MC_iters=10"), ("BADGE", DENSE),
               ("QBC-JS", DENSE + ",n_ensemble=3"), ("entropy@mt", DENSE + MT))
 # dense runs whose second round runs no code their first does not
-DENSE_ONE_ROUND = {"BALD", "BADGE", "QBC-JS"}
-DENSE_BF16_RUNS = (("entropy", DENSE + ",dtype=bfloat16,train_dtype=bfloat16"),
-                   ("fi", DENSE + ",iter_k=[64,64,0],dtype=bfloat16,"
-                    "train_dtype=bfloat16"))
+DENSE_ONE_ROUND = {"BALD", "BADGE", "QBC-JS", "core-set", "entropy@mt",
+                   "fi", "bf16/fi"}
+# (bf16 ``entropy`` is left out: fi drives the bf16 dense finetune and
+# sweep, the f32 runs entropy's selection)
+DENSE_BF16_RUNS = (("fi", DENSE + ",iter_k=[64,0],dtype=bfloat16,"
+                    "train_dtype=bfloat16"),)
 DENSE_RESUME = DENSE + ",ckpt_full_every=2,ckpt_dtype=int8"
 DENSE_MULTI = MULTI + ",model_name=Tiramisu,dropout_rate=0.2,b=4"
 # (name, overrides, queries): fi's picks shrink round over round (59,
-# 31, 22, 10, 5, 1 on an H100 80GB HBM3), so it runs on 64 queries
-DENSE_MULTI_RUNS = (("entropy", DENSE_MULTI, 128), ("fi", DENSE_MULTI, 64))
+# 31, 22, 10, 5, 1 on an H100 80GB HBM3), so it runs on 64 queries;
+# entropy is left out (the single-subject dense runs drive its
+# selection, fi the multi dense finetune over both shape groups)
+DENSE_MULTI_RUNS = (("fi", DENSE_MULTI, 64),)
 DENSE_GFLOP = 13.0          # per 128x128x2 slice, convs and convTs
 SWEEP_SHAPE = (256, 256, 64)        # bench.py's subject
 # the classification campaign (phase_cls): AlexNet at 227x227x3 on 4,096
@@ -525,11 +606,22 @@ SWEEP_SHAPE = (256, 256, 64)        # bench.py's subject
 CLS_N, CLS_HW, CLS_NCLASS, CLS_K = 4096, 227, 8, 10
 CLS_MT = ("consistency_coeff=1.0,consistency_measure=CE,consistency_ramp=20,"
           "ema_decay=0.99")
-CLS_RUNS = (tuple((m, "") for m in cls_mod.METHODS)
+# ``random`` and ``entropy`` alone are left out: ``random@bf16`` and the
+# two entropy levers drive their selections, every other run the f32
+# retrain
+CLS_RUNS = (tuple((m, "") for m in cls_mod.METHODS
+                  if m not in ("random", "entropy"))
             + (("entropy@mt", CLS_MT), ("entropy@lwf", "lwf_lambda=1.0,lwf_T=2"),
                ("random@bf16", "train_dtype=bfloat16")))
-CLS_ONE_ROUND = {"random", "MC-entropy", "BALD", "BatchBALD", "rep-entropy",
-                 "BADGE", "entropy@lwf", "random@bf16"}
+# runs whose second round runs no code their first does not (the
+# committees build their members the same way every round without
+# pretrained_paths); fi runs to CLS_FI_QUERIES queries, in as many rounds
+# as that takes (its picks shrink: 3, 3, 2, 2 at 10 on an H100 80GB HBM3
+# at 700 W)
+CLS_FI_QUERIES = 3
+CLS_ONE_ROUND = {"ensemble", "QBC-JS", "egl", "influence", "entropy@mt",
+                 "core-set", "MC-entropy", "BALD", "BatchBALD",
+                 "rep-entropy", "BADGE", "entropy@lwf", "random@bf16"}
 CLS_VGG_N, CLS_VGG_HW = 512, 224
 SWEEP_Z_CHUNK = 4
 # serving (phase_serving): PW1 25x25 patches at stride 1 over SWEEP_SHAPE;
@@ -545,6 +637,23 @@ FCN_SERVE = (64, 256, 2)
 CRF_2D, CRF_VOL = 256, (128, 128, 32)
 HELD_SEEDS = (41, 42)
 RMSPROP = OVERRIDES.replace("optimizer_name=Adam", "optimizer_name=RMSProp")
+# the multi-device phases: 2 data shards, on the one card given explicitly
+PARALLEL_DP = 2
+# the analysis phase's held subject: a slice of it goes through PW1 on
+# the host twice (card vs host), so it is kept to 64x64
+ANALYSIS_SHAPE = (64, 64, 32)
+MULTI_KEPT = os.path.join(ROOT, "_smoke_expr", "kept_multi_entropy")
+PHASE_S = {}
+
+
+def timed(name, fn, *args, **kw):
+    """``fn(*args, **kw)``, its wall seconds kept under ``name`` (the
+    ``phase seconds`` line)."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kw)
+    finally:
+        PHASE_S[name] = time.perf_counter() - t0
 
 
 class SmokeFailure(Exception):
@@ -2095,8 +2204,15 @@ def phase_campaign(dev):
             dev, os.path.join(top, "entropy", "entropy", "curr_weights.npz"),
             top)
         served = phase_run_on_subjects(dev, os.path.join(top, "entropy"))
+        # what the multi-device and analysis phases reuse: the entropy
+        # state and the round-0 picks at data_parallel 1
+        kept = {"entropy_params": ckpt.load_checkpoint(os.path.join(
+            top, "entropy", "entropy", "curr_weights.npz"))[0],
+            "picks0": {m: np.loadtxt(os.path.join(top, m, m, "queries",
+                                                  "0.txt"), dtype=np.int64)
+                       for m in ("entropy", "core-set")}}
         bf16 = _campaign(dev, os.path.join(top, "bf16"), BF16_RUNS, "bf16/")
-        return f32, bf16, codecs, wpool, served
+        return f32, bf16, codecs, wpool, served, kept
     finally:
         shutil.rmtree(top, ignore_errors=True)
 
@@ -2670,7 +2786,7 @@ def _multi_expr(root, overrides, dev, subjects):
     return expr
 
 
-def _multi_campaign(dev, top, runs, tag, subjects):
+def _multi_campaign(dev, top, runs, tag, subjects, keep=None):
     """Each run in its own experiment directory (a fresh
     ``MultiImgExperiment`` and its subjects' volumes), 128 queries (64
     for the f32 runs of ``MULTI_ONE_ROUND``): the
@@ -2678,7 +2794,9 @@ def _multi_campaign(dev, top, runs, tag, subjects):
     K1 / K2 launches checked, its checkpoints removed once checked.  The
     launch counts and K2's copy-cache counters are zeroed just before the
     runs and read just after; the copies made must equal the distinct
-    volumes gathered from (no copy rebuilt)."""
+    volumes gathered from (no copy rebuilt).  ``keep`` ``(name,
+    directory)``: that run's directory is moved there instead of removed
+    (``phase_analysis`` reads its history copies)."""
     out = {"seconds": {}, "phases": {}, "by_method": {}, "peaks": {},
            "rounds": {}}
     ops.reset_launch_counts()
@@ -2706,7 +2824,7 @@ def _multi_campaign(dev, top, runs, tag, subjects):
             j.init_membership(seed_g, np.setdiff1d(pool_g, seed_g))
             seeded = 64
         k = expr.config.query.k
-        want = 1 if not tag and name in MULTI_ONE_ROUND else 2
+        want = 1 if key in MULTI_ONE_ROUND else 2
         res = expr.run_method(method, want * k)
         torch.cuda.synchronize()
         out["seconds"][key] = time.perf_counter() - t0
@@ -2781,7 +2899,11 @@ def _multi_campaign(dev, top, runs, tag, subjects):
         out["rounds"][key] = [{k: r[k] for k in (
             "score_select", "committee", "train", "eval", "checkpoint",
             "sub") if k in r} for r in rows]
-        shutil.rmtree(root, ignore_errors=True)
+        if keep and keep[0] == key:
+            shutil.rmtree(keep[1], ignore_errors=True)
+            shutil.move(root, keep[1])
+        else:
+            shutil.rmtree(root, ignore_errors=True)
         print(f"multi campaign {key}: F per round {res['perf'].tolist()}, "
               f"picks per round {[q.shape[1] for q in qmats]}, "
               f"{out['seconds'][key]:.3f} s, K1 +{dk1}, K2 +{dk2}, peak "
@@ -2946,14 +3068,15 @@ def phase_multi(dev):
     try:
         picks = phase_multi_picks(dev)
         subjects = multi_subjects()
-        f32 = _multi_campaign(dev, top, MULTI_RUNS, "", subjects)
+        f32 = _multi_campaign(dev, top, MULTI_RUNS, "", subjects,
+                              keep=("entropy@mt", MULTI_KEPT))
         bf16 = _multi_campaign(dev, os.path.join(top, "bf16"),
                                MULTI_BF16_RUNS, "bf16/", subjects)
         resume = phase_multi_resume(dev, top, subjects)
         seq = phase_sequential(dev, top)
         loader = phase_loader(dev)
         return {"picks": picks, "f32": f32, "bf16": bf16, "resume": resume,
-                "sequential": seq, "loader": loader}
+                "sequential": seq, "loader": loader, "kept": MULTI_KEPT}
     finally:
         shutil.rmtree(top, ignore_errors=True)
 
@@ -3265,7 +3388,7 @@ def _dense_campaign(dev, top, runs, tag):
         method = name.split("@")[0]
         key = tag + name
         root = os.path.join(top, name)
-        n_rounds = 1 if not tag and name in DENSE_ONE_ROUND else 2
+        n_rounds = 1 if key in DENSE_ONE_ROUND else 2
         k1_0 = ops.similarity.KERNEL.launches
         k2_0 = ops.gather.KERNEL.launches
         drain_subphases()
@@ -3372,9 +3495,9 @@ def phase_dense_resume(dev, top):
 
 
 def phase_dense_multi(dev, top):
-    """The multi-subject dense campaign: entropy (128 queries, 2 rounds)
-    and fi (64) over two 128x128x32 subjects and one 96x96x32, so two
-    shape groups train; a 128x128x32 test subject and a held one."""
+    """The multi-subject dense campaign (``DENSE_MULTI_RUNS``) over two
+    128x128x32 subjects and one 96x96x32, so two shape groups train; a
+    128x128x32 test subject and a held one."""
     s = [synthetic_subject(shape=sh, n_modalities=2, n_blobs=3, seed=i)
          for i, sh in enumerate((SHAPE, SHAPE, (96, 96, 32), SHAPE, SHAPE))]
     subjects = (s[:3], s[3:4], s[4:])
@@ -3700,7 +3823,7 @@ def _cls_runs(dev, top, pool, runs, tag, k=CLS_K):
         # fi may return fewer than k picks a round (its PMF is drawn with
         # replacement and deduplicated): it runs to k queries, in as many
         # rounds as that takes
-        budget = k if rounds is None else k * rounds
+        budget = CLS_FI_QUERIES if rounds is None else k * rounds
         k1_0 = ops.similarity.KERNEL.launches
         k2_0 = ops.gather.KERNEL.launches
         torch.cuda.synchronize()
@@ -3826,9 +3949,11 @@ def phase_cls(dev):
         resume = phase_cls_resume(dev, top, pool)
         del pool, X, y
         Xv, yv = cls_dataset(dev, CLS_VGG_N, CLS_VGG_HW, seed=1)
+        # core-set alone: it drives VGG19's forward, retrain and
+        # evaluation, and K1 at VGG's fc2 width; entropy's selection runs
+        # in the AlexNet levers
         vgg = _cls_runs(dev, os.path.join(top, "vgg"), InMemoryPool(Xv, yv),
-                        [(m, "model_name=VGG19", 1)
-                         for m in ("entropy", "core-set")], "vgg19/")
+                        [("core-set", "model_name=VGG19", 1)], "vgg19/")
         del Xv, yv
         Xs, ys = synthetic_mnist()
         t1 = time.perf_counter()
@@ -3992,7 +4117,7 @@ def phase_serve_pw(dev):
           + json.dumps({k: res[k] for k in ("float32", "bfloat16", "int8",
                                             "card_vs_host_f32")}))
     print("int8 z-chunk profile: " + json.dumps(res["int8_profile"]))
-    return res, spec, model, qmodel, padded, mu, sd
+    return res, spec, model, qmodel, padded, mu, sd, vol["bfloat16"]
 
 
 def phase_int8_mm(dev, qmodel, dense_q):
@@ -4295,7 +4420,9 @@ def phase_serving(dev):
     just before and read just after."""
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    pw, spec, model, qmodel, padded, mu, sd = phase_serve_pw(dev)
+    pw, spec, model, qmodel, padded, mu, sd, vol16 = phase_serve_pw(dev)
+    # the bf16 volume and what made it: the sharded segmenter's reference
+    serve = (model, padded, mu, sd, vol16)
     offgrid = phase_serve_offgrid(dev, spec, model, padded, mu, sd)
     del padded
     fcn, dense_q = phase_serve_fcn(dev)
@@ -4308,7 +4435,382 @@ def phase_serving(dev):
           "K2 never launched in the serving phases")
     return {"pw": pw, "offgrid": offgrid, "fcn": fcn, "int8_mm": int8_mm,
             "crf": crf, "rmsprop_resume": rmsprop, "counts": counts,
-            "seconds": time.perf_counter() - t0}
+            "seconds": time.perf_counter() - t0, "serve": serve}
+
+
+# ------------------------------------------------------------ multi-device
+def _dp_mesh(dev):
+    """The 2-shard mesh over the one card, given explicitly (a mesh of
+    distinct cards needs two)."""
+    card = torch.device("cuda", torch.cuda.current_device())
+    return make_mesh(PARALLEL_DP, device=[card] * PARALLEL_DP)
+
+
+def _campaign_subject(dev):
+    """The f32 campaign's subject as ``create_expr`` builds it, its
+    training statistics and its padded volume on the card."""
+    vols, mask = synthetic_subject(shape=SHAPE, n_modalities=2, n_blobs=3,
+                                   seed=0)
+    stats = multimg_stats([(vols, mask)])
+    return vols, mask, stats[0, 0::2], stats[0, 1::2], pad_volumes(
+        vols, (25, 25, 1), dev)
+
+
+def _equal(name, a, b):
+    """Fail unless ``a`` (sharded) and ``b`` (unsharded) are bit-equal."""
+    a, b = (x.cpu().numpy() if isinstance(x, torch.Tensor) else
+            np.asarray(x) for x in (a, b))
+    if a.shape != b.shape:
+        raise SmokeFailure(f"{name}: shapes {a.shape} != {b.shape}")
+    if not np.array_equal(a, b):
+        gap = np.abs(a.astype(np.float64) - b).max()
+        raise SmokeFailure(f"{name}: sharded != unsharded (max |d| {gap})")
+
+
+def phase_sharded_evaluator(dev, model, padded, mu, sd, mesh):
+    """``ShardedGridPoolEvaluator`` (2 shards on the card) against the
+    unsharded evaluator on the campaign subject's test grid (131,072
+    rows): posteriors, the campaign's MC passes (running average of
+    ``MC_ITERS`` keyed passes), ``fim_sweep`` and ``perturb_sweep``, bit
+    for bit; each timed on both."""
+    ps = (25, 25, 1)
+    args = (model.spec, padded, mu, sd, ps, SHAPE)
+    ev1 = GridPoolEvaluator(*args, grid_spacing=2, ntb=4096)
+    evs = ShardedGridPoolEvaluator(mesh, *args, grid_spacing=2, ntb=4096)
+    test = generate_grid_samples(SHAPE, 2)
+    out = {"rows": len(test), "shards": len(evs._shard_evs),
+           "z_chunks_per_shard": [len(s) for _, s in evs._shard_evs]}
+    sweeps = {
+        "posteriors": lambda ev: ev.evaluate(model, test)["posteriors"],
+        "mc": lambda ev: mc_average_posteriors(ev, model, test, MC_ITERS,
+                                               17, as_device=True),
+        "fim": lambda ev: ev.fim_sweep(model, as_device=True),
+        "perturb": lambda ev: ev.perturb_sweep(model, 23, as_device=True)}
+    for name, fn in sweeps.items():
+        got = {}
+        for tag, ev in (("unsharded", ev1), ("sharded", evs)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got[tag] = fn(ev)
+            torch.cuda.synchronize()
+            out[f"{name}_{tag}_s"] = time.perf_counter() - t0
+        a, b = got["sharded"], got["unsharded"]
+        if isinstance(a, dict):
+            for k in a:
+                _equal(f"{name}/{k}", a[k], b[k])
+        else:
+            _equal(name, a, b)
+    out["bytes_moved"] = evs.bytes_moved
+    return out
+
+
+def phase_dp_campaigns(dev, mesh, picks0):
+    """One round each of entropy and core-set at ``data_parallel`` 2, the
+    mesh handed to the engine; round 0's picks must equal the f32
+    campaign's (``data_parallel`` 1, the same configuration)."""
+    out = {"seconds": {}, "by_method": {}}
+    for method in ("entropy", "core-set"):
+        root = os.path.join(ROOT, "_smoke_expr", "parallel", method)
+        shutil.rmtree(root, ignore_errors=True)
+        k1_0 = ops.similarity.KERNEL.launches
+        k2_0 = ops.gather.KERNEL.launches
+        t0 = time.perf_counter()
+        cfg = ExperimentConfig.from_pars(set_parameters(
+            DEFAULT_PARS, OVERRIDES + f",data_parallel={PARALLEL_DP}"))
+        expr = pw_experiment.PWExperiment(root, cfg, device=dev, mesh=mesh)
+        expr.attach_subject(*synthetic_subject(
+            shape=SHAPE, n_modalities=2, n_blobs=3, seed=cfg.seed))
+        expr.prep_data()
+        ev = expr.make_evaluator(expr.build_model())
+        check(isinstance(ev, ShardedGridPoolEvaluator) and ev.mesh is mesh,
+              f"dp {method}: evaluator {type(ev).__name__}")
+        del ev
+        expr.add_method(method)
+        res = expr.run_method(method, 64)
+        torch.cuda.synchronize()
+        out["seconds"][method] = time.perf_counter() - t0
+        dk1 = ops.similarity.KERNEL.launches - k1_0
+        dk2 = ops.gather.KERNEL.launches - k2_0
+        out["by_method"][method] = {"rowmax_similarity": dk1,
+                                    "gather_patches_normalized": dk2}
+        got = np.loadtxt(os.path.join(root, method, "queries", "0.txt"),
+                         dtype=np.int64)
+        check(len(res["perf"]) == 1 and np.array_equal(got, picks0[method]),
+              f"dp {method}: round 0 picks part from data_parallel 1's")
+        check(dk2 >= 1 and (dk1 >= 1 if method == "core-set" else True),
+              f"dp {method}: K1 +{dk1}, K2 +{dk2}")
+        with open(os.path.join(root, method, "phases.jsonl")) as f:
+            out.setdefault("rounds", {})[method] = [
+                json.loads(line) for line in f]
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def phase_selectors(dev, model, padded, mu, sd, mesh, serve):
+    """The sharded selectors at 2 shards on the card (the pool selector
+    through K2, the grid and FIM-grid selectors, top 64 / B 200) and the
+    bf16 dense segmenter on the serving subject; then, outside the counted
+    window, their unsharded references: values and volumes bitwise,
+    indices equal."""
+    ps = (25, 25, 1)
+    pool, _ = even_odd_slice_split(generate_grid_samples(SHAPE, 2), SHAPE)
+    res, t = {}, {}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[name] = fn()
+        torch.cuda.synchronize()
+        t[name] = time.perf_counter() - t0
+
+    run("pool", lambda: make_sharded_pool_selector(
+        mesh, ps, SHAPE, 64, ntb_per_shard=4096)(model, padded, mu, sd, pool))
+    run("grid", lambda: make_sharded_grid_selector(
+        mesh, ps, SHAPE, 2, 64, z_inner=2)(model, padded, mu, sd))
+    run("fim_grid", lambda: make_sharded_fim_grid_selector(
+        mesh, ps, SHAPE, 2, 200, z_inner=2)(model, padded, mu, sd))
+    smodel, spadded, smu, ssd, svol = serve
+    run("segmenter_bf16", lambda: make_sharded_dense_segmenter(
+        mesh, SERVE_PS, SWEEP_SHAPE, z_inner=1,
+        compute_dtype=torch.bfloat16)(smodel, spadded, smu, ssd))
+    counts = {k.name: k.launches for k in ops.KERNELS}
+    # the references (launches not counted)
+    p1 = torch.as_tensor(PoolEvaluator(model.spec, padded, mu, sd, ps,
+                                       SHAPE, ntb=4096).evaluate(
+        model, pool)["posteriors"])
+    v, i = stable_topk(-(p1 - 0.5).abs(), 64)
+    _equal("pool selector values", res["pool"][0], v)
+    _equal("pool selector positions", res["pool"][1], i)
+    ev2 = GridPoolEvaluator(model.spec, padded, mu, sd, ps, SHAPE,
+                            grid_spacing=2, z_chunk=2)
+    rows = grid_row_to_voxel(np.arange(ev2.nx * ev2.ny * ev2.nz), SHAPE, 2)
+    p1 = torch.as_tensor(ev2.evaluate(model, rows)["posteriors"])
+    v, i = stable_topk(-(p1 - 0.5).abs(), 64)
+    _equal("grid selector values", res["grid"][0], v)
+    _equal("grid selector rows", res["grid"][1], i)
+    ref = ev2.fim_sweep(model, as_device=True)
+    v, i = stable_topk(-ref["uncertainty"], 200)
+    for name, a, b in (("values", res["fim_grid"][0], v),
+                       ("rows", res["fim_grid"][1], i),
+                       ("p1", res["fim_grid"][2], ref["p1"][i]),
+                       ("shrunk", res["fim_grid"][3], ref["shrunk"][i])):
+        _equal(f"FIM grid selector {name}", a, b)
+    _equal("bf16 dense segmenter", res["segmenter_bf16"], svol)
+    return {"seconds": t, "counts": counts,
+            "pool_candidates": len(pool), "grid_rows": len(rows),
+            "segmenter_voxels": int(np.prod(SWEEP_SHAPE))}
+
+
+def phase_nccl(dev, model):
+    """An in-process ``nccl`` group of world size 1: its DP step (Adam,
+    deterministic cuDNN, dropout from one key) equals a plain Adam step on
+    the same masks bit for bit, and ``sharded_pool_topk`` equals a plain
+    top-k; then the group is destroyed."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    init_distributed(f"localhost:{free_port()}", 1, 0)
+    try:
+        check(dist.get_backend() == "nccl", dist.get_backend())
+        pmesh = make_multihost_mesh(1)
+        g = torch.Generator().manual_seed(5)
+        x = torch.randn((128, 25, 25, 2), generator=g).to(dev)
+        y = torch.nn.functional.one_hot(torch.arange(128) % 2, 2).float().to(
+            dev)
+        with deterministic_cudnn():
+            local = shard_params(model, pmesh)
+            state = TrainState(local, make_optimizer("Adam", 1e-3,
+                                                     local.parameters()))
+            loss = make_sharded_train_step(pmesh)(state, x, y, 9)
+            ref = copy.deepcopy(model)
+            opt = make_optimizer("Adam", 1e-3, ref.parameters())
+            logits = ref(x, train=True,
+                         generator=core_rng.key_stream(9, dev)).logits
+            ref_loss = (-(y * torch.log_softmax(logits, -1)).sum(-1)).sum() \
+                / x.shape[0]
+            ref_loss.backward()
+            opt.step()
+        check(float(loss) == float(ref_loss.detach()) and all(
+            torch.equal(a, b) for a, b in zip(local.parameters(),
+                                              ref.parameters())),
+              "the world-size-1 DP step part from the plain step")
+        scores = torch.randn(4096, generator=g).to(dev)
+        scores[100] = scores[7] = scores.max()
+        vals, idx = sharded_pool_topk(pmesh, lambda m, s: s, 64)(None,
+                                                                 scores)
+        v, i = stable_topk(scores, 64)
+        check(torch.equal(vals, v) and torch.equal(idx, i)
+              and idx[:2].tolist() == [7, 100],
+              "sharded_pool_topk part from the plain top-k")
+    finally:
+        dist.destroy_process_group()
+    return {"seconds": time.perf_counter() - t0, "loss": float(loss)}
+
+
+def phase_parallel(dev, kept, serve):
+    """The multi-device phases (module docstring): the counts zeroed just
+    before the data_parallel campaigns and the sharded selectors, read
+    just after."""
+    t0 = time.perf_counter()
+    mesh = _dp_mesh(dev)
+    _, _, mu, sd, padded = _campaign_subject(dev)
+    model = CNN(create_pw1(2, 0.5, (25, 25, 2)))
+    model.load_state_dict(from_jax_params(kept["entropy_params"]))
+    model = model.to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    evaluator = phase_sharded_evaluator(dev, model, padded, mu, sd, mesh)
+    ops.reset_launch_counts()
+    campaigns = phase_dp_campaigns(dev, mesh, kept["picks0"])
+    counts_campaigns = {k.name: k.launches for k in ops.KERNELS}
+    selectors = phase_selectors(dev, model, padded, mu, sd, mesh, serve)
+    # read just after the selectors' counted window: campaigns + selectors
+    counts = selectors["counts"]
+    for k in ops.KERNELS:
+        check(counts[k.name] > 0,
+              f"{k.name} never launched on the multi-device path")
+    nccl = phase_nccl(dev, model)
+    try:
+        make_mesh(2)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    check(torch.cuda.device_count() > 1 or (raised is not None
+                                            and "found 1" in raised),
+          f"make_mesh(2) on one card: {raised}")
+    out = {"evaluator": evaluator, "campaigns": campaigns,
+           "selectors": selectors, "nccl": nccl,
+           "make_mesh_2_raises": raised, "counts": counts,
+           "counts_campaigns": counts_campaigns,
+           "bytes_moved_between_devices": evaluator["bytes_moved"],
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "seconds": time.perf_counter() - t0}
+    print("multi-device ok (2 shards on the card above): " + json.dumps(
+        {k: v for k, v in out.items() if k != "campaigns"}
+        | {"campaign_s": campaigns["seconds"],
+           "campaign_launches": campaigns["by_method"]}))
+    return out
+
+
+def phase_analysis(dev, kept, multi_root):
+    """The analysis routines on the card: ``full_model_eval`` and
+    ``full_model_pred_dcrf`` (native CRF) of the f32 entropy weights on one
+    slice of a held subject, card against host; ``test_scores_matrix``
+    over the kept multi-subject ``entropy@mt`` run's rounds (resumed from
+    its file); ``train_with_registries`` for 6 steps of PW1 on 128
+    campaign patches gathered by K2."""
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    top = os.path.join(ROOT, "_smoke_expr", "analysis")
+    shutil.rmtree(top, ignore_errors=True)
+    out = {}
+    try:
+        spec = create_pw1(2, 0.5, (25, 25, 2))
+        vols, mask, mu, sd, padded = _campaign_subject(dev)
+        hvols, hmask = synthetic_subject(shape=ANALYSIS_SHAPE,
+                                         n_modalities=2, n_blobs=3,
+                                         seed=HELD_SEEDS[0])
+        z = ANALYSIS_SHAPE[2] // 2
+        res = {}
+        for side, d in (("card", dev), ("host", torch.device("cpu"))):
+            m = CNN(spec)
+            m.load_state_dict(from_jax_params(kept["entropy_params"]))
+            m = m.to(d)
+            ev = GridPoolEvaluator(spec, pad_volumes(hvols, (25, 25, 1), d),
+                                   mu, sd, (25, 25, 1), ANALYSIS_SHAPE,
+                                   grid_spacing=2, ntb=4096)
+            t1 = time.perf_counter()
+            preds, f1 = full_model_eval(ev, m, hmask, [z],
+                                        save_dir=os.path.join(top, side))
+            dpreds, df1 = full_model_pred_dcrf(
+                ev, m, hvols[0], hmask, [z], save_dir=os.path.join(top, side),
+                backend="native")
+            res[side] = {"preds": preds[:, :, z], "f1": f1,
+                         "dcrf": dpreds[:, :, z], "dcrf_f1": df1,
+                         "seconds": time.perf_counter() - t1}
+            if side == "card":
+                p1 = full_slice_patchwise(ev, m, [z], "posteriors")[z]
+        sure = np.abs(p1 - 0.5) > 1e-4
+        c, h = res["card"], res["host"]
+        agree = float(np.mean(c["dcrf"] == h["dcrf"]))
+        check(np.array_equal(c["preds"][sure], h["preds"][sure])
+              and abs(c["f1"] - h["f1"]) <= 1e-3 and agree >= 0.999
+              and abs(c["dcrf_f1"] - h["dcrf_f1"]) <= 1e-3
+              and all(os.path.exists(os.path.join(top, s, f))
+                      for s in ("card", "host")
+                      for f in ("segs.npy", "F1_score.txt",
+                                "dcrf_segs.npy", "F1_score_dcrf.txt")),
+              f"analysis card vs host: F {c['f1']} / {h['f1']}, dcrf F "
+              f"{c['dcrf_f1']} / {h['dcrf_f1']}, dcrf agreement {agree}")
+        out["full_model"] = {
+            "slice": z, "voxels": int(np.prod(ANALYSIS_SHAPE[:2])),
+            "f1": {"card": c["f1"], "host": h["f1"]},
+            "dcrf_f1": {"card": c["dcrf_f1"], "host": h["dcrf_f1"]},
+            "dcrf_agreement": agree,
+            "unsure_voxels": int((~sure).sum()),
+            "seconds": {"card": c["seconds"], "host": h["seconds"]}}
+        # test_scores_matrix over the multi entropy run's history copies
+        train, test, held = multi_subjects()
+        mexpr = multi_experiment.MultiImgExperiment(multi_root, device=dev)
+        mexpr.attach_subjects(train, test, held)
+        t1 = time.perf_counter()
+        scores = test_scores_matrix(mexpr, "entropy")
+        out["test_scores"] = {"matrix": scores.tolist(),
+                              "seconds": time.perf_counter() - t1}
+        again = test_scores_matrix(mexpr, "entropy", start_ind=1)
+        check(scores.shape == (1, 2) and bool(np.isfinite(scores).all())
+              and np.array_equal(again, scores),
+              f"test_scores_matrix {scores} / resumed {again}")
+        # train_with_registries: 6 steps of PW1 at full width
+        pool, _ = even_odd_slice_split(generate_grid_samples(SHAPE, 2),
+                                       SHAPE)
+        inds = torch.as_tensor(np.random.default_rng(3).choice(
+            pool, 256, replace=False)).to(dev)
+        x = gather_patches_normalized(
+            padded, inds, torch.as_tensor(mu, dtype=torch.float32).to(dev),
+            torch.as_tensor(sd, dtype=torch.float32).to(dev), (25, 25, 1),
+            SHAPE)
+        lab = np.nan_to_num(mask.ravel()[inds.cpu().numpy()]).astype(int)
+        y = torch.nn.functional.one_hot(torch.as_tensor(lab), 2).float().to(
+            dev)
+        xt, yt, xv, yv = x[:128], y[:128], x[128:], y[128:]
+
+        def gen():
+            while True:
+                yield xt, yt
+
+        model = init_cnn(spec, seed=1, device=dev)
+        state = TrainState(model, make_optimizer("Adam", 1e-3,
+                                                 model.parameters()))
+        regs = [MetricRegistry(("av_acc", "av_loss"), lambda: (xv, yv)),
+                MetricRegistry(("F1",), lambda: (xv, yv))]
+        t1 = time.perf_counter()
+        state = train_with_registries(
+            state, make_train_step(), gen(), step_limit=6, rng=4,
+            registries=regs, eval_every=3, save_path=os.path.join(top, "reg"),
+            track="av_acc")
+        losses = state.metrics["train_loss"]
+        check(state.step == 6 and len(losses) == 6
+              and bool(np.isfinite(losses).all())
+              and len(regs[0].history["av_acc"]) == 3
+              and all(os.path.exists(os.path.join(top, "reg", f)) for f in (
+                  "av_acc_0.txt", "av_loss_0.txt", "F1_1.txt",
+                  "max_valid_iter.txt", "max_model_pars.npz")),
+              f"train_with_registries: {losses} {regs[0].history}")
+        out["registries"] = {"train_loss": losses,
+                             "history": [r.history for r in regs],
+                             "seconds": time.perf_counter() - t1}
+    finally:
+        shutil.rmtree(top, ignore_errors=True)
+        shutil.rmtree(multi_root, ignore_errors=True)
+    out["counts"] = {k.name: k.launches for k in ops.KERNELS}
+    check(out["counts"]["gather_patches_normalized"] > 0,
+          "K2 never launched in the analysis phase")
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["bytes_moved_between_devices"] = 0
+    out["seconds"] = time.perf_counter() - t0
+    print("analysis ok (card above): " + json.dumps(out))
+    return out
 
 
 def main() -> int:
@@ -4321,7 +4823,7 @@ def main() -> int:
     print(card)
 
     t0 = time.perf_counter()
-    ops.build_kernels()
+    timed("build", ops.build_kernels)
     build_s = time.perf_counter() - t0
     print(f"kernel build {build_s:.3f} s (one nvcc per source, in "
           "parallel): " + ", ".join(f"{k.name} {k.build_s:.3f} s"
@@ -4336,28 +4838,34 @@ def main() -> int:
     check(not sass or (sass["HGMMA"] > 0 and sass["UTMALDG"] > 0),
           f"K1's binary lacks wgmma or TMA loads: {sass}")
 
-    rows = [phase_k1(dev), phase_k2(dev)]
-    phase_forward(dev)
-    bf16_fwd = phase_bf16_forward(dev)
-    mc_fwd = phase_mc_forward(dev)
-    levers = phase_train_levers(dev)
-    mc_sweep = phase_mc_sweep(dev)
-    perturb = phase_perturb(dev)
-    batch_select = phase_batch_select(dev)
-    second_order = phase_second_order(dev)
-    slic = phase_slic_variance(dev)
-    fim = phase_fim_parity(dev)
-    sweep, unc32 = phase_fim_sweep(dev)
-    sweep16, _ = phase_fim_sweep(dev, cd=torch.bfloat16, ref_unc=unc32)
+    rows = [timed("k1", phase_k1, dev), timed("k2", phase_k2, dev)]
+    timed("forward", phase_forward, dev)
+    bf16_fwd = timed("bf16_forward", phase_bf16_forward, dev)
+    mc_fwd = timed("mc_forward", phase_mc_forward, dev)
+    levers = timed("train_levers", phase_train_levers, dev)
+    mc_sweep = timed("mc_sweep", phase_mc_sweep, dev)
+    perturb = timed("perturb", phase_perturb, dev)
+    batch_select = timed("batch_select", phase_batch_select, dev)
+    second_order = timed("second_order", phase_second_order, dev)
+    slic = timed("slic_variance", phase_slic_variance, dev)
+    fim = timed("fim_parity", phase_fim_parity, dev)
+    sweep, unc32 = timed("fim_sweep_f32", phase_fim_sweep, dev)
+    sweep16, _ = timed("fim_sweep_bf16", phase_fim_sweep, dev,
+                       cd=torch.bfloat16, ref_unc=unc32)
     del unc32
-    f32, bf16, codecs, wpool, served = phase_campaign(dev)
-    resume = phase_resume(dev)
-    resume_mt = phase_resume(dev, mt=True)
-    determinism = phase_determinism_cost(dev)
-    multi = phase_multi(dev)
-    dense = phase_dense(dev)
-    cls = phase_cls(dev)
-    serving = phase_serving(dev)
+    f32, bf16, codecs, wpool, served, kept = timed("campaign",
+                                                   phase_campaign, dev)
+    resume = timed("resume", phase_resume, dev)
+    resume_mt = timed("resume_mt", phase_resume, dev, mt=True)
+    determinism = timed("determinism", phase_determinism_cost, dev)
+    multi = timed("multi", phase_multi, dev)
+    dense = timed("dense", phase_dense, dev)
+    cls = timed("cls", phase_cls, dev)
+    serving = timed("serving", phase_serving, dev)
+    parallel = timed("parallel", phase_parallel, dev, kept,
+                     serving.pop("serve"))
+    analysis = timed("analysis", phase_analysis, dev, kept, multi["kept"])
+    del kept
     phases, seconds, by_method, peaks, notes = {}, {}, {}, {}, {}
     for _, ph, sec, bym, pk, nt in (f32, bf16):
         phases.update(ph)
@@ -4365,8 +4873,7 @@ def main() -> int:
         by_method.update(bym)
         peaks.update(pk)
         notes.update(nt)
-    new_runs = ([n for n, _ in F32_RUNS if n.split("@")[0] in NEW_METHODS]
-                + ["bf16/BALD", "bf16/QBC-JS"])
+    new_runs = [n for n, _ in F32_RUNS if n.split("@")[0] in NEW_METHODS]
     print("per-round seconds of the new methods (NVIDIA card above): "
           + json.dumps(round_seconds(phases, new_runs)))
     print("MC sweep rate: " + json.dumps({
@@ -4461,8 +4968,13 @@ def main() -> int:
                          + mb["counts"][n] + df["counts"][n]
                          + db["counts"][n] + dm["counts"][n]
                          + cc["counts"][n] + cv["counts"][n]
-                         + serving["counts"][n])
+                         + serving["counts"][n] + parallel["counts"][n]
+                         + analysis["counts"][n])
         r["launches_serving"] = serving["counts"][n]
+        r["launches_parallel"] = parallel["counts"][n]
+        r["launches_parallel_by_run"] = {
+            m: c[n] for m, c in parallel["campaigns"]["by_method"].items()}
+        r["launches_analysis"] = analysis["counts"][n]
         r["launches_cls_campaign"] = cc["counts"][n]
         r["launches_cls_vgg19"] = cv["counts"][n]
         r["launches_by_cls_run"] = {m: c[n] for d in (cc, cv)
@@ -4483,6 +4995,8 @@ def main() -> int:
         if n == "rowmax_similarity":
             r["at_d16"] = dense["k1"]
             r["at_cls"] = cls["k1"]
+    PHASE_S["total"] = time.perf_counter() - T_START
+    print("phase seconds: " + json.dumps(PHASE_S))
     print(json.dumps({"phases": phases, "campaign_s": seconds,
                       "build_s": build_s,
                       "build_s_per_kernel": {k.name: k.build_s
@@ -4513,6 +5027,11 @@ def main() -> int:
                       "dense_phases": {**df["phases"], **db["phases"],
                                        **{"multi/" + k: v for k, v in
                                           dm["phases"].items()}},
+                      "parallel": {k: parallel[k] for k in (
+                          "evaluator", "selectors", "nccl", "seconds",
+                          "peak_bytes", "bytes_moved_between_devices")},
+                      "analysis": analysis,
+                      "phase_seconds": PHASE_S,
                       "multi": {"picks": multi["picks"],
                                 "resume": multi["resume"],
                                 "sequential": multi["sequential"],

@@ -1,14 +1,18 @@
 """Volume IO and synthetic subjects (counterpart of ``nnal_tpu/data/io.py``).
 
 ``read_volume`` dispatches on the file extension (``.npy``/``.npz`` here;
-the JAX package's NRRD/NIfTI fallbacks are not ported yet).
+the JAX package's NRRD/NIfTI readers are not ported yet).
 ``synthetic_subject`` is an exact copy: the same seed gives the same
-float64 volumes and mask as the JAX package.
+float64 volumes and mask as the JAX package.  ``write_nrrd`` is a copy of
+the JAX package's writer (``data/formats.py:161-199``), which
+``evaluation/analysis.get_full_segs`` saves segmentations with.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+import gzip
+import os
+from typing import Callable, Dict, Optional
 
 import numpy as np
 
@@ -58,3 +62,47 @@ def synthetic_subject(shape=(48, 48, 16), n_modalities: int = 2,
         mask[:nan_margin] = np.nan
         mask[-nan_margin:] = np.nan
     return vols, mask
+
+
+# canonical NRRD type name per numpy kind+size (``formats.py:59-64``)
+_NRRD_TYPE_NAMES = {
+    "i1": "int8", "u1": "uint8", "i2": "int16", "u2": "uint16",
+    "i4": "int32", "u4": "uint32", "i8": "int64", "u8": "uint64",
+    "f4": "float", "f8": "double",
+}
+
+
+def write_nrrd(path: str, data: np.ndarray, encoding: str = "gzip",
+               keyvals: Optional[Dict[str, str]] = None) -> None:
+    """Write ``data`` as an attached-data NRRD (pynrrd-readable): Fortran
+    index order on disk, little endian, as the JAX package writes it."""
+    data = np.asarray(data)
+    code = data.dtype.kind + str(data.dtype.itemsize)
+    code = {"b1": "u1"}.get(code, code)
+    if code not in _NRRD_TYPE_NAMES:
+        raise ValueError(f"unsupported dtype {data.dtype} for NRRD")
+    le = np.dtype("<" + code)
+    payload = np.ascontiguousarray(data.T).astype(le, copy=False).tobytes()
+    enc = encoding.lower()
+    if enc in ("gzip", "gz"):
+        payload = gzip.compress(payload, compresslevel=1)
+    elif enc != "raw":
+        raise ValueError(f"unsupported write encoding {encoding!r}")
+    lines = [
+        "NRRD0004",
+        "# written by nnal_tpu.data.formats",
+        f"type: {_NRRD_TYPE_NAMES[code]}",
+        f"dimension: {data.ndim}",
+        f"sizes: {' '.join(str(s) for s in data.shape)}",
+        f"encoding: {'gzip' if enc in ('gzip', 'gz') else 'raw'}",
+    ]
+    if data.dtype.itemsize > 1:
+        lines.append("endian: little")
+    for k, v in (keyvals or {}).items():
+        lines.append(f"{k}:={v}")
+    header = "\n".join(lines) + "\n\n"
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(header.encode("ascii"))
+        f.write(payload)
+    os.replace(tmp, path)

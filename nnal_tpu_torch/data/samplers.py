@@ -4,19 +4,23 @@ The grid sampler and the pool/test split the patch-wise engine uses
 (numpy), and the local-variance map behind ``ps-random``: the
 ``Var[x] = E[x^2] - E[x]^2`` box-filter trick of the reference
 (patch_utils.py:794), as two batched convolutions over every axial slice
-on the given device.  The samplers no engine path calls
-(``sample_masked_volume``, ``partition_2d_indices``) are not ported.
+on the given device.  The analysis samplers (``samplers.py:94-173``):
+``sample_masked_volume`` (the reference's balanced 3-way sampling),
+``sample_types_of`` (the partition type of arbitrary voxels under the
+same rule) and ``filter_by_parcellation``; their log-variance maps run on
+``device`` (None: the card).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from nnal_tpu_torch.core.device import resolve_device
+from nnal_tpu_torch.data.indexing import expand_raveled_inds
 
 
 def generate_grid_samples(shape3d, grid_spacing: int, mask=None):
@@ -92,3 +96,78 @@ def high_variance_filter(vol, patch_shape, thr: float, pool_inds,
     var = local_variance_map(v, d).reshape(-1)
     inds = torch.as_tensor(np.asarray(pool_inds, np.int64)).to(v.device)
     return torch.nonzero(var[inds] > thr).reshape(-1).cpu().numpy()
+
+
+def _log_var(img, var_kernel: int, device) -> np.ndarray:
+    """The log local-variance map of the balanced sampler
+    (``samplers.py:104-107``): variances of exactly 0 lifted by 0.1."""
+    v = torch.as_tensor(np.asarray(img)).to(resolve_device(device))
+    log_var = local_variance_map(v, var_kernel).cpu().numpy()
+    log_var[log_var == 0] += 1e-1
+    return np.log(log_var)
+
+
+def sample_masked_volume(img, mask, slices, N: Sequence[int], rng,
+                         var_kernel: int = 5, var_thr: float = 2.0,
+                         device=None):
+    """Balanced 3-way sampling per axial slice (reference
+    ``sample_masked_volume`` + ``partition_2d_indices``,
+    patch_utils.py:628-792): masked voxels / high-variance background /
+    low-variance background, with per-slice caps ``N = (n0, n1, n2)``.
+
+    Returns (raveled 3D indices, labels, partition types).
+    """
+    img = np.asarray(img)
+    mask = np.asarray(mask)
+    log_var = _log_var(img, var_kernel, device)
+    sel_inds, sel_labels, sel_types = [], [], []
+    for s in slices:
+        m2 = mask[:, :, s]
+        v2 = log_var[:, :, s]
+        masked = np.flatnonzero(m2.ravel() > 0)
+        hvar = np.setdiff1d(np.flatnonzero(v2.ravel() > var_thr), masked)
+        lvar = np.setdiff1d(np.flatnonzero(v2.ravel() < var_thr), masked)
+        for t, (group, label) in enumerate(
+                [(masked, 1), (hvar, 0), (lvar, 0)]):
+            take = group if N[t] >= len(group) else \
+                group[rng.permutation(len(group))[:N[t]]]
+            g3d = expand_raveled_inds(take, s, 2, img.shape)
+            sel_inds += list(g3d)
+            sel_labels += [label] * len(take)
+            sel_types += [t] * len(take)
+    return (np.array(sel_inds, dtype=np.int64),
+            np.array(sel_labels, dtype=np.int64),
+            np.array(sel_types, dtype=np.int64))
+
+
+def sample_types_of(img, mask, inds, var_kernel: int = 5,
+                    var_thr: float = 2.0, device=None) -> np.ndarray:
+    """Partition type of arbitrary voxels under the balanced-sampling rule
+    (reference ``get_sample_type``, PW_analyze_results.py:69-85): 0 =
+    masked, 1 = high-variance background, 2 = low-variance background
+    (voxels exactly at ``var_thr``, which the sampler leaves out of both
+    groups, classify as 2)."""
+    img = np.asarray(img)
+    mask = np.asarray(mask)
+    log_var = _log_var(img, var_kernel, device)
+    pos = np.unravel_index(np.asarray(inds, np.int64), img.shape)
+    return np.where(mask[pos] > 0, 0,
+                    np.where(log_var[pos] > var_thr, 1, 2)).astype(np.int64)
+
+
+def filter_by_parcellation(inds, labels, parc) -> Tuple[np.ndarray,
+                                                        np.ndarray]:
+    """Drop samples whose voxel lies outside a parcellation map (reference
+    ``preprop_NVM_data``, patch_utils.py:600-616): ``parc`` is a labeled
+    volume or a path ``data.io.read_volume`` reads; samples with
+    parcellation label 0 are removed.  Returns the filtered ``(inds,
+    labels)``."""
+    if isinstance(parc, str):
+        from nnal_tpu_torch.data.io import read_volume
+
+        parc = read_volume(parc)
+    parc = np.asarray(parc)
+    inds = np.asarray(inds, dtype=np.int64)
+    labels = np.asarray(labels)
+    keep = parc[np.unravel_index(inds, parc.shape)] > 0
+    return inds[keep], labels[keep]

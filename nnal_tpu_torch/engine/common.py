@@ -6,9 +6,10 @@ so a crash-resumed port campaign replays exactly like a JAX one;
 ``maybe_reset_opt`` is ``opt_reset_per_round``'s warm restart,
 ``cached_tx`` the classification engine's optimizer reuse, and
 ``write_checkpoint`` runs a save now or from the writer thread.
-``check_slice_config`` rejects the one configuration key whose code path
-the port does not carry yet — ``data_parallel`` > 1 — naming it, rather
-than ignoring it, and dtype strings the JAX package rejects.  The anchor
+``check_slice_config`` rejects the dtype strings the JAX package rejects
+(the classification engine warns on ``data_parallel`` > 1, as JAX's
+does), and ``grid_evaluator`` builds the patch-wise engines' grid
+evaluators: z-sharded over a mesh when ``data_parallel`` > 1.  The anchor
 levers (``anchor_dtype``, ``adopt_anchor_rounding``,
 ``anchor_save_kwargs``) are ``engine/common.py:52-111`` on the port's
 ``TrainState`` (an ``nn.Module``, a ``torch.optim`` optimizer, the mean
@@ -30,6 +31,7 @@ from nnal_tpu_torch.core.journal import load_inds
 from nnal_tpu_torch.models.bridge import to_jax_tensors
 from nnal_tpu_torch.models.checkpoint import round_trip_bf16, round_trip_int8
 from nnal_tpu_torch.models.optim import opt_state_tensors
+from nnal_tpu_torch.scoring.grid_eval import GridPoolEvaluator
 from nnal_tpu_torch.scoring.pool_eval import eval_compute_dtype
 
 ANCHOR_DTYPES = ("float32", "bfloat16", "int8")
@@ -53,19 +55,13 @@ def dense_model_kwargs(model_cfg) -> dict:
 
 
 def check_slice_config(cfg, classification: bool = False) -> None:
-    """Raise ``NotImplementedError`` naming the first config key that
-    selects a path the port does not have yet, and ``ValueError`` for a
-    ``dtype`` / ``train_dtype`` / ``ckpt_dtype`` or a
-    ``consistency_measure`` the JAX package rejects.  The classification
-    engine warns on ``data_parallel`` > 1 instead, as the JAX package's
-    does (``experiment.py:47-55``): that key shards the patch-wise
-    engines' sweeps only."""
+    """Raise ``ValueError`` for a ``dtype`` / ``train_dtype`` /
+    ``ckpt_dtype`` or a ``consistency_measure`` the JAX package rejects.
+    The classification engine warns on ``data_parallel`` > 1, as the JAX
+    package's does (``experiment.py:47-55``): that key shards the
+    patch-wise engines' sweeps only."""
     m, q = cfg.model, cfg.query
-    if int(getattr(q, "data_parallel", 1)) > 1:
-        if not classification:
-            raise NotImplementedError(
-                "config key data_parallel is not supported by the PyTorch "
-                "port yet")
+    if int(getattr(q, "data_parallel", 1)) > 1 and classification:
         import warnings
 
         warnings.warn("data_parallel > 1 applies to the patch-wise "
@@ -80,6 +76,29 @@ def check_slice_config(cfg, classification: bool = False) -> None:
     eval_compute_dtype(getattr(m, "dtype", None))
     eval_compute_dtype(getattr(m, "train_dtype", None))
     anchor_dtype(m)
+
+
+def grid_evaluator(cfg, spec, padded, mu, sd, orig_shape, mesh=None):
+    """The patch-wise engines' evaluator factory for one subject's grid
+    pool (``pw_experiment.py:147-162``, ``multi_experiment.py:128-146``):
+    with ``query.data_parallel`` > 1 the z-sharded
+    ``ShardedGridPoolEvaluator`` over ``mesh``, the engine's own (None:
+    ``cached_mesh(data_parallel)`` on the volume's device type, which
+    raises on CUDA when there are fewer cards), else the single-device
+    one."""
+    args = (spec, padded, mu, sd, tuple(cfg.model.patch_shape),
+            tuple(orig_shape))
+    kw = dict(grid_spacing=cfg.data.grid_spacing, ntb=cfg.query.ntb,
+              compute_dtype=eval_compute_dtype(cfg.model.dtype))
+    dp = int(getattr(cfg.query, "data_parallel", 1))
+    if dp <= 1:
+        return GridPoolEvaluator(*args, **kw)
+    from nnal_tpu_torch.parallel.grid_sharded import ShardedGridPoolEvaluator
+    from nnal_tpu_torch.parallel.mesh import cached_mesh
+
+    if mesh is None:
+        mesh = cached_mesh(dp, device=padded.device.type)
+    return ShardedGridPoolEvaluator(mesh, *args, **kw)
 
 
 def replay_prefix_lens(j, al_state, round_id: int, n_train: int,

@@ -503,11 +503,14 @@ class Experiment:
                              method_name).load_evals("accs.txt")
 
     def visualize_run(self, run: int, method_names, save_path: str) -> None:
-        """Accuracy-vs-#queries curves (reference ``visualize_run``): needs
-        the port of ``evaluation/visualize``."""
-        raise NotImplementedError(
-            "visualize_run needs evaluation/visualize, which is not ported "
-            "to the PyTorch port yet (ROADMAP Queue 1 item 11)")
+        """Accuracy-vs-#queries curves for one run (reference
+        ``visualize_run``, AL.py:626-678), written to ``save_path``."""
+        from nnal_tpu_torch.evaluation.visualize import plot_learning_curves
+
+        curves = {m: self.read_run(run, m) for m in method_names
+                  if len(self.read_run(run, m))}
+        plot_learning_curves(curves, self.config.query.k, save_path,
+                             ylabel="test accuracy")
 
     def summarize_all(self, method_names) -> Dict[str, np.ndarray]:
         """Mean accuracy curves across runs (reference ``summarize_all``)."""

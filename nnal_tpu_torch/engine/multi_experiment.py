@@ -88,6 +88,7 @@ from nnal_tpu_torch.engine.common import (
     anchor_save_kwargs,
     check_slice_config,
     dense_model_kwargs,
+    grid_evaluator,
     inverse_frequency_weights,
     is_dense,
     maybe_reset_opt,
@@ -130,7 +131,6 @@ from nnal_tpu_torch.scoring.fcn_eval import (
     FCNGridPoolEvaluator,
     normalized_slices,
 )
-from nnal_tpu_torch.scoring.grid_eval import GridPoolEvaluator
 from nnal_tpu_torch.scoring.pool_eval import eval_compute_dtype
 from nnal_tpu_torch.scoring.strategies import (
     QueryContext,
@@ -153,8 +153,11 @@ class MultiImgExperiment:
     """AL across several training subjects and held-out test subjects."""
 
     def __init__(self, root_dir: str,
-                 config: Optional[ExperimentConfig] = None, device=None):
+                 config: Optional[ExperimentConfig] = None, device=None,
+                 mesh=None):
         self.device = resolve_device(device)
+        # the data_parallel evaluators' mesh (None: cached_mesh(dp))
+        self.mesh = mesh
         set_precision()
         self.root_dir = root_dir
         os.makedirs(root_dir, exist_ok=True)
@@ -247,7 +250,8 @@ class MultiImgExperiment:
 
     def _evaluators(self, spec, kind: str, stats: np.ndarray) -> List:
         """One evaluator per subject, over its device-resident volume (a
-        dense spec's: over its normalized slice stack)."""
+        dense spec's: over its normalized slice stack), z-sharded over the
+        engine's ``mesh`` when ``data_parallel`` > 1."""
         m = self.config.model
         if spec.fcn:
             return [FCNGridPoolEvaluator(
@@ -255,13 +259,10 @@ class MultiImgExperiment:
                 tuple(vols[0].shape), compute_dtype=eval_compute_dtype(m.dtype),
                 device=self.device, hv_patch_shape=tuple(m.patch_shape))
                 for i, (vols, _) in enumerate(self._subjects(kind))]
-        return [GridPoolEvaluator(
-            spec, self.padded(kind, i), stats[i, 0::2], stats[i, 1::2],
-            tuple(m.patch_shape), tuple(vols[0].shape),
-            grid_spacing=self.config.data.grid_spacing,
-            ntb=self.config.query.ntb,
-            compute_dtype=eval_compute_dtype(m.dtype))
-            for i, (vols, _) in enumerate(self._subjects(kind))]
+        return [grid_evaluator(self.config, spec, self.padded(kind, i),
+                               stats[i, 0::2], stats[i, 1::2], vols[0].shape,
+                               self.mesh)
+                for i, (vols, _) in enumerate(self._subjects(kind))]
 
     def _load_model(self, spec, params) -> CNN:
         model = CNN(spec)

@@ -107,6 +107,7 @@ from nnal_tpu_torch.engine.common import (
     anchor_save_kwargs,
     check_slice_config,
     dense_model_kwargs,
+    grid_evaluator,
     inverse_frequency_weights,
     is_dense,
     maybe_reset_opt,
@@ -148,7 +149,6 @@ from nnal_tpu_torch.scoring.fcn_eval import (
     FCNGridPoolEvaluator,
     normalized_slices,
 )
-from nnal_tpu_torch.scoring.grid_eval import GridPoolEvaluator
 from nnal_tpu_torch.scoring.pool_eval import eval_compute_dtype
 from nnal_tpu_torch.scoring.pseudo import confident_samples
 from nnal_tpu_torch.scoring.strategies import QueryContext, cnn_query
@@ -158,8 +158,11 @@ class PWExperiment:
     """Patch-wise AL experiment over one subject's volumes."""
 
     def __init__(self, root_dir: str,
-                 config: Optional[ExperimentConfig] = None, device=None):
+                 config: Optional[ExperimentConfig] = None, device=None,
+                 mesh=None):
         self.device = resolve_device(device)
+        # the data_parallel evaluator's mesh (None: cached_mesh(dp))
+        self.mesh = mesh
         set_precision()
         self.root_dir = root_dir
         os.makedirs(root_dir, exist_ok=True)
@@ -245,7 +248,8 @@ class PWExperiment:
         return stats[0, 0::2], stats[0, 1::2]
 
     def make_evaluator(self, spec):
-        """Grid pools sweep by im2col, off-grid sets fall back inside;
+        """Grid pools sweep by im2col, off-grid sets fall back inside,
+        z-sharded over the engine's ``mesh`` when ``data_parallel`` > 1;
         dense specs score by whole-slice sweeps."""
         mu, sd = self._stats_arrays()
         if spec.fcn:
@@ -255,12 +259,8 @@ class PWExperiment:
                 compute_dtype=eval_compute_dtype(self.config.model.dtype),
                 device=self.device,
                 hv_patch_shape=tuple(self.config.model.patch_shape))
-        return GridPoolEvaluator(
-            spec, self.padded(), mu, sd, tuple(self.config.model.patch_shape),
-            tuple(self._load_subject()[0][0].shape),
-            grid_spacing=self.config.data.grid_spacing,
-            ntb=self.config.query.ntb,
-            compute_dtype=eval_compute_dtype(self.config.model.dtype))
+        return grid_evaluator(self.config, spec, self.padded(), mu, sd,
+                              self._load_subject()[0][0].shape, self.mesh)
 
     def _load_model(self, spec, params) -> CNN:
         model = CNN(spec)

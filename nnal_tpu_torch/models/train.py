@@ -1,6 +1,7 @@
 """Finetuning (counterpart of ``nnal_tpu/models/train.py``: the patch-wise
 ``make_scanned_finetune`` with its levers, the dense
-``make_scanned_finetune_fcn`` and the BN refresh).
+``make_scanned_finetune_fcn``, the BN refresh, and the step-bounded
+``train`` / ``validated_train`` loops of the analysis harness).
 
 The JAX package runs a round's finetune as one jitted ``lax.scan`` over a
 precomputed ``(steps, b)`` index matrix; here it is a Python loop over the
@@ -64,8 +65,8 @@ train-mode forwards without dropout, at f32.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, List, Optional
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -98,6 +99,7 @@ class TrainState:
     step: int = 0
     teacher: Optional[torch.nn.Module] = None   # the mean teacher (EMA)
     bn_state: Optional[Dict] = None     # BN running stats {layer: {mean, var}}
+    metrics: Dict[str, List[float]] = field(default_factory=dict)
 
 
 @dataclass
@@ -140,6 +142,61 @@ def init_train_state(model, optimizer_name="SGD", learning_rate=1e-3
                      ) -> TrainState:
     return TrainState(model=model, optimizer=make_optimizer(
         optimizer_name, learning_rate, model.parameters()))
+
+
+def batch_tensor(a, device) -> torch.Tensor:
+    """A host or device batch as a tensor on ``device``; float64 becomes
+    f32, as ``jnp.asarray`` makes it with x64 off."""
+    t = torch.as_tensor(a)
+    return (t.float() if t.dtype == torch.float64 else t).to(device)
+
+
+def train(state: TrainState, step_fn, train_gen, *, step_limit: int, rng,
+          eval_every: int = 0, eval_fn: Optional[Callable] = None,
+          metric_name: str = "valid", track_best: bool = False,
+          ema_decay: float = 0.999):
+    """Step-bounded loop (``train.py:168-205``; reference
+    NN_extended.py:928-1008).  ``train_gen`` yields ``(x, y)`` batches
+    on the host or the device (channels last, one-hot ``y``); ``step_fn(state, x, y, key)``
+    is :func:`make_train_step`'s, keyed ``fold_key(rng, state.step)``;
+    the mean teacher, when ``state.teacher`` is set, moves after each
+    step.  ``eval_fn(model) -> float`` runs every ``eval_every`` steps
+    into ``state.metrics[metric_name]``; with ``track_best`` the
+    best-metric weights are kept.  Returns the state and the best weights
+    (a ``state_dict`` copy; the final weights' without a tracked best)."""
+    dev = next(state.model.parameters()).device
+    best, best_metric = None, -np.inf
+    history = state.metrics.setdefault(metric_name, [])
+    losses = state.metrics.setdefault("train_loss", [])
+    while state.step < step_limit:
+        x, y = next(train_gen)
+        loss = step_fn(state, batch_tensor(x, dev), batch_tensor(y, dev),
+                       core_rng.fold_key(rng, state.step))
+        losses.append(float(loss))
+        if state.teacher is not None:
+            ema_update(state.teacher, state.model, ema_decay)
+        state.step += 1
+        if eval_every and eval_fn and state.step % eval_every == 0:
+            m = float(eval_fn(state.model))
+            history.append(m)
+            if track_best and m > best_metric:
+                best_metric = m
+                best = {k: v.detach().clone()
+                        for k, v in state.model.state_dict().items()}
+    return state, (best if best is not None else state.model.state_dict())
+
+
+def validated_train(state: TrainState, step_fn, train_gen, *,
+                    step_limit: int, rng, eval_fn, eval_every: int
+                    ) -> TrainState:
+    """Validated training with best-weights rollback (``train.py:555-565``;
+    reference ``validated_train``, NN.py:744): after the loop the weights
+    revert to the best validation point."""
+    state, best = train(state, step_fn, train_gen, step_limit=step_limit,
+                        rng=rng, eval_every=eval_every, eval_fn=eval_fn,
+                        track_best=True)
+    state.model.load_state_dict(best)
+    return state
 
 
 def make_teacher(model: torch.nn.Module) -> torch.nn.Module:

@@ -188,7 +188,10 @@ def gather_patches_normalized(padded: torch.Tensor, inds: torch.Tensor,
         raise ValueError("at most 2**31 - 1 patches per call")
     d1, d2, d3 = patch_shape
     out = torch.empty((n, d1, d2, m * d3), dtype=torch.float32, device=dev)
-    KERNEL.launch(yvol.data_ptr(), inds.data_ptr(), mu.data_ptr(),
-                  sd.data_ptr(), out.data_ptr(), n, ctypes.byref(params),
-                  stream_ptr(padded))
+    # the C entry point launches through the runtime API, which targets
+    # the current device: make it the volume's
+    with torch.cuda.device(dev):
+        KERNEL.launch(yvol.data_ptr(), inds.data_ptr(), mu.data_ptr(),
+                      sd.data_ptr(), out.data_ptr(), n,
+                      ctypes.byref(params), stream_ptr(padded))
     return out

@@ -95,9 +95,12 @@ def rowmax_similarity(P: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     vec = d % 4 == 0 and P.data_ptr() % 16 == 0
     scratch = (torch.empty((2, m, d), dtype=torch.float32, device=P.device)
                if vec else None)
-    KERNEL.launch(P.data_ptr(), R.data_ptr(), out.data_ptr(),
-                  scratch.data_ptr() if vec else None, n, m, d, int(vec),
-                  stream_ptr(P))
+    # the C entry point reads the SM count and sets its shared-memory
+    # attribute on the current device, and launches there: make it P's
+    with torch.cuda.device(P.device):
+        KERNEL.launch(P.data_ptr(), R.data_ptr(), out.data_ptr(),
+                      scratch.data_ptr() if vec else None, n, m, d,
+                      int(vec), stream_ptr(P))
     return out
 
 

@@ -24,6 +24,10 @@ chunk is zero-padded to ``z_chunk`` slices, as JAX pads the slice stack,
 so every chunk's draws have one shape; so is an int8-quantized model's,
 whose per-tensor activation scales JAX takes over the padded chunk.  The
 stride-1 clone of the off-grid route keeps its own chunking, as in JAX.
+The whole-grid sweeps (``evaluate``'s whole sweep, ``fim_sweep``,
+``perturb_sweep``) take their chunks from ``_shards``: here every chunk
+on this evaluator's device; ``parallel/grid_sharded`` splits them over a
+mesh's devices.
 """
 
 from __future__ import annotations
@@ -97,12 +101,14 @@ class GridPoolEvaluator(PoolEvaluator):
                 (s3, p.shape[0] * d3) + tuple(p.shape[1:3])).contiguous()
         self._mu_c = self.mu.repeat_interleave(d3)
         self._sd_c = self.sd.repeat_interleave(d3)
+        # the first slice ``_slices`` holds (a shard's stack starts later)
+        self._z_base = 0
 
     def _block(self, step: int, padded: bool):
         """Z-chunk ``step`` of the slice stack; with ``padded`` (stochastic
         and int8 sweeps) a ragged last chunk is zero-padded to ``z_chunk``
         slices."""
-        z0 = step * self.z_chunk
+        z0 = step * self.z_chunk - self._z_base
         block = self._slices[z0:z0 + self.z_chunk]
         pad = self.z_chunk - block.shape[0]
         if padded and pad:
@@ -129,6 +135,14 @@ class GridPoolEvaluator(PoolEvaluator):
 
     def _n_steps(self) -> int:
         return -(-self.nz // self.z_chunk)
+
+    def _shards(self, *models):
+        """Where the whole-grid sweeps run: ``(evaluator, models, steps)``
+        per device, each evaluator holding the slices of its z-chunk
+        ``steps`` and the models on its device.  Here one entry, every
+        chunk on this evaluator's device; the mesh-sharded subclass
+        (``parallel/grid_sharded``) splits the chunks over its devices."""
+        return [(self, models, range(self._n_steps()))]
 
     def _require_sweep(self) -> None:
         """The whole-grid sweeps' guard: even depths cannot sweep."""
@@ -203,9 +217,10 @@ class GridPoolEvaluator(PoolEvaluator):
         """Every grid row, one z-chunk at a time; one tensor per op with
         ``nz*nx*ny`` rows in grid order (a padded MC chunk's extra rows
         trail)."""
-        parts = [self._sweep_block(model, step, ops, mc_rng)
-                 for step in range(self._n_steps())]
-        return [torch.cat([p[i] for p in parts]) for i in range(len(ops))]
+        parts = [ev._sweep_block(m, step, ops, mc_rng)
+                 for ev, (m,), steps in self._shards(model) for step in steps]
+        return [torch.cat([p[i].to(self.device) for p in parts])
+                for i in range(len(ops))]
 
     @torch.no_grad()
     def evaluate(self, model, pool_inds, ops: Sequence[str] = ("posteriors",),
@@ -244,11 +259,12 @@ class GridPoolEvaluator(PoolEvaluator):
               else self.compute_dtype)
         d1, d2, _ = self.patch_shape
         parts = []
-        for z0 in range(0, self.nz, self.z_chunk):
-            x = extract_normalize(self._slices[z0:z0 + self.z_chunk], d1, d2,
-                                  self.grid_spacing, self._mu_c, self._sd_c)
-            parts.append(pool_score_fused(model, x, True, cd, nchw=True))
-        return to_host({k: torch.cat([p[k] for p in parts])
+        for ev, (m,), steps in self._shards(model):
+            for step in steps:
+                x = extract_normalize(ev._block(step, False), d1, d2,
+                                      self.grid_spacing, ev._mu_c, ev._sd_c)
+                parts.append(pool_score_fused(m, x, True, cd, nchw=True))
+        return to_host({k: torch.cat([p[k].to(self.device) for p in parts])
                         for k in ("p1", "uncertainty", "shrunk")}, as_device)
 
     @torch.no_grad()
@@ -262,12 +278,13 @@ class GridPoolEvaluator(PoolEvaluator):
         ``nz*nx*ny``, grid order."""
         self._require_sweep()
         parts = []
-        for step in range(self._n_steps()):
-            x = self._extract(self._block(step, True))
-            gen = core_rng.key_generator(rng, step, self.device)
-            parts.append(measure_output_perturbation(
-                model, x, gen, teacher=teacher, measure=measure,
-                gaussian_std=gaussian_std, rotation_angle=rotation_angle,
-                nchw=True))
+        for ev, (m, t), steps in self._shards(model, teacher):
+            for step in steps:
+                x = ev._extract(ev._block(step, True))
+                gen = core_rng.key_generator(rng, step, ev.device)
+                parts.append(measure_output_perturbation(
+                    m, x, gen, teacher=t, measure=measure,
+                    gaussian_std=gaussian_std,
+                    rotation_angle=rotation_angle, nchw=True).to(self.device))
         divs = torch.cat(parts)[:self.nz * self.nx * self.ny]
         return divs if as_device else divs.cpu().numpy()

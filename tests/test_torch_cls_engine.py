@@ -7,7 +7,8 @@ package's streams with JAX's draws injected) write identical
 ``queries/``, ``accs.txt`` and ``predicts.txt``; ``eval_run`` (accuracy
 and example-based PR) reads them as the JAX package's does; crash-resume
 == continue bit for bit on the 2-block DenseNet (batch norm, Adam,
-anchors every 2 rounds); the ``data_parallel`` warning; the missing-CUDA
+anchors every 2 rounds); ``summarize_all`` and ``visualize_run`` (its
+curves written to a file); the ``data_parallel`` warning; the missing-CUDA
 error; ``import_keras_vgg_weights`` on an h5 file the test writes; the
 image pools; and ``softmax_harness.run_comparison``.  Each test deletes
 its checkpoints as soon as it has read them."""
@@ -150,8 +151,11 @@ def test_summarize_and_visualize(campaigns):
     texpr.attach_data(X, y)
     s = texpr.summarize_all(METHODS)
     np.testing.assert_array_equal(s["entropy"], texpr.read_run(0, "entropy"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        texpr.visualize_run(0, METHODS, str(top / "curves.png"))
+    # ported with evaluation/visualize: the curves go to the file
+    path = top / "curves.png"
+    texpr.visualize_run(0, METHODS, str(path))
+    assert path.stat().st_size > 0
+    path.unlink()
 
 
 DENSE = {**PARS, "model_name": "DenseNet", "nclass": 3,

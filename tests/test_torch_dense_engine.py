@@ -27,6 +27,7 @@ from nnal_tpu_torch.engine import pw_experiment as pw_mod
 from nnal_tpu_torch.engine.pw_experiment import PWExperiment
 from nnal_tpu_torch.scoring import strategies as tstrat
 from nnal_tpu_torch.scoring.fcn_eval import FCNGridPoolEvaluator
+from nnal_tpu_torch.scoring.grid_eval import GridPoolEvaluator
 from torch_jax_draws import inject
 
 torch.set_num_threads(1)
@@ -198,7 +199,7 @@ def test_ps_random_reads_the_configured_window(tmp_path):
     model = pw_mod.init_cnn(spec, 0, device="cpu")
     dense = expr.make_evaluator(spec)
     assert isinstance(dense, FCNGridPoolEvaluator)
-    patch = pw_mod.GridPoolEvaluator(
+    patch = GridPoolEvaluator(
         spec, expr.padded(), *expr._stats_arrays(), (9, 9, 1), (24, 24, 8),
         grid_spacing=4)
     pool = pw_mod.load_inds(expr._p("init_pool_inds.txt"))

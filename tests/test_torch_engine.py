@@ -25,6 +25,8 @@ from nnal_tpu.cli.expr_handler import do_expr as j_do_expr
 from nnal_tpu_torch.cli import expr_handler as t_cli
 from nnal_tpu_torch.core.config import ExperimentConfig, set_parameters
 from nnal_tpu_torch.engine.pw_experiment import PWExperiment
+from nnal_tpu_torch.parallel.grid_sharded import ShardedGridPoolEvaluator
+from nnal_tpu_torch.parallel.mesh import cached_mesh
 
 torch.set_num_threads(1)
 
@@ -135,8 +137,8 @@ def test_port_imports_no_jax_and_nothing_of_nnal_tpu():
     files = sorted((REPO / "nnal_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
-    # the multi-subject, dense, classification and serving slices'
-    # modules are among the scanned
+    # the multi-subject, dense, classification, serving and multi-device
+    # slices' modules are among the scanned
     scanned = {str(f.relative_to(REPO)) for f in files}
     assert {f"nnal_tpu_torch/{m}.py" for m in (
         "engine/multi_experiment", "engine/sequential", "runtime/native",
@@ -145,7 +147,10 @@ def test_port_imports_no_jax_and_nothing_of_nnal_tpu():
         "data/image_pool", "cli/run_querying",
         "cli/softmax_harness", "models/quant", "evaluation/inference",
         "evaluation/postproc", "evaluation/crf", "runtime/crf_native",
-        "cli/run_on_subjects")} <= scanned
+        "cli/run_on_subjects", "parallel/mesh", "parallel/grid_sharded",
+        "parallel/pool_sharded", "parallel/sharding", "parallel/multihost",
+        "parallel/dryrun", "evaluation/analysis", "engine/analysis",
+        "evaluation/registry", "evaluation/visualize")} <= scanned
     banned = {"jax", "jaxlib", "optax", "flax", "nnal_tpu"}
     for f in files:
         for mod in _imported_modules(f):
@@ -171,7 +176,6 @@ def test_entry_points_raise_without_cuda(tmp_path, monkeypatch):
 # accepted and run, and so are the dense models (model_name: Tiramisu;
 # tests/test_torch_dense_engine.py).
 @pytest.mark.parametrize("override,exc,key", [
-    ("data_parallel=2", NotImplementedError, "data_parallel"),
     ("ckpt_dtype=float16", ValueError, "unsupported ckpt_dtype"),
     ("dtype=float16", ValueError, "unsupported eval dtype"),
     ("train_dtype=float16", ValueError, "unsupported eval dtype"),
@@ -181,3 +185,19 @@ def test_unsupported_config_keys_raise(tmp_path, override, exc, key):
         set_parameters(t_cli.DEFAULT_PARS, override))
     with pytest.raises(exc, match=key):
         PWExperiment(str(tmp_path), cfg, device="cpu")
+
+
+def test_data_parallel_builds_the_sharded_evaluator(tmp_path, monkeypatch):
+    """``data_parallel`` 2 (rejected before the multi-device slice) builds
+    the z-sharded evaluator over ``cached_mesh(2)``; on CUDA the default
+    mesh needs two cards and says how many it found
+    (``tests/test_torch_parallel_engine.py`` runs the campaigns)."""
+    expr = t_cli.create_expr(str(tmp_path), "data_parallel=2",
+                             synthetic=True, device="cpu")
+    ev = expr.make_evaluator(expr.build_model())
+    assert isinstance(ev, ShardedGridPoolEvaluator)
+    assert ev.mesh.shape == {"data": 2, "model": 1}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="need 2 CUDA devices, found 1"):
+        cached_mesh(2, device="cuda")

@@ -43,6 +43,7 @@ from nnal_tpu_torch.engine.sequential import sequential_al
 from nnal_tpu_torch.models.bridge import to_jax_params
 from nnal_tpu_torch.models.checkpoint import load_checkpoint
 from nnal_tpu_torch.models.train import init_train_state
+from nnal_tpu_torch.parallel.grid_sharded import ShardedGridPoolEvaluator
 
 torch.set_num_threads(1)
 
@@ -324,12 +325,26 @@ def test_sequential_al_warm_starts_and_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("over,exc,key", [
-    ({"data_parallel": 2}, NotImplementedError, "data_parallel"),
     ({"hist_dtype": "int8"}, ValueError, "unsupported hist_dtype"),
 ])
 def test_unsupported_keys_raise(tmp_path, over, exc, key):
     with pytest.raises(exc, match=key):
         _port(tmp_path, **over)
+
+
+def test_data_parallel_shards_every_grid_evaluator(tmp_path):
+    """``data_parallel`` 2 (rejected before the multi-device slice): the
+    train, test and held subjects' evaluators are z-sharded over
+    ``cached_mesh(2)`` (``tests/test_torch_parallel_multi.py`` runs the
+    campaigns)."""
+    expr = _port(tmp_path, data_parallel=2)
+    expr.prep_data()
+    spec = expr.build_model()
+    for kind in ("train", "test"):
+        evs = expr._evaluators(spec, kind, expr._stats(kind))
+        assert len(evs) == len(expr._subjects(kind))
+        assert all(isinstance(e, ShardedGridPoolEvaluator)
+                   and e.mesh.shape["data"] == 2 for e in evs)
 
 
 def test_entry_point_raises_without_cuda(tmp_path, monkeypatch):
