@@ -118,8 +118,9 @@ Phases, each of which passes or exits non-zero:
    2,
    ``async_checkpoint``; its launch counts are zeroed before and read
    after it, and K1 and K2 must launch;
-15. resume == continue: a 4-round random campaign with int8 anchors every
-   3 rounds, run uninterrupted and then crashed after round 3 and
+15. resume == continue: a 3-round random campaign with int8 anchors every
+   2 rounds (the campaign subject cut to 16 slices, ``RESUME_SHAPE``),
+   run uninterrupted and then crashed after round 2 and
    resumed by replay in a fresh ``PWExperiment``: the final
    ``curr_weights.npz``, the query journal and ``perf_evals.txt`` must be
    bit-identical; again with the mean teacher (its int8 ``teacher/``
@@ -144,8 +145,9 @@ Phases, each of which passes or exits non-zero:
    membership, rounds, sub-spans, history copies, anchors, K1 / K2
    launches) with the launch counts zeroed just before each campaign and
    read just after; K2's copy cache must make one copy per distinct
-   volume; multi resume == continue (random, int8 anchors every 3
-   rounds, crashed after round 3) bit for bit; ``sequential_al`` over
+   volume; multi resume == continue (random, int8 anchors every 2
+   rounds, crashed after round 2, the five subjects cut to 16 slices)
+   bit for bit; ``sequential_al`` over
    two subjects, warm-started; and the host loader (``PrefetchLoader``
    over the native gather: each batch equal to the host source's, within
    1 ulp of K2, and its batches/s);
@@ -174,7 +176,8 @@ Phases, each of which passes or exits non-zero:
    (rounds, picks, membership, no K2 launch, K1 in core-set, the ``bn/``
    group, fi's sub-spans, the committee phase, the teacher group); dense
    resume == continue bit for bit (entropy, 3 rounds, int8 anchors every
-   2, crashed after round 2); and a multi-subject dense fi campaign
+   2, crashed after round 2, the subject cut to 16 slices); and a
+   multi-subject dense fi campaign
    over two 128x128x32 subjects and one 96x96x32 (two shape groups; 64
    queries), every test evaluator on the engine's BN state;
 18. the classification engine (``phase_cls``): AlexNet at its published
@@ -232,8 +235,9 @@ Phases, each of which passes or exits non-zero:
    ``run_on_subjects`` over two held 128x128x32 subjects, float and int8
    (F-measures, seconds, the files; int8 segmentations agree with float's
    on at least 90% of voxels); and a 2-round ``random`` campaign under
-   ``optimizer_name: RMSProp`` stopped after round 1 and resumed, equal
-   to the uninterrupted run bit for bit;
+   ``optimizer_name: RMSProp`` (the subject cut to 16 slices) stopped
+   after round 1 and resumed, equal to the uninterrupted run bit for
+   bit;
 20. the multi-device phases (``phase_parallel``; 2 data shards on the
    one card, given as an explicit device list): ``ShardedGridPoolEvaluator``
    against the unsharded evaluator on the f32 campaign's subject with its
@@ -260,7 +264,27 @@ Phases, each of which passes or exits non-zero:
    history copies, and resumed from its file (equal); and
    ``train_with_registries`` for 6 Adam steps of PW1 on 128 patches
    gathered by K2 (streams, best-model files, finite losses);
-22. lines with the new methods' per-round seconds, the MC and perturb
+22. NRRD / NIfTI subjects (``phase_formats``): the f32 campaign's subject
+   written as gzip NRRD in the ``hakim`` convention and as ``.nii`` in
+   the ``iseg2017`` one, plus ``.nii.gz`` copies read through
+   ``SubjectRegistry.from_lists``; each read back through
+   ``registry_for`` / ``Subject.load`` bit-equal to the subject in
+   memory (write and read seconds); one core-set round of the f32
+   campaign's configuration from the NRRD files
+   (``config.data.img_paths``), launch counts zeroed just before and read
+   just after, whose round-0 picks must equal the f32 campaign's core-set
+   round 0, and K1 (1e-5) and K2 (bit-equal) held to their plain
+   versions on the inputs that round gave them; ``repeat_runs``' ``main``
+   on the card (2 runs of ``random``, one round each, on the subject cut
+   to 8 slices), then a third run interrupted inside its round and
+   resumed from ``counter.txt``; a ``weight_decay`` step of PW1 25x25x2
+   card vs host (loss and params within 1e-5), a ``focal_gamma`` step of
+   FC-DenseNet-103's dense loss on 2 slices (a third of the pixels
+   unlabeled, class weights), card and host each held to a float64 step
+   on the card (the update's worst element and 2-norm within 1e-2 of its
+   size, the rule of phase 18's AlexNet steps), and ``apply_with_branch``
+   on PW1's probe card vs host (1e-4);
+23. lines with the new methods' per-round seconds, the MC and perturb
    sweeps' rates, the committee campaigns' peak memory, the lever runs'
    per-round seconds, each lever's seconds per finetune step, the
    checkpoint bytes with the teacher, whether the TensorBoard mirror
@@ -271,11 +295,12 @@ Phases, each of which passes or exits non-zero:
    JSON line (per-round seconds from ``phases.jsonl`` of both campaigns,
    build seconds, K1's SASS counts, the FIM, bf16, codec, resume, MC,
    perturbation, selection, second-order, SLIC and ``finetune_wpool``
-   phases, the multi-subject, dense, multi-device and analysis ones) and
-   one ``kernels`` JSON line (times, bounds, launches in every campaign
-   and in the serving, multi-device and analysis phases; K1's row also
-   its times at d = 16 under ``at_d16`` and at the classification shape
-   under ``at_cls``).
+   phases, the multi-subject, dense, multi-device, analysis and formats
+   ones) and one ``kernels`` JSON line (times, bounds, launches in every
+   campaign and in the serving, multi-device, analysis and formats
+   phases; each row's check at the formats round's shapes under
+   ``at_formats``; K1's row also its times at d = 16 under ``at_d16`` and
+   at the classification shape under ``at_cls``).
 
 The row and column tolerance rules for shrunk gradients and A-matrices:
 the linear head's column is zero in exact arithmetic (a constant added to
@@ -315,6 +340,7 @@ from nnal_tpu_torch import ops
 from nnal_tpu_torch.ops._build import stream_ptr
 from nnal_tpu_torch.cli.expr_handler import DEFAULT_PARS, create_expr, do_expr
 from nnal_tpu_torch.cli.run_on_subjects import run_on_subjects
+from nnal_tpu_torch.cli import repeat_runs as repeat_runs_mod
 from nnal_tpu_torch.cli import run_querying
 from nnal_tpu_torch.cli.softmax_harness import run_comparison, synthetic_mnist
 from nnal_tpu_torch.data.image_pool import InMemoryPool
@@ -323,7 +349,10 @@ from nnal_tpu_torch.core import rng as core_rng
 from nnal_tpu_torch.core.config import ExperimentConfig, set_parameters
 from nnal_tpu_torch.core.profiling import drain_subphases
 from nnal_tpu_torch.core.device import deterministic_cudnn, set_precision
-from nnal_tpu_torch.data.io import synthetic_subject
+from nnal_tpu_torch.data.datasets import CONVENTIONS as DATASET_CONVENTIONS
+from nnal_tpu_torch.data.datasets import registry_for
+from nnal_tpu_torch.data.formats import write_nifti, write_nrrd
+from nnal_tpu_torch.data.io import SubjectRegistry, synthetic_subject
 from nnal_tpu_torch.core.journal import MethodJournal
 from nnal_tpu_torch.data.patches import pad_volumes
 from nnal_tpu_torch.data.samplers import (
@@ -348,6 +377,11 @@ from nnal_tpu_torch.models.bridge import (
     from_jax_params,
     to_jax_params,
     to_jax_tensors,
+)
+from nnal_tpu_torch.models.branches import (
+    apply_with_branch,
+    branch_input_shape,
+    init_branch,
 )
 from nnal_tpu_torch.models.cnn import CNN, init_cnn, int8_matmul, linear_f32acc
 from nnal_tpu_torch.models.quant import (
@@ -401,10 +435,12 @@ from nnal_tpu_torch.models.optim import (
     opt_state_tensors,
 )
 from nnal_tpu_torch.models.specs import (
+    CNNSpec,
     create_model,
     create_pw1,
     with_aleatoric_head,
 )
+from nnal_tpu_torch.models.specs import Layer as SpecLayer
 from nnal_tpu_torch.models.surgery import extend_params_to_aleatoric
 from nnal_tpu_torch.models.train import (
     LwF,
@@ -537,9 +573,12 @@ BF16_RUNS += (("influence", INFLUENCE + BF16 + ",ckpt_dtype=bfloat16"),)
 INFLUENCE_SUBS = {"influence/labeled_gather", "influence/s_test",
                   "influence/posteriors", "influence/filter",
                   "influence/cand_scores"}
-# resume == continue: 4 rounds of random, int8 anchors every 3 rounds;
-# again with the mean teacher
-RESUME_OVERRIDES = OVERRIDES + ",ckpt_full_every=3,ckpt_dtype=int8"
+# resume == continue: 3 rounds of random, int8 anchors every 2 rounds;
+# again with the mean teacher.  The resume phases (these, the multi,
+# dense and RMSProp ones) check equality, not speed: they run on the
+# campaign subject cut to 16 slices
+RESUME_SHAPE = (128, 128, 16)
+RESUME_OVERRIDES = OVERRIDES + ",ckpt_full_every=2,ckpt_dtype=int8"
 # the multi-subject engine: three 128x128x32 training subjects (pools of
 # 65,536 grid voxels each), a test and a held subject, an empty start
 # (influence: 64 labels seeded), k 64, B 200, 128 queries a run
@@ -562,7 +601,7 @@ MULTI_BF16 = (",dtype=bfloat16,train_dtype=bfloat16,ckpt_full_every=2,"
 # the bf16 test sweeps, the anchors and the float16 history copies, the
 # f32 ``entropy@mt`` the entropy selection)
 MULTI_BF16_RUNS = (("fi", MULTI + MULTI_BF16),)
-MULTI_RESUME = MULTI + ",ckpt_full_every=3,ckpt_dtype=int8,hist_every=0"
+MULTI_RESUME = MULTI + ",ckpt_full_every=2,ckpt_dtype=int8,hist_every=0"
 MULTI_SUBS = {"fi": FI_SUBS, "influence": INFLUENCE_SUBS}
 # query_multimg card vs host: three 64x64x16 subjects at grid spacing 4
 PICKS_SHAPE = (64, 64, 16)
@@ -618,7 +657,7 @@ CLS_RUNS = (tuple((m, "") for m in cls_mod.METHODS
 # pretrained_paths); fi runs to CLS_FI_QUERIES queries, in as many rounds
 # as that takes (its picks shrink: 3, 3, 2, 2 at 10 on an H100 80GB HBM3
 # at 700 W)
-CLS_FI_QUERIES = 3
+CLS_FI_QUERIES = 2
 CLS_ONE_ROUND = {"ensemble", "QBC-JS", "egl", "influence", "entropy@mt",
                  "core-set", "MC-entropy", "BALD", "BatchBALD",
                  "rep-entropy", "BADGE", "entropy@lwf", "random@bf16"}
@@ -643,6 +682,11 @@ PARALLEL_DP = 2
 # the host twice (card vs host), so it is kept to 64x64
 ANALYSIS_SHAPE = (64, 64, 32)
 MULTI_KEPT = os.path.join(ROOT, "_smoke_expr", "kept_multi_entropy")
+# the formats phase's repeat_runs: the f32 campaign's configuration on a
+# subject cut to 8 slices, plain SGD (smaller saves), one round a run
+REPEAT_OVERRIDES = OVERRIDES.replace(
+    "synthetic_shape=[128,128,32]", "synthetic_shape=[128,128,8]").replace(
+    "optimizer_name=Adam", "optimizer_name=SGD")
 PHASE_S = {}
 
 
@@ -2548,18 +2592,18 @@ def _suppressed_resume_writes(orig):
 
 def phase_resume(dev, mt=False):
     """resume == continue on the card (``tests/test_ckpt_every.py``): a
-    4-round random campaign with int8 anchors every 3 rounds runs once
-    uninterrupted; a second run loses its resume-point writes for 3
-    rounds (the round-3 anchor was adopted live but never landed), then a
-    fresh ``PWExperiment`` replays from the initial weights to round 4.
+    3-round random campaign with int8 anchors every 2 rounds runs once
+    uninterrupted; a second run loses its resume-point writes for 2
+    rounds (the round-2 anchor was adopted live but never landed), then a
+    fresh ``PWExperiment`` replays from the initial weights to round 3.
     The final ``curr_weights.npz``, the query journal and
     ``perf_evals.txt`` must be bit-identical.  ``mt``: the same under the
     mean teacher, whose int8 ``teacher/`` group must be in the file (the
     replay rebuilds the teacher from the initial weights)."""
     top = os.path.join(ROOT, "_smoke_expr", "resume")
     shutil.rmtree(top, ignore_errors=True)
-    vols, mask = synthetic_subject(shape=SHAPE, n_modalities=2, n_blobs=3,
-                                   seed=0)
+    vols, mask = synthetic_subject(shape=RESUME_SHAPE, n_modalities=2,
+                                   n_blobs=3, seed=0)
     cfg_pars = set_parameters(DEFAULT_PARS,
                               RESUME_OVERRIDES + (MT if mt else ""))
 
@@ -2585,7 +2629,7 @@ def phase_resume(dev, mt=False):
         a = fresh(os.path.join(top, "a"))
         a.prep_data()
         a.add_method("random")
-        a.run_method("random", 256)
+        a.run_method("random", 192)
         a_s = time.perf_counter() - t0
         b = fresh(os.path.join(top, "b"))
         b.prep_data()
@@ -2594,12 +2638,12 @@ def phase_resume(dev, mt=False):
         pw_experiment.save_checkpoint, dropped = \
             _suppressed_resume_writes(orig)
         try:
-            b.run_method("random", 192)
+            b.run_method("random", 128)
         finally:
             pw_experiment.save_checkpoint = orig
         check(len(dropped) == 1, f"resume: dropped writes {dropped}")
         t0 = time.perf_counter()
-        fresh(os.path.join(top, "b")).run_method("random", 256)
+        fresh(os.path.join(top, "b")).run_method("random", 192)
         resume_s = time.perf_counter() - t0
         wa, qa, ea = artifacts(os.path.join(top, "a"))
         wb, qb, eb = artifacts(os.path.join(top, "b"))
@@ -2607,13 +2651,13 @@ def phase_resume(dev, mt=False):
                       if k not in wa or k not in wb
                       or wa[k].dtype != wb[k].dtype
                       or not np.array_equal(wa[k], wb[k]))
-        res = {"rounds": 4, "ckpt_full_every": 3, "ckpt_dtype": "int8",
+        res = {"rounds": 3, "ckpt_full_every": 2, "ckpt_dtype": "int8",
                "entries": len(wa), "differing_entries": diff,
                "queries_equal": qa == qb, "perf_evals_equal": ea == eb,
                "uninterrupted_s": a_s, "resume_with_replay_s": resume_s,
                "al_state": json.loads(wa["__al_state__"].tobytes().decode()),
                "mean_teacher": mt}
-        check(not diff and qa == qb and ea == eb and len(qa) == 4
+        check(not diff and qa == qb and ea == eb and len(qa) == 3
               and any(k.endswith("@i8") for k in wa)
               and (not mt or "teacher/fc1/W@i8" in wa),
               f"resume != continue on the card: {res}")
@@ -2770,10 +2814,10 @@ def phase_multi_picks(dev, k=64, B=200, mc_iters=2, n_members=3, seed=77):
     return res
 
 
-def multi_subjects():
+def multi_subjects(shape=SHAPE):
     """Three training subjects, a test and a held one (128x128x32, two
-    modalities)."""
-    s = [synthetic_subject(shape=SHAPE, n_modalities=2, n_blobs=3, seed=i)
+    modalities; ``shape`` cuts them)."""
+    s = [synthetic_subject(shape=shape, n_modalities=2, n_blobs=3, seed=i)
          for i in range(5)]
     return s[:3], s[3:4], s[4:]
 
@@ -2928,9 +2972,9 @@ def _multi_campaign(dev, top, runs, tag, subjects, keep=None):
 
 
 def phase_multi_resume(dev, top, subjects):
-    """Multi resume == continue on the card: ``random``, 4 rounds, int8
-    anchors every 3 rounds, run uninterrupted; a second run loses its
-    resume-point writes for 3 rounds and a fresh ``MultiImgExperiment``
+    """Multi resume == continue on the card: ``random``, 3 rounds, int8
+    anchors every 2 rounds, run uninterrupted; a second run loses its
+    resume-point writes for 2 rounds and a fresh ``MultiImgExperiment``
     replays from the initial weights: the final ``curr_weights.npz``, the
     (voxel, subject) journal and ``perf_evals.txt`` bit-identical."""
     def artifacts(root):
@@ -2950,30 +2994,30 @@ def phase_multi_resume(dev, top, subjects):
         expr.prep_data()
         expr.add_method("random")
         if i == 0:
-            expr.run_method("random", 4 * k)
+            expr.run_method("random", 3 * k)
             a_s = time.perf_counter() - t0
             continue
         orig = multi_experiment.save_checkpoint
         multi_experiment.save_checkpoint, dropped = \
             _suppressed_resume_writes(orig)
         try:
-            expr.run_method("random", 3 * k)
+            expr.run_method("random", 2 * k)
         finally:
             multi_experiment.save_checkpoint = orig
         check(len(dropped) == 1, f"multi resume: dropped writes {dropped}")
     t0 = time.perf_counter()
     _multi_expr(roots[1], MULTI_RESUME, dev, subjects).run_method("random",
-                                                                  4 * k)
+                                                                  3 * k)
     resume_s = time.perf_counter() - t0
     (wa, qa, ea), (wb, qb, eb) = artifacts(roots[0]), artifacts(roots[1])
     diff = sorted(k for k in set(wa) | set(wb)
                   if k not in wa or k not in wb or wa[k].dtype != wb[k].dtype
                   or not np.array_equal(wa[k], wb[k]))
-    res = {"rounds": 4, "ckpt_full_every": 3, "ckpt_dtype": "int8",
+    res = {"rounds": 3, "ckpt_full_every": 2, "ckpt_dtype": "int8",
            "entries": len(wa), "differing_entries": diff,
            "queries_equal": qa == qb, "perf_evals_equal": ea == eb,
            "uninterrupted_s": a_s, "resume_with_replay_s": resume_s}
-    check(not diff and qa == qb and ea == eb and len(qa) == 4
+    check(not diff and qa == qb and ea == eb and len(qa) == 3
           and any(k.endswith("@i8") for k in wa),
           f"multi resume != continue on the card: {res}")
     shutil.rmtree(os.path.join(top, "resume"), ignore_errors=True)
@@ -3072,7 +3116,7 @@ def phase_multi(dev):
                               keep=("entropy@mt", MULTI_KEPT))
         bf16 = _multi_campaign(dev, os.path.join(top, "bf16"),
                                MULTI_BF16_RUNS, "bf16/", subjects)
-        resume = phase_multi_resume(dev, top, subjects)
+        resume = phase_multi_resume(dev, top, multi_subjects(RESUME_SHAPE))
         seq = phase_sequential(dev, top)
         loader = phase_loader(dev)
         return {"picks": picks, "f32": f32, "bf16": bf16, "resume": resume,
@@ -3437,8 +3481,8 @@ def phase_dense_resume(dev, top):
     for 2 rounds and a fresh ``PWExperiment`` replays both finetunes (and
     their BN refreshes) from the initial weights: ``curr_weights.npz``
     (``bn/`` included), the journal and ``perf_evals.txt`` bit-identical."""
-    vols, mask = synthetic_subject(shape=SHAPE, n_modalities=2, n_blobs=3,
-                                   seed=0)
+    vols, mask = synthetic_subject(shape=RESUME_SHAPE, n_modalities=2,
+                                   n_blobs=3, seed=0)
     pars = set_parameters(DEFAULT_PARS, DENSE_RESUME)
 
     def fresh(root):
@@ -4362,15 +4406,16 @@ def phase_run_on_subjects(dev, root):
 
 
 def phase_rmsprop_resume(dev):
-    """``optimizer_name: RMSProp``: a 2-round random campaign run
-    uninterrupted, and again stopped after round 1 and resumed by a fresh
+    """``optimizer_name: RMSProp``: a 2-round random campaign on the
+    campaign subject cut to 16 slices run uninterrupted, and again
+    stopped after round 1 and resumed by a fresh
     ``PWExperiment`` from its resume point (``nu`` and ``trace`` in the
     file): the final ``curr_weights.npz``, the journal and
     ``perf_evals.txt`` bit-identical."""
     top = os.path.join(ROOT, "_smoke_expr", "rmsprop")
     shutil.rmtree(top, ignore_errors=True)
-    vols, mask = synthetic_subject(shape=SHAPE, n_modalities=2, n_blobs=3,
-                                   seed=0)
+    vols, mask = synthetic_subject(shape=RESUME_SHAPE, n_modalities=2,
+                                   n_blobs=3, seed=0)
     pars = set_parameters(DEFAULT_PARS, RMSPROP)
 
     def fresh(root):
@@ -4813,6 +4858,315 @@ def phase_analysis(dev, kept, multi_root):
     return out
 
 
+class _FirstCall:
+    """Stand in for ``module.name`` while active: remember the arguments of
+    the first call, then call through (the kernel checks below re-run a
+    kernel on the inputs the main path gave it)."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.orig = getattr(module, name)
+        self.args = None
+
+    def __call__(self, *args, **kw):
+        if self.args is None:
+            self.args = (args, kw)
+        return self.orig(*args, **kw)
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+class _Interrupted(Exception):
+    pass
+
+
+def _write_volume(path, arr):
+    if path.endswith(".nrrd"):
+        write_nrrd(path, arr)
+    else:
+        write_nifti(path, arr)
+
+
+def _held_bit_equal(name, got, want):
+    vols, mask = got
+    check(len(vols) == len(want[0])
+          and all(a.dtype == b.dtype and np.array_equal(a, b)
+                  for a, b in zip(vols, want[0]))
+          and mask.dtype == want[1].dtype
+          and np.array_equal(mask, want[1], equal_nan=True),
+          f"formats: the subject read from {name} is not the one in memory")
+
+
+def formats_files(top, vols, mask):
+    """The campaign's subject written as gzip NRRD (``hakim``) and as
+    ``.nii`` (``iseg2017``) plus ``.nii.gz`` copies; each read back through
+    ``registry_for`` / ``SubjectRegistry.from_lists`` and ``Subject.load``
+    and held bit-equal to the subject in memory.  Returns the ``hakim``
+    subject and the write and read seconds."""
+    out = {"write_s": {}, "read_s": {}, "bytes": {}}
+    subjects = {}
+    for conv_name in ("hakim", "iseg2017"):
+        conv = DATASET_CONVENTIONS[conv_name]
+        sdir = os.path.join(top, conv_name, "subject0")
+        os.makedirs(sdir)
+        t0 = time.perf_counter()
+        for name, v in zip(conv.modalities, vols):
+            _write_volume(os.path.join(sdir, name), v)
+        _write_volume(os.path.join(sdir, conv.mask), mask)
+        out["write_s"][conv_name] = time.perf_counter() - t0
+        out["bytes"][conv_name] = sum(
+            os.path.getsize(os.path.join(sdir, f)) for f in os.listdir(sdir))
+        t0 = time.perf_counter()
+        reg = registry_for(conv_name, os.path.join(top, conv_name))
+        check(len(reg.subjects) == 1, f"formats: {conv_name} registry "
+              f"holds {len(reg.subjects)} subjects")
+        loaded = reg.subjects[0].load()
+        out["read_s"][conv_name] = time.perf_counter() - t0
+        _held_bit_equal(conv_name, loaded, (vols, mask))
+        subjects[conv_name] = reg.subjects[0]
+    iseg = subjects["iseg2017"]
+    gz = [p + ".gz" for p in iseg.modality_paths + [iseg.mask_path]]
+    t0 = time.perf_counter()
+    for p, v in zip(gz, list(vols) + [mask]):
+        write_nifti(p, v)
+    out["write_s"]["nii.gz"] = time.perf_counter() - t0
+    out["bytes"]["nii.gz"] = sum(os.path.getsize(p) for p in gz)
+    t0 = time.perf_counter()
+    (sub,) = SubjectRegistry.from_lists([gz[:-1]], [gz[-1]]).subjects
+    loaded = sub.load()
+    out["read_s"]["nii.gz"] = time.perf_counter() - t0
+    _held_bit_equal("nii.gz", loaded, (vols, mask))
+    return subjects["hakim"], out
+
+
+def formats_round(dev, top, subject, picks0):
+    """One core-set round of the f32 campaign's configuration from the
+    subject's files (``config.data.img_paths`` / ``mask_path``), the launch
+    counts zeroed just before and read just after; its round-0 picks must
+    equal the in-memory campaign's.  Then K1 and K2 are held against their
+    plain versions on the inputs the round gave them."""
+    root = os.path.join(top, "core-set")
+    pars = set_parameters(DEFAULT_PARS, OVERRIDES)
+    pars.update(img_paths=subject.modality_paths,
+                mask_path=subject.mask_path)
+    out = {}
+    with _FirstCall(ops.similarity, "rowmax_similarity") as k1, \
+            _FirstCall(pw_experiment, "gather_patches_normalized") as k2:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        expr = pw_experiment.PWExperiment(
+            root, ExperimentConfig.from_pars(pars), device=dev)
+        expr.prep_data()
+        expr.add_method("core-set")
+        res = expr.run_method("core-set", 64)
+        torch.cuda.synchronize()
+        out["round_s"] = time.perf_counter() - t0
+        out["counts"] = {k.name: k.launches for k in ops.KERNELS}
+    got = np.loadtxt(os.path.join(root, "core-set", "queries", "0.txt"),
+                     dtype=np.int64)
+    out["f_measure"] = res["perf"].tolist()
+    check(len(res["perf"]) == 1 and res["n_queries"] == 64
+          and np.array_equal(got, picks0),
+          "formats: the core-set round from the files picks other voxels "
+          "than the in-memory campaign's round 0")
+    c = out["counts"]
+    check(c["rowmax_similarity"] >= 1 and c["gather_patches_normalized"] >= 1,
+          f"formats: the round launched {c}")
+    (P, R), _ = k1.args
+    with torch.no_grad():
+        err1 = float((rowmax_similarity(P, R)
+                      - rowmax_similarity_plain(P, R)).abs().max())
+    (padded, inds, mu, sd, ps, shape), _ = k2.args
+    err2 = float((gather_patches_normalized(padded, inds, mu, sd, ps, shape)
+                  - gather_patches_plain(padded, inds, mu, sd, ps, shape))
+                 .abs().max())
+    out["kernels"] = {
+        "rowmax_similarity": {"shapes": {"P": list(P.shape),
+                                         "R": list(R.shape)},
+                              "max_abs_err": err1},
+        "gather_patches_normalized": {"n": int(inds.numel()),
+                                      "patch": list(ps),
+                                      "max_abs_err": err2}}
+    check(err1 <= 1e-5 and err2 == 0.0,
+          f"formats: K1 |delta| {err1} (<= 1e-5?), K2 {err2} (== 0?)")
+    del k1, k2, P, R, padded
+    _drop_checkpoints(root)
+    return out
+
+
+def formats_repeat_runs(dev, top):
+    """``repeat_runs`` on the card: its ``main`` (no ``--device``: the
+    card) for 2 runs of ``random``, one round each; then a third run
+    interrupted inside its round and resumed by a later call from
+    ``counter.txt``."""
+    root = os.path.join(top, "repeat_runs")
+    t0 = time.perf_counter()
+    check(repeat_runs_mod.main([root, "random", "64", "2",
+                                REPEAT_OVERRIDES]) == 0,
+          "formats: repeat_runs main failed")
+    out = {"two_runs_s": time.perf_counter() - t0}
+    _drop_checkpoints(root)
+    orig = pw_experiment.PWExperiment.run_method
+
+    def crash(self, method, nqueries):
+        raise _Interrupted(method)
+
+    pw_experiment.PWExperiment.run_method = crash
+    try:
+        repeat_runs_mod.repeat_runs(root, ["random"], 64, 3,
+                                    REPEAT_OVERRIDES, device=str(dev))
+        interrupted = False
+    except _Interrupted:
+        interrupted = True
+    finally:
+        pw_experiment.PWExperiment.run_method = orig
+    with open(os.path.join(root, "counter.txt")) as f:
+        counter_mid = f.read()
+    t0 = time.perf_counter()
+    repeat_runs_mod.repeat_runs(root, ["random"], 64, 3, REPEAT_OVERRIDES,
+                                device=str(dev))
+    out["resumed_run_s"] = time.perf_counter() - t0
+    with open(os.path.join(root, "counter.txt")) as f:
+        counter = f.read()
+    with open(os.path.join(root, "durations.txt")) as f:
+        durations = [line.split() for line in f]
+    picks = [np.loadtxt(os.path.join(root, f"run_{r}", "random", "queries",
+                                     "0.txt"), dtype=np.int64)
+             for r in range(3)]
+    out.update(counter=counter, durations=durations,
+               distinct_picks=len({p.tobytes() for p in picks}))
+    check(interrupted and counter_mid == "2" and counter == "3"
+          and [d[0] for d in durations] == ["0", "1", "2"]
+          and all(len(p) == 64 for p in picks)
+          and out["distinct_picks"] == 3,
+          f"formats: repeat_runs {out}, interrupted {interrupted}, "
+          f"counter after the interruption {counter_mid}")
+    _drop_checkpoints(root)
+    return out
+
+
+def formats_steps(dev, seed=31):
+    """The library's two train-step levers and a branch, card against
+    host: ``weight_decay`` on PW1 25x25x2 (loss and params within 1e-5, the
+    training levers' rule); ``focal_gamma`` on FC-DenseNet-103's dense step
+    over 2 slices with a third of the pixels unlabeled and class weights,
+    card and host each held to a float64 step on the card
+    (``make_train_step``'s rule in ``phase_cls_parity``: the update's
+    worst element and 2-norm within 1e-2 of its size);
+    ``apply_with_branch`` on PW1's probe (posteriors within 1e-4)."""
+    out = {}
+    x = _patches(dev, 128, seed=1)
+    y = torch.from_numpy(np.eye(2, dtype=np.float32)[
+        np.random.default_rng(3).integers(0, 2, 128)])
+    sides = {}
+    for side, d in (("card", dev), ("host", torch.device("cpu"))):
+        model = _lever_model({}, d)
+        state = TrainState(model, make_optimizer("SGD", 1e-3,
+                                                 model.parameters()))
+        with KeyedDraws(22), deterministic_cudnn():
+            loss = make_train_step(weight_decay=1e-4)(
+                state, x.to(d), y.to(d), 1234)
+        sides[side] = (float(loss), to_jax_params(model.state_dict()))
+    (lc, pc), (lh, ph) = sides["card"], sides["host"]
+    out["weight_decay"] = {
+        "loss_card": lc, "loss_host": lh, "loss_err": abs(lc - lh),
+        "params_err": max(float(np.abs(pc[l][k] - ph[l][k]).max())
+                          for l in pc for k in pc[l])}
+    r = out["weight_decay"]
+    check(np.isfinite(lc) and r["loss_err"] <= 1e-5
+          and r["params_err"] <= 1e-5, f"weight_decay step card vs host: {r}")
+    # focal_gamma: make_train_step's dense step on 2 slices of the
+    # campaign subject.  Card and host are each held to a float64 step on
+    # the card by make_train_step's rule (the AlexNet steps of
+    # phase_cls_parity: the worst element and the 2-norm of the update
+    # within 1e-2 of its size)
+    vols, mask, mu, sd, _ = _dense_subject()
+    spec = create_model("Tiramisu", nclass=2, input_shape=(128, 128, 2),
+                        dropout_rate=0.2)
+    host = init_cnn(spec, seed, device="cpu")
+    xs = torch.from_numpy(normalized_slices(vols, mu, sd)[10:12]).contiguous()
+    rng = np.random.default_rng(seed)
+    lab = np.nan_to_num(np.moveaxis(mask[:, :, 10:12], 2, 0)).astype(int)
+    ys = np.eye(2, dtype=np.float32)[lab]
+    ys[rng.random(lab.shape) < 1 / 3] = np.nan
+    ys = torch.from_numpy(ys)
+    cw = torch.tensor([0.4, 1.6])
+    p0 = {k: v.double() for k, v in host.state_dict().items()}
+
+    def stepped(device, dtype=torch.float32):
+        m = copy.deepcopy(host).to(device, dtype)
+        st = TrainState(m, torch.optim.SGD(m.parameters(), lr=0.1))
+        with deterministic_cudnn():
+            loss = make_train_step(fcn=True, focal_gamma=2.0)(
+                st, xs.to(device, dtype), ys.to(device, dtype), 5,
+                cw=cw.to(device, dtype))
+        return ({k: v.detach().cpu().double()
+                 for k, v in m.state_dict().items()}, float(loss))
+
+    with KeyedDraws(seed):
+        (sh, lh), (sc, lc) = stepped("cpu"), stepped(dev)
+        s64, l64 = stepped(dev, torch.float64)
+    (mc, nc), (mh, nh) = _update_errs(sc, s64, p0), _update_errs(sh, s64, p0)
+    r = {"loss_card": lc, "loss_host": lh, "loss_f64": l64,
+         "update_err_card": mc, "update_err_host": mh,
+         "update_norm_err_card": nc, "update_norm_err_host": nh}
+    out["focal_gamma"] = r
+    check(np.isfinite(lc) and max(mc, mh, nc, nh) <= 1e-2,
+          f"focal_gamma dense step card and host vs float64: {r}")
+    del host, sh, sc, s64
+    # a branch on PW1's probe (layer 4)
+    tspec = create_pw1(2, 0.5, (25, 25, 2))
+    shape = branch_input_shape(tspec, 4)
+    bspec = CNNSpec("aux", (SpecLayer("bfc", "fc", 3, (), (), "VALID", "M"),),
+                    shape, 3)
+    xb = _patches(dev, 256, seed=5)
+    res = {}
+    for side, d in (("card", dev), ("host", torch.device("cpu"))):
+        trunk = init_cnn(tspec, 0, device=d)
+        branch = init_branch(bspec, 1, device=d)
+        with torch.no_grad():
+            t_out, b_out = apply_with_branch(trunk, branch, xb.to(d), 4)
+        res[side] = (t_out.posteriors.cpu(), b_out.posteriors.cpu())
+    out["branch"] = {"probe_shape": list(shape),
+                     "trunk_err": float((res["card"][0]
+                                         - res["host"][0]).abs().max()),
+                     "branch_err": float((res["card"][1]
+                                          - res["host"][1]).abs().max())}
+    check(out["branch"]["trunk_err"] <= 1e-4
+          and out["branch"]["branch_err"] <= 1e-4,
+          f"apply_with_branch card vs host: {out['branch']}")
+    return out
+
+
+def phase_formats(dev, picks0):
+    """NRRD / NIfTI subjects into the engine on the card (module
+    docstring, phase 22): the files, one core-set round from them (K1 and
+    K2 launched and held to their plain versions), ``repeat_runs`` with an
+    interrupted run resumed, and the library's train steps and branch.
+    The files and run directories are removed at the end."""
+    t0 = time.perf_counter()
+    top = os.path.join(ROOT, "_smoke_expr", "formats")
+    shutil.rmtree(top, ignore_errors=True)
+    vols, mask = synthetic_subject(shape=SHAPE, n_modalities=2, n_blobs=3,
+                                   seed=0)
+    try:
+        subject, out = formats_files(top, vols, mask)
+        out["round"] = formats_round(dev, top, subject, picks0)
+        out["repeat_runs"] = formats_repeat_runs(dev, top)
+        out["steps"] = formats_steps(dev)
+    finally:
+        shutil.rmtree(top, ignore_errors=True)
+    out["counts"] = out["round"]["counts"]
+    out["seconds"] = time.perf_counter() - t0
+    print("formats ok (card above): " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4865,6 +5219,8 @@ def main() -> int:
     parallel = timed("parallel", phase_parallel, dev, kept,
                      serving.pop("serve"))
     analysis = timed("analysis", phase_analysis, dev, kept, multi["kept"])
+    formats = timed("formats", phase_formats, dev,
+                    kept["picks0"]["core-set"])
     del kept
     phases, seconds, by_method, peaks, notes = {}, {}, {}, {}, {}
     for _, ph, sec, bym, pk, nt in (f32, bf16):
@@ -4969,7 +5325,9 @@ def main() -> int:
                          + db["counts"][n] + dm["counts"][n]
                          + cc["counts"][n] + cv["counts"][n]
                          + serving["counts"][n] + parallel["counts"][n]
-                         + analysis["counts"][n])
+                         + analysis["counts"][n] + formats["counts"][n])
+        r["launches_formats"] = formats["counts"][n]
+        r["at_formats"] = formats["round"]["kernels"][n]
         r["launches_serving"] = serving["counts"][n]
         r["launches_parallel"] = parallel["counts"][n]
         r["launches_parallel_by_run"] = {
@@ -5030,7 +5388,7 @@ def main() -> int:
                       "parallel": {k: parallel[k] for k in (
                           "evaluator", "selectors", "nccl", "seconds",
                           "peak_bytes", "bytes_moved_between_devices")},
-                      "analysis": analysis,
+                      "analysis": analysis, "formats": formats,
                       "phase_seconds": PHASE_S,
                       "multi": {"picks": multi["picks"],
                                 "resume": multi["resume"],

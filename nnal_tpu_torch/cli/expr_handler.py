@@ -16,6 +16,16 @@ from nnal_tpu_torch.core.config import ExperimentConfig, set_parameters
 from nnal_tpu_torch.engine.pw_experiment import PWExperiment
 from nnal_tpu_torch.scoring.strategies import require_strategy
 
+# the demo campaign's protocol on the dense synthetic subject, as the
+# JAX package's (``expr_handler.py:27``): at least 15 epochs at lr 1e-3,
+# since with tens of labels and b 64 an epoch is 1-2 Adam steps and
+# shorter training can pin a method in its initial one-class regime
+DEMO_CAMPAIGN_OVERRIDES = (
+    "patch_shape=[11,11,1],grid_spacing=2,k=20,B=200,"
+    "ntb=1024,b=64,epochs=15,init_size=40,seed=3,"
+    "learning_rate=1e-3,optimizer_name=Adam,MC_iters=3,"
+    "synthetic_shape=[40,40,12],synthetic_blobs=8")
+
 DEFAULT_PARS = {
     "model_name": "PW",
     "patch_shape": [15, 15, 1],
@@ -69,18 +79,46 @@ def do_expr(root_dir: str, method: str, nqueries: int, overrides: str = "",
     return expr.run_method(method, nqueries)
 
 
+def print_parameters(root_dir: str) -> None:
+    """Print an experiment's parameters, one ``key: value`` line each in
+    sorted order (reference ``print_parameters``)."""
+    import yaml
+
+    with open(os.path.join(root_dir, "parameters.txt")) as f:
+        pars = yaml.safe_load(f)
+    for key in sorted(pars):
+        print(f"{key:>20}: {pars[key]}")
+
+
+def create_run(root_dir: str, overrides: str = "", synthetic: bool = False,
+               device=None) -> PWExperiment:
+    """:func:`create_expr` under the reference front end's name (a run is
+    an experiment directory here)."""
+    return create_expr(root_dir, overrides, synthetic, device)
+
+
+def pop_device(argv: list):
+    """Remove ``--device <name>`` from ``argv``; returns the name (None:
+    the card), or raises ``ValueError`` when the name is missing."""
+    if "--device" not in argv:
+        return None
+    i = argv.index("--device")
+    if i + 1 >= len(argv):
+        raise ValueError("--device needs a name (cuda or cpu)")
+    device = argv[i + 1]
+    del argv[i:i + 2]
+    return device
+
+
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     synthetic = "--synthetic" in argv
     argv = [a for a in argv if a != "--synthetic"]
-    device = None
-    if "--device" in argv:
-        i = argv.index("--device")
-        if i + 1 >= len(argv):
-            print(__doc__)
-            return 1
-        device = argv[i + 1]
-        del argv[i:i + 2]
+    try:
+        device = pop_device(argv)
+    except ValueError:
+        print(__doc__)
+        return 1
     if len(argv) < 3:
         print(__doc__)
         return 1

@@ -1,25 +1,43 @@
-"""Volume IO and synthetic subjects (counterpart of ``nnal_tpu/data/io.py``).
+"""Volume IO, subjects and synthetic data (counterpart of
+``nnal_tpu/data/io.py``).
 
-``read_volume`` dispatches on the file extension (``.npy``/``.npz`` here;
-the JAX package's NRRD/NIfTI readers are not ported yet).
-``synthetic_subject`` is an exact copy: the same seed gives the same
-float64 volumes and mask as the JAX package.  ``write_nrrd`` is a copy of
-the JAX package's writer (``data/formats.py:161-199``), which
+``read_volume`` dispatches on the file extension through a registry
+(:func:`register_reader`): ``.npy`` / ``.npz`` (its ``vol`` array) with
+numpy, ``.nrrd`` (raw, gzip, bzip2, ascii; attached or detached data)
+and NIfTI-1 (``.nii``, ``.nii.gz``, and the ``.hdr`` of a detached
+``.hdr`` / ``.img`` pair) with the port's own readers in
+``data/formats.py``; the JAX package uses pynrrd / nibabel when they are
+installed and the same readers otherwise.  An extension without a reader
+raises ``ValueError``.
+
+A :class:`Subject` is its ordered modality paths plus a mask path;
+:class:`SubjectRegistry` finds subjects in a root directory (one
+subdirectory each, files named by a convention: ``data/datasets.py``) or
+takes them from lists.  ``synthetic_subject`` is an exact copy: the same
+seed gives the same float64 volumes and mask as the JAX package, and
+``write_synthetic_dataset`` writes them as ``.npy`` files as it does.
+``write_nrrd`` (re-exported from ``data/formats.py``) is what
 ``evaluation/analysis.get_full_segs`` saves segmentations with.
 """
 
 from __future__ import annotations
 
-import gzip
 import os
-from typing import Callable, Dict, Optional
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-_READERS: Dict[str, Callable[[str], np.ndarray]] = {
-    ".npy": lambda p: np.load(p),
-    ".npz": lambda p: np.load(p)["vol"],
-}
+from nnal_tpu_torch.data.formats import read_nifti, read_nrrd
+from nnal_tpu_torch.data.formats import write_nrrd  # noqa: F401  (re-export)
+
+_READERS: Dict[str, Callable[[str], np.ndarray]] = {}
+
+
+def register_reader(ext: str, fn: Callable[[str], np.ndarray]) -> None:
+    """Read files ending in ``ext`` with ``fn(path) -> array``; the longest
+    matching extension wins (``.nii.gz`` before ``.gz``)."""
+    _READERS[ext] = fn
 
 
 def read_volume(path: str) -> np.ndarray:
@@ -28,6 +46,64 @@ def read_volume(path: str) -> np.ndarray:
             return _READERS[ext](path)
     raise ValueError(f"no reader registered for {path!r} "
                      f"(available: {sorted(_READERS)})")
+
+
+register_reader(".npy", lambda p: np.load(p))
+register_reader(".npz", lambda p: np.load(p)["vol"])
+register_reader(".nrrd", lambda p: read_nrrd(p)[0])
+register_reader(".nii", read_nifti)
+register_reader(".nii.gz", read_nifti)
+register_reader(".hdr", read_nifti)  # the detached .hdr/.img pair
+
+
+@dataclass
+class Subject:
+    """One imaging subject: ordered modality paths and a mask path."""
+
+    modality_paths: List[str]
+    mask_path: Optional[str] = None
+    name: str = ""
+
+    def load(self):
+        """``(volumes, mask)`` as ``read_volume`` reads them (mask None
+        without a mask path)."""
+        vols = [read_volume(p) for p in self.modality_paths]
+        mask = read_volume(self.mask_path) if self.mask_path else None
+        return vols, mask
+
+
+@dataclass
+class SubjectRegistry:
+    """The subjects of a dataset, in order (the reference's per-dataset
+    ``extract_*_data_path`` functions as one declarative registry)."""
+
+    subjects: List[Subject] = field(default_factory=list)
+
+    @classmethod
+    def from_dir(cls, root: str, modalities: List[str],
+                 mask_name: str) -> "SubjectRegistry":
+        """Each subdirectory of ``root`` (in sorted order) that holds every
+        file of ``modalities`` is a subject named after it; its mask is
+        ``mask_name`` there, or None when that file is missing."""
+        subs = []
+        for d in sorted(os.listdir(root)):
+            sdir = os.path.join(root, d)
+            if not os.path.isdir(sdir):
+                continue
+            mods = [os.path.join(sdir, m) for m in modalities]
+            mask = os.path.join(sdir, mask_name)
+            if all(os.path.exists(p) for p in mods):
+                subs.append(Subject(mods, mask if os.path.exists(mask)
+                                    else None, d))
+        return cls(subs)
+
+    @classmethod
+    def from_lists(cls, img_paths: List[List[str]],
+                   mask_paths: List[str]) -> "SubjectRegistry":
+        """Subject ``i`` (named ``str(i)``) has the modality paths
+        ``img_paths[i]`` and the mask ``mask_paths[i]``."""
+        return cls([Subject(list(m), mk, str(i))
+                    for i, (m, mk) in enumerate(zip(img_paths, mask_paths))])
 
 
 def synthetic_subject(shape=(48, 48, 16), n_modalities: int = 2,
@@ -64,45 +140,22 @@ def synthetic_subject(shape=(48, 48, 16), n_modalities: int = 2,
     return vols, mask
 
 
-# canonical NRRD type name per numpy kind+size (``formats.py:59-64``)
-_NRRD_TYPE_NAMES = {
-    "i1": "int8", "u1": "uint8", "i2": "int16", "u2": "uint16",
-    "i4": "int32", "u4": "uint32", "i8": "int64", "u8": "uint64",
-    "f4": "float", "f8": "double",
-}
-
-
-def write_nrrd(path: str, data: np.ndarray, encoding: str = "gzip",
-               keyvals: Optional[Dict[str, str]] = None) -> None:
-    """Write ``data`` as an attached-data NRRD (pynrrd-readable): Fortran
-    index order on disk, little endian, as the JAX package writes it."""
-    data = np.asarray(data)
-    code = data.dtype.kind + str(data.dtype.itemsize)
-    code = {"b1": "u1"}.get(code, code)
-    if code not in _NRRD_TYPE_NAMES:
-        raise ValueError(f"unsupported dtype {data.dtype} for NRRD")
-    le = np.dtype("<" + code)
-    payload = np.ascontiguousarray(data.T).astype(le, copy=False).tobytes()
-    enc = encoding.lower()
-    if enc in ("gzip", "gz"):
-        payload = gzip.compress(payload, compresslevel=1)
-    elif enc != "raw":
-        raise ValueError(f"unsupported write encoding {encoding!r}")
-    lines = [
-        "NRRD0004",
-        "# written by nnal_tpu.data.formats",
-        f"type: {_NRRD_TYPE_NAMES[code]}",
-        f"dimension: {data.ndim}",
-        f"sizes: {' '.join(str(s) for s in data.shape)}",
-        f"encoding: {'gzip' if enc in ('gzip', 'gz') else 'raw'}",
-    ]
-    if data.dtype.itemsize > 1:
-        lines.append("endian: little")
-    for k, v in (keyvals or {}).items():
-        lines.append(f"{k}:={v}")
-    header = "\n".join(lines) + "\n\n"
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        f.write(header.encode("ascii"))
-        f.write(payload)
-    os.replace(tmp, path)
+def write_synthetic_dataset(root: str, n_subjects: int = 2,
+                            **kwargs) -> SubjectRegistry:
+    """Write ``n_subjects`` synthetic subjects (seeds 0, 1, ...) as
+    ``<root>/sub<i>/mod<j>.npy`` and ``mask.npy``; returns their
+    registry.  ``kwargs`` go to :func:`synthetic_subject`."""
+    subs = []
+    for i in range(n_subjects):
+        sdir = os.path.join(root, f"sub{i}")
+        os.makedirs(sdir, exist_ok=True)
+        vols, mask = synthetic_subject(seed=i, **kwargs)
+        mods = []
+        for j, v in enumerate(vols):
+            p = os.path.join(sdir, f"mod{j}.npy")
+            np.save(p, v)
+            mods.append(p)
+        mp = os.path.join(sdir, "mask.npy")
+        np.save(mp, mask)
+        subs.append(Subject(mods, mp, f"sub{i}"))
+    return SubjectRegistry(subs)

@@ -132,7 +132,9 @@ def full_model_pred_dcrf3d(evaluator, model, image_vol, mask_vol,
 
 def _as_volumes(items, reader=None):
     """Accept volumes or paths (reference eval_utils.py:247-265 loads from
-    nrrd paths; here what ``data.io.read_volume`` reads: npy/npz)."""
+    nrrd paths): a path is read by ``reader``, by default
+    ``data.io.read_volume`` (``.npy`` / ``.npz``, ``.nrrd``, ``.nii``,
+    ``.nii.gz`` and ``.hdr`` / ``.img``)."""
     if len(items) and isinstance(items[0], str):
         if reader is None:
             from nnal_tpu_torch.data.io import read_volume as reader

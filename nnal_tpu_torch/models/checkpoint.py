@@ -22,6 +22,14 @@ numpy array on the host, with the same IEEE f32 operations, so both
 encodes and the JAX package's numpy encode agree bit for bit.  ``round_trip_bf16`` and
 ``round_trip_int8`` are the decode of that encode, which the engine adopts
 into its live state at each anchor (``engine/common.py``).
+
+``load_reference_h5`` / ``save_reference_h5`` read and write the
+reference's HDF5 layout (one group per layer with ``Weight`` / ``Bias``
+datasets) as JAX-layout trees, as the JAX package's do; bridge them with
+``models/bridge``.  ``h5py`` is imported only inside these two.  The JAX
+package's orbax save and load (``checkpoint.py:345-375``) write an orbax
+PyTree directory, a JAX-only format, and are not ported: the npz format
+here is the one both packages read.
 """
 
 from __future__ import annotations
@@ -271,3 +279,49 @@ def load_opt_leaves(path: str) -> List[np.ndarray]:
         flat = _decode_flat({k: z[k] for k in z.files
                              if k.startswith("opt/")})
     return [flat[k] for k in sorted(flat)]
+
+
+def load_reference_h5(path: str, params_template: Dict) -> Dict:
+    """Weights from the reference's HDF5 layout (``checkpoint.py:397-422``):
+    a copy of the JAX-layout ``params_template`` (numpy) with each layer
+    that the file holds replaced by its ``Weight`` (transposed when the
+    file stores it feature-major) and ``Bias``; a shape that fits neither
+    way raises ``ValueError``."""
+    import h5py
+
+    out = {layer: {k: np.asarray(v) for k, v in p.items()}
+           for layer, p in params_template.items()}
+    with h5py.File(path, "r") as f:
+        for layer in f:
+            if layer not in out:
+                continue
+            grp = f[layer]
+            if "Weight" in grp:
+                w = np.asarray(grp["Weight"])
+                want = out[layer]["W"].shape
+                if w.shape != want and w.T.shape == want:
+                    w = w.T
+                if w.shape != want:
+                    raise ValueError(
+                        f"{layer}/Weight shape {w.shape} vs {want}")
+                out[layer]["W"] = w
+            if "Bias" in grp:
+                out[layer]["b"] = np.asarray(grp["Bias"]).reshape(
+                    out[layer]["b"].shape)
+    return out
+
+
+def save_reference_h5(path: str, params: Dict) -> None:
+    """Write JAX-layout ``params`` (numpy, or a port model's
+    ``bridge.to_jax_params(model.state_dict())``) in the reference's HDF5
+    layout (``checkpoint.py:425-435``): ``<layer>/Weight`` and
+    ``<layer>/Bias``."""
+    import h5py
+
+    with h5py.File(path, "w") as f:
+        for layer, vals in params.items():
+            grp = f.create_group(layer)
+            if "W" in vals:
+                grp["Weight"] = np.asarray(vals["W"])
+            if "b" in vals:
+                grp["Bias"] = np.asarray(vals["b"])

@@ -101,6 +101,7 @@ class CNNOutput:
     feature: Optional[torch.Tensor]
     log_sigma: Optional[torch.Tensor] = None   # the aleatoric head
     state: Optional[Dict] = None               # BN running stats (``state=``)
+    probes: Optional[Dict[str, torch.Tensor]] = None  # ``keep_probes=True``
 
 
 _ACTS = {"relu": F.relu, "elu": F.elu, "tanh": torch.tanh, "gelu": F.gelu,
@@ -538,17 +539,23 @@ class CNN(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 nchw: bool = False, mc_dropout: bool = False,
                 state: Optional[Dict] = None,
-                bn_decay: float = 0.999) -> CNNOutput:
+                bn_decay: float = 0.999,
+                keep_probes: bool = False) -> CNNOutput:
         """``apply_cnn`` (``cnn.py:180-252``).  ``train`` turns on dropout
         (with a ``generator``) and BN batch statistics; ``state`` holds the
         BN running statistics, which eval mode normalizes with and which
         ``train`` moves at ``bn_decay``; the returned ``state`` is the new
-        one (None when none was given)."""
+        one (None when none was given).  ``keep_probes`` returns the
+        outputs of the layers in ``spec.probes`` (channels-last, after
+        dropout) under ``probes``, keyed by layer name; JAX's jitted
+        callers drop the probes they do not read, so they are kept only
+        on request here."""
         h = x if nchw else x.permute(0, 3, 1, 2)
         dt = h.dtype
         feature = None
         use_dropout = (train or mc_dropout) and generator is not None
         new_state = {} if state is not None else None
+        probes = {} if keep_probes else None
         outputs: Dict[str, torch.Tensor] = {}
         for i, layer in enumerate(self.spec.layers):
             if layer.sources:
@@ -590,6 +597,9 @@ class CNN(nn.Module):
                 h = torch.where(u < keep, h / div, torch.zeros_like(h))
             if layer.name in self._kept:
                 outputs[layer.name] = h
+            if keep_probes and i in self.spec.probes:
+                probes[layer.name] = (h.permute(0, 2, 3, 1) if h.dim() == 4
+                                      else h)
             if i == self.spec.feature_layer:
                 f = h.permute(0, 2, 3, 1) if h.dim() == 4 else h
                 feature = f if self.spec.fcn else f.reshape(f.shape[0], -1)
@@ -603,7 +613,7 @@ class CNN(nn.Module):
                          posteriors=torch.softmax(logits, dim=-1),
                          prediction=torch.argmax(logits, dim=-1),
                          feature=feature, log_sigma=log_sigma,
-                         state=new_state)
+                         state=new_state, probes=probes)
 
 
 def init_cnn(spec: CNNSpec, seed: int, device=None) -> CNN:

@@ -7,7 +7,12 @@
 * :func:`aleatoric_ce_per_sample` / :func:`aleatoric_ce`: the AU_4L
   heteroscedastic CE over ``mc_t`` logit-noise samples;
 * :func:`lwf_distillation`: the LwF term as the scan computes it;
-* :func:`consistency_loss`: the mean teacher's CE or MSE.
+* :func:`consistency_loss`: the mean teacher's CE or MSE;
+* the library losses of ``losses.py`` that no engine path calls
+  (:func:`cross_entropy`, :func:`soft_cross_entropy`,
+  :func:`generalized_ce`, :func:`focal_loss`, :func:`lwf_loss`, the
+  dispatch :func:`get_loss_fn`) and :func:`weight_decay_penalty`, which
+  ``models/train.make_train_step`` adds under ``weight_decay``.
 
 The aleatoric normals come from :func:`_aleatoric_normal`, the one place
 they are drawn, so a test can feed JAX's draws through it.
@@ -106,3 +111,82 @@ def consistency_loss(student_logits, teacher_logits, measure: str = "CE"):
         s_post = torch.softmax(student_logits, dim=-1)
         return ((s_post - t_post) ** 2).mean()
     raise ValueError(measure)
+
+
+def _class_weight(y_onehot, class_weights):
+    return (y_onehot * torch.as_tensor(class_weights, dtype=y_onehot.dtype,
+                                       device=y_onehot.device)).sum(-1)
+
+
+def cross_entropy(logits, y_onehot, class_weights=None):
+    """Mean softmax CE, optionally times each row's class weight
+    (``losses.py:18-26``)."""
+    per = -(y_onehot * torch.log_softmax(logits, dim=-1)).sum(-1)
+    if class_weights is not None:
+        per = per * _class_weight(y_onehot, class_weights)
+    return per.mean()
+
+
+def soft_cross_entropy(logits, soft_targets):
+    """CE against soft class distributions (``losses.py:29-32``)."""
+    return -(soft_targets * torch.log_softmax(logits, dim=-1)).sum(-1).mean()
+
+
+def generalized_ce(logits, y_onehot, q: float = 0.7):
+    """The GCE loss ``(1 - p_y^q) / q`` with ``p_y`` clipped at 1e-8
+    (``losses.py:35-39``)."""
+    py = (y_onehot * torch.softmax(logits, dim=-1)).sum(-1)
+    return ((1.0 - torch.clamp(py, min=1e-8) ** q) / q).mean()
+
+
+def focal_loss(logits, y_onehot, gamma: float = 2.0, class_weights=None):
+    """The focal loss ``-(1 - p_y)^gamma log p_y``, optionally times the
+    class weight (``losses.py:42-50``)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    per = -(y_onehot * (1 - logp.exp()) ** gamma * logp).sum(-1)
+    if class_weights is not None:
+        per = per * _class_weight(y_onehot, class_weights)
+    return per.mean()
+
+
+def lwf_loss(logits, y_onehot, old_logits, lambda_o: float, T: float = 2.0):
+    """Learning without forgetting as one loss (``losses.py:117-124``): CE
+    plus ``lambda_o`` times the CE of the softened logits against the
+    previous model's softened posterior at temperature ``T``."""
+    t = logits.new_full((), T)
+    soft = torch.softmax(old_logits / t, dim=-1)
+    distill = -(soft * torch.log_softmax(logits / t, dim=-1)).sum(-1).mean()
+    return cross_entropy(logits, y_onehot) + lambda_o * distill
+
+
+def weight_decay_penalty(model: torch.nn.Module, coeff: float,
+                         compute_dtype=None):
+    """``coeff`` times the sum of squares of every weight matrix and kernel
+    (the ``<layer>.weight`` parameters: the JAX layout's ``W`` leaves;
+    biases and batch norm's gamma and beta are left out), each summed in
+    f32 in layer order (``losses.py:127-131``).  ``compute_dtype`` squares
+    the weights as rounded to it, as the JAX step does after its
+    mixed-precision cast."""
+    sq = 0.0
+    for name, p in model.named_parameters():
+        if name.endswith(".weight"):
+            w = p if compute_dtype is None else p.to(compute_dtype)
+            sq = sq + (w.float() ** 2).sum()
+    return coeff * sq
+
+
+def get_loss_fn(name: str = "CE", **kw):
+    """The loss ``(logits, y) -> scalar`` keyed like the reference's
+    ``loss_name`` (``losses.py:134-145``): ``CE`` (``class_weights``),
+    ``CE_softclasses``, ``GCE`` (``q``) or ``focal`` (``gamma``,
+    ``class_weights``)."""
+    if name == "CE":
+        return lambda lg, y: cross_entropy(lg, y, kw.get("class_weights"))
+    if name == "CE_softclasses":
+        return soft_cross_entropy
+    if name == "GCE":
+        return lambda lg, y: generalized_ce(lg, y, kw.get("q", 0.7))
+    if name == "focal":
+        return lambda lg, y: focal_loss(lg, y, kw.get("gamma", 2.0),
+                                        kw.get("class_weights"))
+    raise ValueError(name)

@@ -19,6 +19,12 @@ layers by zeroing their gradients: the optimizer still steps every
 parameter, as optax does on a masked gradient (a frozen leaf's Adam
 moments decay, and it moves while they are nonzero).  ``ema_update`` is
 the mean teacher's update, one ``torch._foreach_*`` pass.
+``exponential_decay`` and ``constant`` are the learning-rate schedules of
+``optim.py:24-48`` (host floats of a host step); ``pft_mask_from_saliency``
+/ ``pft_mask_from_threshold`` build partial-finetuning masks from a
+diagonal Fisher (``scoring/gradients.diagonal_fisher``'s dict, keyed as
+``named_parameters``), which ``apply_grad_mask`` multiplies into the
+gradients elementwise.
 """
 
 from __future__ import annotations
@@ -180,6 +186,44 @@ def sigmoid_rampdown(length: int, total: int):
     return sched
 
 
+def exponential_decay(lr0: float, decay_rate: float,
+                      decay_steps: int = 1000):
+    """``t -> lr0 * decay_rate ** (t / decay_steps)`` (``optim.py:24-28``)."""
+    def sched(t):
+        return lr0 * (decay_rate ** (t / decay_steps))
+    return sched
+
+
+def constant(lr: float):
+    """``t -> lr`` (``optim.py:47-48``)."""
+    return lambda t: lr
+
+
+def pft_mask_from_saliency(diag_fisher: Dict[str, torch.Tensor], k: int
+                           ) -> Dict[str, torch.Tensor]:
+    """Partial-finetuning mask: f32 1.0 on the ``k`` globally largest
+    diagonal-Fisher entries (ties at the k-th value included) and 0.0
+    elsewhere, each mask on its entry's device (reference
+    ``keep_k_largest_from_LoV``; ``optim.py:80-96``).  ``k <= 0`` freezes
+    everything, ``k`` at least the entry count trains everything."""
+    flat = torch.cat([t.detach().reshape(-1).float()
+                      for t in diag_fisher.values()])
+    if k <= 0:
+        thr = float("inf")
+    elif k >= flat.numel():
+        thr = float("-inf")
+    else:
+        thr = torch.kthvalue(flat, flat.numel() - k + 1).values.item()
+    return pft_mask_from_threshold(diag_fisher, thr)
+
+
+def pft_mask_from_threshold(diag_fisher: Dict[str, torch.Tensor],
+                            thr: float) -> Dict[str, torch.Tensor]:
+    """f32 1.0 where the diagonal Fisher is at least ``thr``, else 0.0
+    (reference ``threshold_LoV``; ``optim.py:99-103``)."""
+    return {name: (t >= thr).float() for name, t in diag_fisher.items()}
+
+
 def layer_train_mask(model: torch.nn.Module,
                      train_layers: Sequence[str]) -> Dict[str, float]:
     """1.0 for each parameter of a layer in ``train_layers`` and 0.0 for
@@ -191,16 +235,24 @@ def layer_train_mask(model: torch.nn.Module,
 
 
 @torch.no_grad()
-def apply_grad_mask(model: torch.nn.Module,
-                    mask: Optional[Dict[str, float]]) -> None:
+def apply_grad_mask(model: torch.nn.Module, mask: Optional[Dict]) -> None:
     """Multiply each gradient by its mask entry, in place
-    (``optim.py:106-109``): a frozen layer's gradient becomes zeros (signed,
-    as JAX's ``g * 0``), never ``None``, so ``torch.optim.Adam`` keeps
-    stepping it and its per-parameter step count stays optax's."""
+    (``optim.py:106-109``): a float per parameter (``layer_train_mask``) or
+    a tensor of the parameter's shape (the PFT masks).  A frozen layer's
+    gradient becomes zeros (signed, as JAX's ``g * 0``), never ``None``, so
+    ``torch.optim.Adam`` keeps stepping it and its per-parameter step count
+    stays optax's."""
     if mask is None:
         return
-    frozen = [p.grad for name, p in model.named_parameters()
-              if mask[name] == 0.0 and p.grad is not None]
+    frozen = []
+    for name, p in model.named_parameters():
+        m = mask[name]
+        if p.grad is None:
+            continue
+        if isinstance(m, torch.Tensor):
+            p.grad.mul_(m.to(p.grad.device))
+        elif m == 0.0:
+            frozen.append(p.grad)
     if frozen:
         torch._foreach_mul_(frozen, 0.0)
 

@@ -77,7 +77,9 @@ from nnal_tpu_torch.data.batching import gen_batch_inds
 from nnal_tpu_torch.models.losses import (
     aleatoric_ce_per_sample,
     consistency_loss,
+    fcn_cross_entropy,
     lwf_distillation,
+    weight_decay_penalty,
     weighted_mean,
 )
 from nnal_tpu_torch.models.optim import (
@@ -368,7 +370,9 @@ def make_train_step(*, mc_t: int = 10, lwf_lambda: float = 0.0,
                     lwf_T: float = 2.0, compute_dtype=None,
                     grad_mask: Optional[Dict[str, float]] = None,
                     consistency_coeff=None,
-                    consistency_measure: str = "CE"):
+                    consistency_measure: str = "CE", fcn: bool = False,
+                    focal_gamma: Optional[float] = None,
+                    weight_decay: float = 0.0):
     """The classification engine's train step (``make_train_step``,
     ``train.py:65-147``; module docstring): returns ``step_fn(state, x,
     y, key, w=None, old_logits=None, cw=None, cc_scale=1.0)``, which
@@ -378,8 +382,20 @@ def make_train_step(*, mc_t: int = 10, lwf_lambda: float = 0.0,
     the previous model's logits ``old_logits`` of ``x``; ``key`` is the
     step's dropout key.  ``consistency_coeff(step)`` (host float32, the
     engine's ramp) times ``cc_scale`` weighs the mean teacher's term when
-    ``state.teacher`` is set.  Returns the loss (a device scalar); the
-    caller advances ``state.step`` and updates the teacher."""
+    ``state.teacher`` is set.  ``fcn`` (a dense spec, ``y`` per-pixel
+    one-hots with NaN on unlabeled pixels) takes the dense CE over the
+    labeled pixels, class-weighted by ``cw`` and in the focal form under
+    ``focal_gamma`` (``train.py:102-104``; ``w`` does not enter it);
+    ``weight_decay > 0`` adds :func:`models.losses.weight_decay_penalty`
+    after the LwF term (``train.py:120-121``).  Returns the loss (a device
+    scalar); the caller advances ``state.step`` and updates the
+    teacher."""
+    if fcn and lwf_lambda > 0.0:
+        # JAX's step weighs the per-pixel LwF term by the per-row w, which
+        # does not broadcast
+        raise ValueError("make_train_step: LwF needs per-row logits; it "
+                         "does not combine with fcn")
+
     def step_fn(state: TrainState, x, y, key, w=None, old_logits=None,
                 cw=None, cc_scale: float = 1.0) -> torch.Tensor:
         model = state.model
@@ -390,8 +406,14 @@ def make_train_step(*, mc_t: int = 10, lwf_lambda: float = 0.0,
                   generator=core_rng.key_stream(key, x.device))
         lwf = (LwF(old_logits, lwf_lambda, lwf_T)
                if lwf_lambda > 0.0 and old_logits is not None else None)
-        loss = _labeled_loss(out, y, w, cw, key, mc_t, lwf, old_logits,
-                             cw_on_aleatoric=False)
+        if fcn and out.log_sigma is None:
+            loss = fcn_cross_entropy(out.logits, y, cw, focal_gamma)
+        else:
+            loss = _labeled_loss(out, y, w, cw, key, mc_t, lwf, old_logits,
+                                 cw_on_aleatoric=False)
+        if weight_decay > 0:
+            loss = loss + weight_decay_penalty(model, weight_decay,
+                                               compute_dtype)
         if consistency_coeff is not None and state.teacher is not None:
             with torch.no_grad():
                 t_fwd, _ = cast_for_forward(compute_dtype, state.teacher, x)

@@ -54,6 +54,7 @@ from nnal_tpu_torch.models.optim import (
     make_optimizer,
     opt_state_leaves,
 )
+from test_torch_parallel_engine import link_npz
 from torch_jax_tiny import tiny_pair
 
 torch.set_num_threads(1)
@@ -241,6 +242,7 @@ def test_rmsprop_in_multi_and_classification_engines(tmp_path):
     leaves = load_opt_leaves(str(tmp_path / "m" / "random"
                                  / "curr_weights.npz"))
     assert len(leaves) == 2 * 14 and any(np.any(v) for v in leaves)
+    shutil.rmtree(tmp_path / "m")      # read: its checkpoints can go
     rng = np.random.default_rng(1)
     X = np.concatenate([rng.normal(size=(30, 8, 8, 1)) - 1,
                         rng.normal(size=(30, 8, 8, 1)) + 1]).astype(
@@ -306,7 +308,7 @@ def test_reset_method_and_load_results_match_jax(tmp_path):
     jexpr = JExpr(str(jdir), JConfig.from_pars({**PARS, **over}))
     jexpr.attach_subject(*VOLS)
     jexpr.prep_data()
-    shutil.copytree(jdir, tdir)
+    shutil.copytree(jdir, tdir, copy_function=link_npz)
     texpr = _fresh(tdir, **over)
     for e in (jexpr, texpr):
         e.add_method("random")

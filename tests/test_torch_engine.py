@@ -27,6 +27,7 @@ from nnal_tpu_torch.core.config import ExperimentConfig, set_parameters
 from nnal_tpu_torch.engine.pw_experiment import PWExperiment
 from nnal_tpu_torch.parallel.grid_sharded import ShardedGridPoolEvaluator
 from nnal_tpu_torch.parallel.mesh import cached_mesh
+from test_torch_parallel_engine import link_npz
 
 torch.set_num_threads(1)
 
@@ -47,11 +48,12 @@ def campaigns(tmp_path_factory):
     tdir = str(tmp_path_factory.mktemp("port_expr") / "expr")
     try:
         expr = j_create_expr(jdir, OVERRIDES, synthetic=True)
-        shutil.copytree(jdir, tdir)
+        shutil.copytree(jdir, tdir, copy_function=link_npz)
         res = {}
         for m in METHODS:
             expr.add_method(m)
-            shutil.copytree(os.path.join(jdir, m), os.path.join(tdir, m))
+            shutil.copytree(os.path.join(jdir, m), os.path.join(tdir, m),
+                            copy_function=link_npz)
             res[("jax", m)] = j_do_expr(jdir, m, 2 * K, synthetic=True)
             res[("port", m)] = t_cli.do_expr(tdir, m, 2 * K, synthetic=True,
                                              device="cpu")
@@ -137,8 +139,8 @@ def test_port_imports_no_jax_and_nothing_of_nnal_tpu():
     files = sorted((REPO / "nnal_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
-    # the multi-subject, dense, classification, serving and multi-device
-    # slices' modules are among the scanned
+    # the multi-subject, dense, classification, serving, multi-device and
+    # data / library slices' modules are among the scanned
     scanned = {str(f.relative_to(REPO)) for f in files}
     assert {f"nnal_tpu_torch/{m}.py" for m in (
         "engine/multi_experiment", "engine/sequential", "runtime/native",
@@ -150,7 +152,9 @@ def test_port_imports_no_jax_and_nothing_of_nnal_tpu():
         "cli/run_on_subjects", "parallel/mesh", "parallel/grid_sharded",
         "parallel/pool_sharded", "parallel/sharding", "parallel/multihost",
         "parallel/dryrun", "evaluation/analysis", "engine/analysis",
-        "evaluation/registry", "evaluation/visualize")} <= scanned
+        "evaluation/registry", "evaluation/visualize", "data/formats",
+        "data/io", "data/datasets", "cli/repeat_runs",
+        "models/branches")} <= scanned
     banned = {"jax", "jaxlib", "optax", "flax", "nnal_tpu"}
     for f in files:
         for mod in _imported_modules(f):

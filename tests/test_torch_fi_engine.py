@@ -26,6 +26,7 @@ from nnal_tpu.cli.expr_handler import do_expr as j_do_expr
 from nnal_tpu.core import profiling as j_profiling
 from nnal_tpu_torch.cli import expr_handler as t_cli
 from nnal_tpu_torch.core import profiling as t_profiling
+from test_torch_parallel_engine import link_npz
 
 torch.set_num_threads(1)
 
@@ -58,7 +59,7 @@ def campaigns(tmp_path_factory):
         jdir = str(tmp_path_factory.mktemp(f"jax_{name}"))
         j_create_expr(jdir, overrides, synthetic=True).add_method("fi")
         tdir = str(tmp_path_factory.mktemp(f"port_{name}") / "expr")
-        shutil.copytree(jdir, tdir)
+        shutil.copytree(jdir, tdir, copy_function=link_npz)
         out[name] = (jdir, tdir,
                      j_do_expr(jdir, "fi", 2 * K, synthetic=True),
                      t_cli.do_expr(tdir, "fi", 2 * K, synthetic=True,

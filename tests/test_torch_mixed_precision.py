@@ -47,6 +47,7 @@ from nnal_tpu_torch.models.train import (
 )
 from nnal_tpu_torch.scoring.fisher import a_matrices
 from nnal_tpu_torch.scoring.sdp import fi_query_distribution
+from test_torch_parallel_engine import link_npz
 
 torch.set_num_threads(1)
 
@@ -240,11 +241,12 @@ def bf16_campaigns(tmp_path_factory):
     tdir = str(tmp_path_factory.mktemp("port_bf16") / "expr")
     try:
         expr = j_create_expr(jdir, OVERRIDES, synthetic=True)
-        shutil.copytree(jdir, tdir)
+        shutil.copytree(jdir, tdir, copy_function=link_npz)
         res = {}
         for m in METHODS:
             expr.add_method(m)
-            shutil.copytree(os.path.join(jdir, m), os.path.join(tdir, m))
+            shutil.copytree(os.path.join(jdir, m), os.path.join(tdir, m),
+                            copy_function=link_npz)
             res[("jax", m)] = j_do_expr(jdir, m, 2 * K, synthetic=True)
             res[("port", m)] = t_cli.do_expr(tdir, m, 2 * K, synthetic=True,
                                              device="cpu")

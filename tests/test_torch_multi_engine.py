@@ -20,7 +20,10 @@ patches, PW1, SGD, dropout 0):
 Tolerances: patches within 1 ulp (the JAX host gather multiplies by
 ``1 / sd``, K2 divides); parameters within 1e-5; picks, journals and
 resumed artifacts exactly equal.  Every test deletes the checkpoints it
-wrote (~80 MB each) when it ends."""
+wrote (~80 MB each) when it ends; the module fixture hard-links the
+JAX directory's checkpoints into its copies
+(``test_torch_parallel_engine.link_npz``) and deletes every checkpoint
+once the campaigns have run (the tests read journals and results)."""
 
 import json
 import os
@@ -44,6 +47,7 @@ from nnal_tpu_torch.models.bridge import to_jax_params
 from nnal_tpu_torch.models.checkpoint import load_checkpoint
 from nnal_tpu_torch.models.train import init_train_state
 from nnal_tpu_torch.parallel.grid_sharded import ShardedGridPoolEvaluator
+from test_torch_parallel_engine import drop_npz, link_npz
 
 torch.set_num_threads(1)
 
@@ -158,7 +162,7 @@ def campaigns(tmp_path_factory):
         jexpr.prep_data()
         for m in ("entropy", "core-set", "random"):
             jexpr.add_method(m)
-        shutil.copytree(jdir, tdir)
+        shutil.copytree(jdir, tdir, copy_function=link_npz)
         texpr = _port(tdir, config=False)
         out = {}
         for m, n in (("entropy", 3), ("core-set", 3), ("random", 6)):
@@ -167,10 +171,12 @@ def campaigns(tmp_path_factory):
             if m != "random":
                 _drop_checkpoints(jdir / m)
                 _drop_checkpoints(tdir / m)
-        shutil.copytree(jdir, rdir)
+        drop_npz(tdir)
+        shutil.copytree(jdir, rdir, copy_function=link_npz)
         out[("jax", "random+")] = jexpr.run_method("random", 9)
         out[("port", "random+")] = _port(rdir, config=False).run_method(
             "random", 9)
+        drop_npz(top)
         yield jdir, tdir, rdir, out
     finally:
         shutil.rmtree(top, ignore_errors=True)

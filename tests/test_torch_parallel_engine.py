@@ -17,7 +17,11 @@ dropout 0, SGD):
   (``engine/common.grid_evaluator``) builds on; without one it is
   ``cached_mesh(2)``.
 
-Every test deletes what it wrote when it ends.
+The JAX directory's checkpoints are hard-linked into the port's two
+copies, not copied (every writer replaces a checkpoint atomically, so a
+link is never written through); each run's checkpoints are deleted once
+it ends (the tests read text records only), the rest when the module
+ends.
 """
 
 import os
@@ -59,6 +63,25 @@ def _round0(root, method):
     return open(os.path.join(str(root), method, "queries", "0.txt")).read()
 
 
+def link_npz(src, dst):
+    """``copytree``'s copy function for run directories: a checkpoint is
+    hard-linked (the engines replace checkpoints, never rewrite them in
+    place, so neither side writes through the link), anything else is
+    copied."""
+    if src.endswith(".npz"):
+        os.link(src, dst)
+    else:
+        shutil.copy2(src, dst)
+
+
+def drop_npz(root):
+    """Delete every checkpoint under ``root``."""
+    for d, _, files in os.walk(str(root)):
+        for f in files:
+            if f.endswith(".npz"):
+                os.remove(os.path.join(d, f))
+
+
 @pytest.fixture(scope="module")
 def single(tmp_path_factory):
     top = tmp_path_factory.mktemp("dp_single")
@@ -70,9 +93,10 @@ def single(tmp_path_factory):
         for m in ("entropy", "fi", "core-set"):
             jexpr.add_method(m)
         for tag in ("dp2", "dp1"):
-            shutil.copytree(jdir, top / tag)
+            shutil.copytree(jdir, top / tag, copy_function=link_npz)
         for m in ("entropy", "fi"):
             jexpr.run_method(m, SINGLE["k"])
+            drop_npz(jdir / m)
         yield top
     finally:
         shutil.rmtree(top, ignore_errors=True)
@@ -90,6 +114,7 @@ def _port_single(top, tag, mesh=None):
 def test_single_subject_engine(single, method):
     for tag in ("dp2", "dp1"):
         _port_single(single, tag).run_method(method, 2 * SINGLE["k"])
+        drop_npz(single / tag / method)
     if method != "core-set":
         assert _round0(single / "dp2", method) == _round0(single / "jax",
                                                           method)

@@ -11,7 +11,9 @@ subjects, a test and a held one, PW1 at 9x9 patches, dropout 0, SGD):
 * two rounds of each at ``data_parallel`` 2 equal two rounds at
   ``data_parallel`` 1 (journal, membership and ``perf_evals.txt``, exactly).
 
-Everything written is deleted when the module ends.
+The JAX directory's checkpoints are hard-linked into the port's copies
+(``test_torch_parallel_engine.link_npz``); each run's checkpoints are
+deleted once it ends, everything else when the module ends.
 """
 
 import shutil
@@ -25,7 +27,7 @@ from nnal_tpu_torch.core.config import ExperimentConfig
 from nnal_tpu_torch.data.io import synthetic_subject
 from nnal_tpu_torch.engine.multi_experiment import MultiImgExperiment
 from nnal_tpu_torch.parallel.grid_sharded import ShardedGridPoolEvaluator
-from test_torch_parallel_engine import _files, _round0
+from test_torch_parallel_engine import _files, _round0, drop_npz, link_npz
 
 torch.set_num_threads(1)
 
@@ -53,9 +55,10 @@ def multi(tmp_path_factory):
         for m in ("entropy", "fi"):
             jexpr.add_method(m)
         for tag in ("dp2", "dp1"):
-            shutil.copytree(jdir, top / tag)
+            shutil.copytree(jdir, top / tag, copy_function=link_npz)
         for m in ("entropy", "fi"):
             jexpr.run_method(m, MULTI["k"])
+            drop_npz(jdir / m)
         yield top
     finally:
         shutil.rmtree(top, ignore_errors=True)
@@ -73,5 +76,6 @@ def test_multi_subject_engine(multi, method):
                                    expr._stats("test"))
             assert all(isinstance(e, ShardedGridPoolEvaluator) for e in evs)
         expr.run_method(method, 2 * MULTI["k"])
+        drop_npz(multi / tag / method)
     assert _round0(multi / "dp2", method) == _round0(multi / "jax", method)
     assert _files(multi / "dp2", method) == _files(multi / "dp1", method)

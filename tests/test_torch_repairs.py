@@ -29,6 +29,7 @@ from nnal_tpu.scoring import strategies as jstrat
 from nnal_tpu_torch.cli import expr_handler as t_cli
 from nnal_tpu_torch.core.rng import RngStream
 from nnal_tpu_torch.scoring import strategies as tstrat
+from test_torch_parallel_engine import link_npz
 
 torch.set_num_threads(1)
 
@@ -120,8 +121,8 @@ def test_port_resumes_a_jax_random_campaign(tmp_path):
     jdir = str(tmp_path / "jax")
     j_do_expr(jdir, "random", 12, BASE, synthetic=True)
     jcont, tdir = str(tmp_path / "jax_cont"), str(tmp_path / "port")
-    shutil.copytree(jdir, jcont)
-    shutil.copytree(jdir, tdir)
+    shutil.copytree(jdir, jcont, copy_function=link_npz)
+    shutil.copytree(jdir, tdir, copy_function=link_npz)
     shutil.rmtree(jdir)
     with open(os.path.join(tdir, "random", "state.json")) as f:
         assert isinstance(json.load(f)["rng"]["key"], list)

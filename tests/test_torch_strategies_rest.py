@@ -42,6 +42,7 @@ from nnal_tpu_torch.models.train import init_train_state
 from nnal_tpu_torch.scoring import strategies as tstrat
 from nnal_tpu_torch.scoring import superpixel as tsp
 from nnal_tpu_torch.scoring.grid_eval import GridPoolEvaluator as TGrid
+from test_torch_parallel_engine import link_npz
 from torch_jax_draws import inject
 from torch_jax_tiny import tiny_pair
 
@@ -216,7 +217,7 @@ def test_finetune_wpool_matches_jax(tmp_path, monkeypatch):
     jexpr.attach_subject(*ENGINE_VOLS)
     jexpr.prep_data()
     jexpr.add_method("entropy")
-    shutil.copytree(jdir, tdir)
+    shutil.copytree(jdir, tdir, copy_function=link_npz)
     seen = {}
 
     def spy(tag, fn):

@@ -32,6 +32,7 @@ from nnal_tpu_torch.models.cnn import CNN
 from nnal_tpu_torch.models.specs import create_pw1 as t_create_pw1
 from nnal_tpu_torch.scoring import strategies as tstrat
 from nnal_tpu_torch.scoring.grid_eval import GridPoolEvaluator as TGrid
+from test_torch_parallel_engine import link_npz
 from torch_jax_draws import inject
 
 torch.set_num_threads(1)
@@ -146,7 +147,7 @@ def test_round0_from_pretrained_paths_matches_jax(tmp_path, method):
     jexpr.attach_subject(*ENGINE_VOLS)
     jexpr.prep_data()
     jexpr.add_method(method)
-    shutil.copytree(jdir, tdir)
+    shutil.copytree(jdir, tdir, copy_function=link_npz)
     jexpr.run_method(method, ENGINE_PARS["k"])
     texpr = PWExperiment(str(tdir), device="cpu")
     texpr.attach_subject(*ENGINE_VOLS)

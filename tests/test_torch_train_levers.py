@@ -62,6 +62,7 @@ from nnal_tpu_torch.models.train import (
 )
 from nnal_tpu_torch.scoring import strategies as tstrat
 from nnal_tpu_torch.scoring.grid_eval import GridPoolEvaluator as TGrid
+from test_torch_parallel_engine import link_npz
 from torch_jax_draws import inject
 
 torch.set_num_threads(1)
@@ -260,7 +261,7 @@ def test_aleatoric_round0_matches_jax(tmp_path, method):
     jdir = str(tmp_path / "jax")
     j_create_expr(jdir, base, synthetic=True).add_method(method)
     tdir = str(tmp_path / "port")
-    shutil.copytree(jdir, tdir)
+    shutil.copytree(jdir, tdir, copy_function=link_npz)
     j_do_expr(jdir, method, 10, synthetic=True)
     t_cli.do_expr(tdir, method, 10, synthetic=True, device="cpu")
     picks = [np.loadtxt(os.path.join(d, method, "queries", "0.txt"),
