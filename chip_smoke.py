@@ -133,9 +133,10 @@ Phases, each of which passes or exits non-zero:
    weights and draws, and fi's A-matrices of the card's candidates held
    on the host (the row rule below; ``multi picks ok``); 128-query
    campaigns (64 for ``MULTI_ONE_ROUND``: QBC-JS, influence, and fi at
-   f32 and bf16 in 2-3 rounds) over three 128x128x32
-   subjects (131,072 grid voxels each), a
-   test and a held subject, from an empty start: f32 core-set (round 0
+   f32 and bf16 in 2-3 rounds) over three 128x128x16 subjects
+   (``MULTI_SHAPE``, 32,768 grid voxels each; 32 slices before the
+   rank-3 phase), a test and a held subject, from an empty start: f32
+   core-set (round 0
    from the held subject's features through K1), fi, QBC-JS (3
    members), influence (64 labels seeded) and entropy with the mean
    teacher (its directory kept for phase 21), every finetune gathering
@@ -172,13 +173,13 @@ Phases, each of which passes or exits non-zero:
    rounds run no new code, ``DENSE_ONE_ROUND``; f32: core-set, fi, BALD
    with 10 MC passes,
    BADGE, QBC-JS with 3 members, entropy with the mean teacher; bf16:
-   fi), each checked
+   fi) on the campaign subject cut to 16 slices, each checked
    (rounds, picks, membership, no K2 launch, K1 in core-set, the ``bn/``
    group, fi's sub-spans, the committee phase, the teacher group); dense
    resume == continue bit for bit (entropy, 3 rounds, int8 anchors every
    2, crashed after round 2, the subject cut to 16 slices); and a
    multi-subject dense fi campaign
-   over two 128x128x32 subjects and one 96x96x32 (two shape groups; 64
+   over two 128x128x16 subjects and one 96x96x16 (two shape groups; 64
    queries), every test evaluator on the engine's BN state;
 18. the classification engine (``phase_cls``): AlexNet at its published
    width and 227x227x3 input (71,945,608 parameters, 2.5244 GFLOP an
@@ -251,8 +252,10 @@ Phases, each of which passes or exits non-zero:
    selector (top 200) and the bf16 dense segmenter over the serving
    phase's 256x256x64 subject, values and volumes bit-equal to their
    unsharded references and indices equal; an in-process ``nccl`` group
-   of world size 1 whose DP step equals a plain Adam step bit for bit and
-   whose ``sharded_pool_topk`` equals a plain top-k; ``make_mesh(2)``
+   of world size 1 whose DP step equals a plain Adam step bit for bit, on
+   PW1 and on 2-D FC-DenseNet-103 (batch norm over the group's batch,
+   skips, per-pixel CE), and whose ``sharded_pool_topk`` equals a plain
+   top-k; ``make_mesh(2)``
    without a device list must raise on one card; launch counts zeroed
    just before the campaigns and read just after the selectors;
 21. the analysis routines (``phase_analysis``): ``full_model_eval`` and
@@ -284,7 +287,28 @@ Phases, each of which passes or exits non-zero:
    on the card (the update's worst element and 2-norm within 1e-2 of its
    size, the rule of phase 18's AlexNet steps), and ``apply_with_branch``
    on PW1's probe card vs host (1e-4);
-23. lines with the new methods' per-round seconds, the MC and perturb
+23. the 3-D path (``phase_rank3``): FC-DenseNet-103 at its published
+   width and depth, 3-D on 2 modalities (26,167,922 parameters, 190.0
+   GFLOP a 64x64x32x2 sub-volume, 760.2 the 128x128x32x2 subject) from
+   one seed's weights: card vs host vs float64 (on the card) on a
+   32x32x32 sub-volume of the campaign subject at batch 1
+   (``update_bn_stats`` over two others, the eval forward: card vs host
+   posteriors 1e-4 and state 1e-4 relative, the card's float64 error
+   within 2x the host's; one ``make_train_step(fcn=True)`` Adam step, a
+   third of the voxels unlabeled, each device's update within 1e-2 of
+   the float64 update in the 2-norm); steps/s, TFLOP/s and peak memory of
+   f32 and bf16 Adam steps at 64x64x32x2, batch 2, under deterministic
+   cuDNN and without it; ``FCNInference`` over the whole subject at f32,
+   bf16 and int8 (voxels/s, TFLOP/s, p1 against f32, 95% agreement where
+   f32's p1 is more than 0.05 from 0.5), and int8 card vs host on a
+   32x32x32 crop within 0.1 with 95% agreement (the quant tests' rule);
+   launch
+   counts zeroed just before and read just after (no kernel on this
+   path); ``gather_patches_multimg`` through K2 on the multi subjects
+   (counts zeroed just before, read just after; bit-equal to K2's plain
+   version, labels equal); ``wait_device`` exits 0 on its first probe
+   and ``prime_cache`` finds every build present;
+24. lines with the new methods' per-round seconds, the MC and perturb
    sweeps' rates, the committee campaigns' peak memory, the lever runs'
    per-round seconds, each lever's seconds per finetune step, the
    checkpoint bytes with the teacher, whether the TensorBoard mirror
@@ -295,10 +319,11 @@ Phases, each of which passes or exits non-zero:
    JSON line (per-round seconds from ``phases.jsonl`` of both campaigns,
    build seconds, K1's SASS counts, the FIM, bf16, codec, resume, MC,
    perturbation, selection, second-order, SLIC and ``finetune_wpool``
-   phases, the multi-subject, dense, multi-device, analysis and formats
-   ones) and one ``kernels`` JSON line (times, bounds, launches in every
-   campaign and in the serving, multi-device, analysis and formats
-   phases; each row's check at the formats round's shapes under
+   phases, the multi-subject, dense, multi-device, analysis, formats and
+   rank-3 ones) and one ``kernels`` JSON line (times, bounds, launches in
+   every campaign and in the serving, multi-device, analysis, formats and
+   ``gather_patches_multimg`` phases; each row's check at the formats
+   round's shapes under
    ``at_formats``; K1's row also its times at d = 16 under ``at_d16`` and
    at the classification shape under ``at_cls``).
 
@@ -323,8 +348,10 @@ script exits non-zero and prints no result.  The campaign runs under
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import ctypes
+import io
 import json
 import os
 import re
@@ -337,6 +364,7 @@ import numpy as np
 import torch
 
 from nnal_tpu_torch import ops
+from nnal_tpu_torch.cli import prime_cache, wait_device
 from nnal_tpu_torch.ops._build import stream_ptr
 from nnal_tpu_torch.cli.expr_handler import DEFAULT_PARS, create_expr, do_expr
 from nnal_tpu_torch.cli.run_on_subjects import run_on_subjects
@@ -354,7 +382,7 @@ from nnal_tpu_torch.data.datasets import registry_for
 from nnal_tpu_torch.data.formats import write_nifti, write_nrrd
 from nnal_tpu_torch.data.io import SubjectRegistry, synthetic_subject
 from nnal_tpu_torch.core.journal import MethodJournal
-from nnal_tpu_torch.data.patches import pad_volumes
+from nnal_tpu_torch.data.patches import gather_patches_multimg, pad_volumes
 from nnal_tpu_torch.data.samplers import (
     even_odd_slice_split,
     generate_grid_samples,
@@ -383,7 +411,13 @@ from nnal_tpu_torch.models.branches import (
     branch_input_shape,
     init_branch,
 )
-from nnal_tpu_torch.models.cnn import CNN, init_cnn, int8_matmul, linear_f32acc
+from nnal_tpu_torch.models.cnn import (
+    CNN,
+    count_parameters,
+    init_cnn,
+    int8_matmul,
+    linear_f32acc,
+)
 from nnal_tpu_torch.models.quant import (
     is_quantized,
     quantize_model,
@@ -399,7 +433,8 @@ from nnal_tpu_torch.evaluation.inference import (
     full_slice_patchwise,
     full_volume_patchwise,
 )
-from nnal_tpu_torch.runtime import crf_native
+from nnal_tpu_torch.runtime import crf_native, slic_native
+from nnal_tpu_torch.runtime import native as native_gather
 from nnal_tpu_torch.evaluation.analysis import (
     full_model_eval,
     full_model_pred_dcrf,
@@ -453,6 +488,7 @@ from nnal_tpu_torch.models.train import (
     init_train_state,
     make_teacher,
     make_train_step,
+    update_bn_stats,
 )
 from nnal_tpu_torch.scoring import cls_strategies as cls_mod
 from nnal_tpu_torch.scoring.fcn_eval import (
@@ -582,6 +618,9 @@ RESUME_OVERRIDES = OVERRIDES + ",ckpt_full_every=2,ckpt_dtype=int8"
 # the multi-subject engine: three 128x128x32 training subjects (pools of
 # 65,536 grid voxels each), a test and a held subject, an empty start
 # (influence: 64 labels seeded), k 64, B 200, 128 queries a run
+# their subjects cut to 16 slices (``MULTI_SHAPE``) since the rank-3
+# phase: the multi-subject code they drive is the same at any depth
+MULTI_SHAPE = (128, 128, 16)
 MULTI = ("patch_shape=[25,25,1],grid_spacing=2,k=64,B=200,b=128,epochs=1,"
          "learning_rate=1e-3,optimizer_name=Adam,ntb=4096,seed=0")
 # (``entropy`` alone is left out: ``entropy@mt`` and the bf16 run drive
@@ -613,11 +652,13 @@ HELD_PICKS = ("entropy", "core-set", "rep-entropy", "BALD", "BatchBALD",
 TOP_B = 1024
 # the dense-model path: FC-DenseNet-103 at its published width and depth
 # (growth 16, dense blocks 4-5-7-10-12, 15 in the bottleneck, dropout 0.2)
-# on the campaign subject's whole 128x128 slices, PW1's grid and budget
+# on the campaign subject's whole 128x128 slices, PW1's grid and budget;
+# the campaigns on the subject cut to 16 slices since the rank-3 phase
+# (the sweep phase times all 32)
 DENSE = ("model_name=Tiramisu,dropout_rate=0.2,patch_shape=[25,25,1],"
          "grid_spacing=2,k=64,B=200,b=4,epochs=1,init_size=256,"
          "learning_rate=1e-3,optimizer_name=Adam,ntb=4096,"
-         "synthetic_shape=[128,128,32],seed=0")
+         "synthetic_shape=[128,128,16],seed=0")
 # ``entropy`` alone is left out: ``entropy@mt``, the bf16 run and the
 # resume phase drive its selection, every other run the plain finetune
 DENSE_RUNS = (("core-set", DENSE),
@@ -687,6 +728,18 @@ MULTI_KEPT = os.path.join(ROOT, "_smoke_expr", "kept_multi_entropy")
 REPEAT_OVERRIDES = OVERRIDES.replace(
     "synthetic_shape=[128,128,32]", "synthetic_shape=[128,128,8]").replace(
     "optimizer_name=Adam", "optimizer_name=SGD")
+# the 3-D (rank-3) path (phase_rank3): FC-DenseNet-103 at its published
+# width and depth on volumes of 2 modalities; card vs host on a
+# 32x32x32 sub-volume at batch 1, the training rate on 64x64x32 at batch
+# 2, serving on the campaign subject whole (128x128x32)
+R3_PARITY = (32, 32, 32)
+R3_TRAIN = (64, 64, 32)
+R3_BATCH = 2
+R3_PARAMS = 26_167_922
+R3_STEPS = 3            # timed train steps per configuration, after one
+# gather_patches_multimg on the multi subjects: indices per subject (one
+# empty)
+MULTIMG_INDS = (512, 0, 256)
 PHASE_S = {}
 
 
@@ -2879,7 +2932,8 @@ def _multi_campaign(dev, top, runs, tag, subjects, keep=None):
         qmats = [np.loadtxt(os.path.join(j.queries_dir, f"{r}.txt"),
                             dtype=np.int64, ndmin=2)
                  for r in range(n_rounds)]
-        check(sizes == [len(generate_grid_samples(SHAPE, 2))] * 3,
+        shape = np.shape(subjects[0][0][0][0])
+        check(sizes == [len(generate_grid_samples(shape, 2))] * 3,
               f"{key}: pools {sizes}")
         check(res["n_queries"] == want * k
               == sum(q.shape[1] for q in qmats)
@@ -3111,7 +3165,7 @@ def phase_multi(dev):
     shutil.rmtree(top, ignore_errors=True)
     try:
         picks = phase_multi_picks(dev)
-        subjects = multi_subjects()
+        subjects = multi_subjects(MULTI_SHAPE)
         f32 = _multi_campaign(dev, top, MULTI_RUNS, "", subjects,
                               keep=("entropy@mt", MULTI_KEPT))
         bf16 = _multi_campaign(dev, os.path.join(top, "bf16"),
@@ -3128,30 +3182,26 @@ def phase_multi(dev):
 # ------------------------------------------------------------ dense models
 def dense_flops(spec, hw) -> float:
     """FLOPs (2 per multiply-add) of the convs and transposed convs of
-    one forward of ``spec`` on an ``hw`` slice, from the spec's shapes."""
+    one forward of ``spec`` on an ``hw`` slice (or volume, for a 3-D
+    spec), from the spec's shapes."""
     total = 0.0
-    model = CNN(spec)
-    h, w = hw
-    sizes = {"__input__": (h, w)}
+    with torch.device("meta"):
+        model = CNN(spec)
+    sizes = {"__input__": tuple(hw)}
     prev = "__input__"
     for layer in spec.layers:
-        src = layer.sources[0] if layer.sources else prev
-        hh, ww = (min(sizes[s][0] for s in layer.sources),
-                  min(sizes[s][1] for s in layer.sources)) \
-            if layer.sources else sizes[src]
+        size = (tuple(min(sizes[s][d] for s in layer.sources)
+                      for d in range(len(hw)))
+                if layer.sources else sizes[prev])
         if layer.kind in ("conv", "convT"):
-            W = getattr(model, layer.name).weight
-            macs_per_pixel = W.numel()          # out * in * kh * kw
-            if layer.kind == "conv":
-                out_hw = (hh, ww)
-                total += 2.0 * macs_per_pixel * hh * ww
-            else:
-                out_hw = (hh * layer.strides[0], ww * layer.strides[1])
-                total += 2.0 * macs_per_pixel * hh * ww
-            sizes[layer.name] = out_hw
+            # out * in * prod(k) multiply-adds at each input voxel
+            total += 2.0 * getattr(model, layer.name).weight.numel() \
+                * float(np.prod(size))
+            sizes[layer.name] = size if layer.kind == "conv" else tuple(
+                n * st for n, st in zip(size, layer.strides))
         elif layer.kind in ("pool", "avgpool"):
-            sizes[layer.name] = (-(-hh // layer.strides[0]),
-                                 -(-ww // layer.strides[1]))
+            sizes[layer.name] = tuple(-(-n // st) for n, st in
+                                      zip(size, layer.strides))
         prev = layer.name
     return total
 
@@ -3540,10 +3590,12 @@ def phase_dense_resume(dev, top):
 
 def phase_dense_multi(dev, top):
     """The multi-subject dense campaign (``DENSE_MULTI_RUNS``) over two
-    128x128x32 subjects and one 96x96x32, so two shape groups train; a
-    128x128x32 test subject and a held one."""
+    128x128x16 subjects and one 96x96x16, so two shape groups train; a
+    128x128x16 test subject and a held one."""
+    small = (96, 96, MULTI_SHAPE[2])
     s = [synthetic_subject(shape=sh, n_modalities=2, n_blobs=3, seed=i)
-         for i, sh in enumerate((SHAPE, SHAPE, (96, 96, 32), SHAPE, SHAPE))]
+         for i, sh in enumerate((MULTI_SHAPE, MULTI_SHAPE, small,
+                                 MULTI_SHAPE, MULTI_SHAPE))]
     subjects = (s[:3], s[3:4], s[4:])
     out = {"seconds": {}, "phases": {}, "by_method": {}, "peaks": {}}
     ops.reset_launch_counts()
@@ -4679,6 +4731,7 @@ def phase_nccl(dev, model):
             torch.equal(a, b) for a, b in zip(local.parameters(),
                                               ref.parameters())),
               "the world-size-1 DP step part from the plain step")
+        dense = dense_dp_step(dev, pmesh, g)
         scores = torch.randn(4096, generator=g).to(dev)
         scores[100] = scores[7] = scores.max()
         vals, idx = sharded_pool_topk(pmesh, lambda m, s: s, 64)(None,
@@ -4689,7 +4742,44 @@ def phase_nccl(dev, model):
               "sharded_pool_topk part from the plain top-k")
     finally:
         dist.destroy_process_group()
-    return {"seconds": time.perf_counter() - t0, "loss": float(loss)}
+    return {"seconds": time.perf_counter() - t0, "loss": float(loss),
+            "dense": dense}
+
+
+def dense_dp_step(dev, pmesh, g):
+    """The DP step on batch norm and skips: 2-D FC-DenseNet-103 (the dense
+    phase's model) on 2 slices of 128x128x2 with per-pixel labels, Adam,
+    dropout from one key, deterministic cuDNN, in the world-size-1 group:
+    loss and parameters equal to the plain step's bit for bit."""
+    spec = create_model("Tiramisu", nclass=2, input_shape=(128, 128, 2),
+                        dropout_rate=0.2)
+    model = init_cnn(spec, 3, device=dev)
+    x = torch.randn((2, 128, 128, 2), generator=g).to(dev)
+    y = torch.nn.functional.one_hot(torch.randint(0, 2, (2, 128, 128),
+                                                  generator=g), 2).float()
+    y = y.to(dev)
+    t0 = time.perf_counter()
+    with deterministic_cudnn():
+        local = shard_params(model, pmesh)
+        state = TrainState(local, make_optimizer("Adam", 1e-3,
+                                                 local.parameters()))
+        loss = make_sharded_train_step(pmesh)(state, x, y, 11)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        ref = copy.deepcopy(model)
+        opt = make_optimizer("Adam", 1e-3, ref.parameters())
+        logits = ref(x, train=True,
+                     generator=core_rng.key_stream(11, dev)).logits
+        per = -(y * torch.log_softmax(logits, -1)).sum(-1)
+        ref_loss = per.sum() / per.numel()
+        ref_loss.backward()
+        opt.step()
+    check(float(loss) == float(ref_loss.detach()) and all(
+        torch.equal(a, b) for a, b in zip(local.parameters(),
+                                          ref.parameters())),
+          "the world-size-1 DP step of FC-DenseNet-103 part from the plain "
+          "step")
+    return {"loss": float(loss), "step_s": step_s, "bit_equal": True}
 
 
 def phase_parallel(dev, kept, serve):
@@ -4795,7 +4885,7 @@ def phase_analysis(dev, kept, multi_root):
             "unsure_voxels": int((~sure).sum()),
             "seconds": {"card": c["seconds"], "host": h["seconds"]}}
         # test_scores_matrix over the multi entropy run's history copies
-        train, test, held = multi_subjects()
+        train, test, held = multi_subjects(MULTI_SHAPE)
         mexpr = multi_experiment.MultiImgExperiment(multi_root, device=dev)
         mexpr.attach_subjects(train, test, held)
         t1 = time.perf_counter()
@@ -5167,6 +5257,312 @@ def phase_formats(dev, picks0):
     return out
 
 
+# ------------------------------------------------------- rank-3 (3-D) path
+def _r3_data(seed):
+    """The campaign subject (128x128x32, 2 modalities) normalized per
+    modality, channels last, and per-voxel one-hots of its mask with a
+    third of the voxels unlabeled (NaN)."""
+    vols, mask, mu, sd, _ = _dense_subject()
+    vol = np.stack([(np.asarray(v, np.float32) - m) / sd_
+                    for v, m, sd_ in zip(vols, mu, sd)], -1)
+    lab = np.eye(2, dtype=np.float32)[np.nan_to_num(mask).astype(int)]
+    lab[np.random.default_rng(seed).random(mask.shape) < 1 / 3] = np.nan
+    return vol.astype(np.float32), lab
+
+
+def _crops(a, shape, corners):
+    return torch.from_numpy(np.ascontiguousarray(np.stack([
+        a[x:x + shape[0], y:y + shape[1], z:z + shape[2]]
+        for x, y, z in corners])))
+
+
+def rank3_parity(dev, spec, host, vol, lab, seed):
+    """Card vs host vs float64 (on the card) from one seed's weights on a
+    32x32x32x2 sub-volume at batch 1: ``update_bn_stats`` over two other
+    sub-volumes (decay 0.6), the eval forward on that state (card vs host
+    posteriors 1e-4, state 1e-4 relative: the 2-D dense rule; each
+    device's error against float64 reported, the card within 2x the
+    host's or 1e-4 of it), and one ``make_train_step(fcn=True)`` Adam step
+    (lr 1e-3, eps 1e-3) with the same dropout uniforms (``KeyedDraws``):
+    each device's update within 1e-2 of the float64 update's size in the
+    2-norm, the rule ``phase_cls_parity`` holds ``make_train_step``'s Adam
+    step to (Adam's first update is about lr times the gradient's sign,
+    so an element whose float64 gradient is near 0 can move by lr on
+    either device; the worst element is reported beside it)."""
+    x = _crops(vol, R3_PARITY, [(0, 0, 0)])
+    y = _crops(lab, R3_PARITY, [(0, 0, 0)])
+    refresh = [_crops(vol, R3_PARITY, [c]) for c in ((32, 32, 0),
+                                                     (64, 64, 0))]
+    sides = {"card": (dev, torch.float32), "host": ("cpu", torch.float32),
+             "f64": (dev, torch.float64)}
+    fwd, states = {}, {}
+    for side, (d, dt) in sides.items():
+        m = copy.deepcopy(host).to(d, dt)
+        it = iter(refresh)
+        with torch.no_grad():
+            st = update_bn_stats(m, m.init_state(), lambda: next(it).to(d, dt),
+                                 iters=2, bn_decay=0.6)
+            fwd[side] = m(x.to(d, dt), state=st).posteriors.double().cpu()
+        states[side] = {l: {k: v.double().cpu() for k, v in v2.items()}
+                        for l, v2 in st.items()}
+        del m
+    res = {"forward": {
+        "posteriors_card_vs_host": float((fwd["card"] - fwd["host"]).abs()
+                                         .max()),
+        "state_rel_card_vs_host": _state_rel(states["card"],
+                                             states["host"]),
+        "posteriors_err_card": float((fwd["card"] - fwd["f64"]).abs().max()),
+        "posteriors_err_host": float((fwd["host"] - fwd["f64"]).abs().max()),
+        "state_err_card": _state_rel(states["card"], states["f64"]),
+        "state_err_host": _state_rel(states["host"], states["f64"])}}
+    r = res["forward"]
+    check(r["posteriors_card_vs_host"] <= 1e-4
+          and r["state_rel_card_vs_host"] <= 1e-4
+          and all(r[f"{q}_err_card"] <= max(2 * r[f"{q}_err_host"],
+                                            r[f"{q}_err_host"] + 1e-4)
+                  for q in ("posteriors", "state")),
+          f"rank-3 forward card vs host vs float64: {r}")
+    p0 = {k: v.double() for k, v in host.state_dict().items()}
+
+    def stepped(d, dt):
+        m = copy.deepcopy(host).to(d, dt)
+        st = TrainState(m, torch.optim.Adam(m.parameters(), lr=1e-3,
+                                            eps=1e-3))
+        ctx = deterministic_cudnn() if dt == torch.float32 \
+            else contextlib.nullcontext()
+        with ctx:
+            loss = make_train_step(fcn=True)(st, x.to(d, dt), y.to(d, dt),
+                                             5)
+        return ({k: v.detach().cpu().double()
+                 for k, v in m.state_dict().items()}, float(loss))
+
+    t0 = time.perf_counter()
+    with KeyedDraws(seed):
+        (sc, lc), (sh, lh) = stepped(dev, torch.float32), stepped(
+            "cpu", torch.float32)
+        s64, l64 = stepped(dev, torch.float64)
+    (mc, nc), (mh, nh) = _update_errs(sc, s64, p0), _update_errs(sh, s64, p0)
+    res["adam_step"] = {"loss_card": lc, "loss_host": lh, "loss_f64": l64,
+                        "update_err_card": mc, "update_err_host": mh,
+                        "update_norm_err_card": nc,
+                        "update_norm_err_host": nh,
+                        "seconds_three_steps": time.perf_counter() - t0}
+    r = res["adam_step"]
+    check(np.isfinite(lc) and max(nc, nh) <= 1e-2,
+          f"rank-3 Adam step card and host vs float64: {r}")
+    return res
+
+
+def rank3_train_rate(dev, host, vol, lab, flops):
+    """Steps/s, TFLOP/s (3x the forward's convs) and peak memory of
+    ``make_train_step(fcn=True)`` Adam steps at f32 and bf16 on 64x64x32x2
+    sub-volumes at batch ``R3_BATCH``, under deterministic cuDNN (as the
+    dense finetune runs; a layer without a deterministic 3-D algorithm
+    raises) and without it."""
+    corners = [(0, 0, 0), (64, 64, 0)][:R3_BATCH]
+    x = _crops(vol, R3_TRAIN, corners).to(dev)
+    y = _crops(lab, R3_TRAIN, corners).to(dev)
+    res = {}
+    for name, cd in (("float32", None), ("bfloat16", torch.bfloat16)):
+        res[name] = {}
+        for det in (True, False):
+            m = copy.deepcopy(host).to(dev)
+            st = TrainState(m, make_optimizer("Adam", 1e-3, m.parameters()))
+            fn = make_train_step(fcn=True, compute_dtype=cd)
+            ctx = deterministic_cudnn() if det else torch.backends.cudnn.flags(
+                enabled=True, benchmark=False, deterministic=False,
+                allow_tf32=False)
+            with ctx:
+                fn(st, x, y, 0)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                for i in range(R3_STEPS):
+                    loss = fn(st, x, y, 1 + i)
+                torch.cuda.synchronize()
+                step_s = (time.perf_counter() - t0) / R3_STEPS
+            check(bool(torch.isfinite(loss)), f"rank-3 {name} step loss")
+            res[name]["deterministic" if det else "nondeterministic"] = {
+                "step_s": step_s, "steps_per_s": 1.0 / step_s,
+                "tflops": 3.0 * flops * R3_BATCH / step_s / 1e12,
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "loss": float(loss)}
+            del m, st
+    return res
+
+
+def rank3_serve(dev, spec, host, bn, vol):
+    """``FCNInference`` posteriors of the whole campaign subject
+    (128x128x32x2, one volume a batch) on ``bn`` at f32, bf16 and int8
+    (``quantize_model``; the transposed convs float), each after one
+    warm-up call: voxels/s, TFLOP/s, peak memory, and p1 against f32's
+    (bf16 and int8 agree with f32 on at least 95% of the voxels where
+    f32's p1 is more than 0.05 from 0.5).  int8 is held to
+    ``tests/test_torch_quant.py``'s dense rule, which compares two runs
+    of one quantized net: the card's int8 against the host's on a
+    32x32x32 crop, within 0.1 and the same prediction on at least 95% of
+    the voxels where the host's p1 is more than 0.05 from 0.5 (against
+    f32 the rounding of 108 quantized layers reaches further, so that
+    distance is reported, not bounded)."""
+    card = copy.deepcopy(host).to(dev)
+    bn_c = {l: {k: v.to(dev) for k, v in d.items()} for l, d in bn.items()}
+    x = vol[None]
+    flops = dense_flops(spec, vol.shape[:3])
+    res, post = {"gflop_per_volume": flops / 1e9}, {}
+    qcard = quantize_model(card)
+    for name, cd, m in (("float32", None, card),
+                        ("bfloat16", torch.bfloat16, card),
+                        ("int8", None, qcard)):
+        inf = FCNInference(spec, batch=1, compute_dtype=cd, bn_state=bn_c,
+                           device=dev)
+        inf.segment(m, x, "posteriors")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        p = inf.segment(m, x, "posteriors")
+        secs = time.perf_counter() - t0
+        check(p.shape == x.shape[:4] + (2,) and bool(np.isfinite(p).all()),
+              f"rank-3 {name} posteriors {p.shape}")
+        res[name] = {"voxels_per_s": x[0, ..., 0].size / secs,
+                     "wall_s": secs, "tflops": flops / secs / 1e12,
+                     "peak_bytes": torch.cuda.max_memory_allocated()}
+        post[name] = p[0, ..., 1]
+    sure = np.abs(post["float32"] - 0.5) > 0.05
+    for name in ("bfloat16", "int8"):
+        res[name]["max_abs_dp1_vs_f32"] = float(
+            np.abs(post[name] - post["float32"]).max())
+        res[name]["agree_vs_f32"] = float(np.mean(
+            (post[name] > 0.5) == (post["float32"] > 0.5)))
+        res[name]["agree_sure_vs_f32"] = float(np.mean(
+            (post[name] > 0.5)[sure] == (post["float32"] > 0.5)[sure]))
+    check(all(res[n]["agree_sure_vs_f32"] >= 0.95
+              for n in ("bfloat16", "int8")),
+          f"rank-3 bf16 / int8 serving vs f32: {res}")
+    crop = np.ascontiguousarray(vol[None, :R3_PARITY[0], :R3_PARITY[1]])
+    qhost = quantize_model(host)
+    got = FCNInference(spec, batch=1, bn_state=bn_c, device=dev).segment(
+        qcard, crop, "posteriors")[..., 1]
+    t0 = time.perf_counter()
+    want = FCNInference(spec, batch=1, bn_state=bn, device="cpu").segment(
+        qhost, crop, "posteriors")[..., 1]
+    sure = np.abs(want - 0.5) > 0.05
+    res["int8_card_vs_host"] = {
+        "crop": list(crop.shape[1:4]),
+        "max_abs_dp1": float(np.abs(got - want).max()),
+        "agree_sure": float(np.mean((got > 0.5)[sure] == (want > 0.5)[sure])),
+        "host_s": time.perf_counter() - t0}
+    r = res["int8_card_vs_host"]
+    check(r["max_abs_dp1"] <= 0.1 and r["agree_sure"] >= 0.95,
+          f"rank-3 int8 card vs host: {r}")
+    return res
+
+
+def rank3_multimg_gather(dev):
+    """``gather_patches_multimg`` through K2 on the multi phase's
+    training subjects (``MULTI_SHAPE``; ``MULTIMG_INDS`` voxels each, one
+    subject empty), launch counts zeroed just before and read just after;
+    patches bit-equal to K2's plain version (the same call on host
+    volumes) and labels equal."""
+    subjects = multi_subjects(MULTI_SHAPE)[0]
+    ps = (25, 25, 1)
+    padded = [pad_volumes(v, ps, device=dev) for v, _ in subjects]
+    stats = multimg_stats(subjects)
+    masks = [m for _, m in subjects]
+    rng = np.random.default_rng(12)
+    n_vox = int(np.prod(MULTI_SHAPE))
+    inds = [np.sort(rng.choice(n_vox, n, replace=False)) if n
+            else np.zeros(0, np.int64) for n in MULTIMG_INDS]
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bp, bl = gather_patches_multimg(padded, inds, ps, stats, masks)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {k.name: k.launches for k in ops.KERNELS}
+    hp, hl = gather_patches_multimg([p.cpu() for p in padded], inds, ps,
+                                    stats, masks)
+    for j, n in enumerate(MULTIMG_INDS):
+        if n == 0:
+            check(bp[j] == [] and bl[j] == [] and hp[j] == [],
+                  f"gather_patches_multimg: subject {j} is empty")
+        else:
+            check(bp[j].shape == (n,) + ps[:2] + (2,)
+                  and torch.equal(bp[j].cpu(), hp[j])
+                  and np.array_equal(bl[j], hl[j]),
+                  f"gather_patches_multimg: subject {j} card vs plain")
+    k2 = ops.gather.KERNEL.name
+    check(counts[k2] == sum(1 for n in MULTIMG_INDS if n)
+          and counts[ops.similarity.KERNEL.name] == 0,
+          f"gather_patches_multimg launches {counts}")
+    return {"counts": counts, "seconds": secs,
+            "patches": int(sum(MULTIMG_INDS))}
+
+
+def rank3_probe_prime():
+    """``wait_device`` on the card exits 0 on its first probe (a
+    subprocess matmul on ``cuda``; a retry would print "unresponsive"),
+    and ``prime_cache.prime_builds`` finds every CUDA kernel and host
+    library already built (``wait_device --prime`` runs the same in a
+    subprocess, then the micro-campaigns, whose engine the multi phase
+    drives)."""
+    t0 = time.perf_counter()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        rc = wait_device.main(["--max-wait", "600", "--interval", "10"])
+    probe_s = time.perf_counter() - t0
+    builds = prime_cache.prime_builds()
+    want = {k.name for k in ops.KERNELS} | {
+        m.STEM for m in (slic_native, native_gather, crf_native)}
+    check(rc == 0 and "unresponsive" not in log.getvalue()
+          and set(builds) == want and set(builds.values()) == {"present"},
+          f"wait_device: rc {rc} ({log.getvalue()!r}); prime_cache "
+          f"builds {builds}")
+    return {"rc": rc, "probe_s": probe_s, "builds": builds,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_rank3(dev, seed=31):
+    """The 3-D path (module docstring): FC-DenseNet-103 at its published
+    width and depth, 3-D on 2 modalities, card vs host, its training rate
+    and whole-subject serving (launch counts zeroed just before and read
+    just after: neither kernel is on this path), then
+    ``gather_patches_multimg`` through K2, and the probe and priming."""
+    t0 = time.perf_counter()
+    spec = create_model("Tiramisu", nclass=2, input_shape=R3_TRAIN + (2,),
+                        dropout_rate=0.2)
+    host = init_cnn(spec, seed, device="cpu")
+    n_params = count_parameters(host)
+    check(n_params == R3_PARAMS and isinstance(host.first_conv,
+                                               torch.nn.Conv3d),
+          f"3-D FC-DenseNet-103: {n_params} parameters")
+    flops = dense_flops(spec, R3_TRAIN)
+    vol, lab = _r3_data(seed)
+    res = {"params": n_params, "gflop_per_64x64x32": flops / 1e9,
+           "gflop_per_32x32x32": dense_flops(spec, R3_PARITY) / 1e9}
+    ops.reset_launch_counts()
+    res["parity"] = rank3_parity(dev, spec, host, vol, lab, seed)
+    res["train"] = rank3_train_rate(dev, host, vol, lab, flops)
+    # the serving state: a refresh over the two training crops at decay
+    # 0.6, on the host
+    it = iter([_crops(vol, R3_TRAIN, [(0, 0, 0)]),
+               _crops(vol, R3_TRAIN, [(64, 64, 0)])])
+    with torch.no_grad():
+        bn = update_bn_stats(host, host.init_state(), lambda: next(it),
+                             iters=2, bn_decay=0.6)
+    res["serve"] = rank3_serve(dev, spec, host, bn, vol)
+    res["counts_path"] = {k.name: k.launches for k in ops.KERNELS}
+    check(not any(res["counts_path"].values()),
+          f"a kernel launched on the 3-D path: {res['counts_path']}")
+    res["multimg_gather"] = rank3_multimg_gather(dev)
+    res["probe_prime"] = rank3_probe_prime()
+    res["counts"] = res["multimg_gather"]["counts"]
+    res["seconds"] = time.perf_counter() - t0
+    print(f"rank-3 ok (3-D FC-DenseNet-103, {n_params} params, "
+          f"{flops / 1e9:.3f} GFLOP a 64x64x32x2 sub-volume; card above): "
+          + json.dumps(res))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5222,6 +5618,7 @@ def main() -> int:
     formats = timed("formats", phase_formats, dev,
                     kept["picks0"]["core-set"])
     del kept
+    rank3 = timed("rank3", phase_rank3, dev)
     phases, seconds, by_method, peaks, notes = {}, {}, {}, {}, {}
     for _, ph, sec, bym, pk, nt in (f32, bf16):
         phases.update(ph)
@@ -5325,7 +5722,10 @@ def main() -> int:
                          + db["counts"][n] + dm["counts"][n]
                          + cc["counts"][n] + cv["counts"][n]
                          + serving["counts"][n] + parallel["counts"][n]
-                         + analysis["counts"][n] + formats["counts"][n])
+                         + analysis["counts"][n] + formats["counts"][n]
+                         + rank3["counts"][n])
+        r["launches_multimg_gather"] = rank3["counts"][n]
+        r["launches_rank3_path"] = rank3["counts_path"][n]
         r["launches_formats"] = formats["counts"][n]
         r["at_formats"] = formats["round"]["kernels"][n]
         r["launches_serving"] = serving["counts"][n]
@@ -5353,6 +5753,18 @@ def main() -> int:
         if n == "rowmax_similarity":
             r["at_d16"] = dense["k1"]
             r["at_cls"] = cls["k1"]
+    rt, rs = rank3["train"], rank3["serve"]
+    print("rank-3 (3-D FC-DenseNet-103, card above): train steps/s at "
+          f"{R3_TRAIN} x {R3_BATCH} " + json.dumps(
+              {k: {d: rt[k][d]["steps_per_s"] for d in rt[k]} for k in rt})
+          + ", TFLOP/s " + json.dumps(
+              {k: {d: rt[k][d]["tflops"] for d in rt[k]} for k in rt})
+          + "; serving voxels/s " + json.dumps(
+              {k: rs[k]["voxels_per_s"]
+               for k in ("float32", "bfloat16", "int8")})
+          + ", TFLOP/s " + json.dumps(
+              {k: rs[k]["tflops"] for k in ("float32", "bfloat16", "int8")})
+          + f"; rank-3 phase {rank3['seconds']:.3f} s")
     PHASE_S["total"] = time.perf_counter() - T_START
     print("phase seconds: " + json.dumps(PHASE_S))
     print(json.dumps({"phases": phases, "campaign_s": seconds,
@@ -5389,6 +5801,7 @@ def main() -> int:
                           "evaluator", "selectors", "nccl", "seconds",
                           "peak_bytes", "bytes_moved_between_devices")},
                       "analysis": analysis, "formats": formats,
+                      "rank3": rank3,
                       "phase_seconds": PHASE_S,
                       "multi": {"picks": multi["picks"],
                                 "resume": multi["resume"],

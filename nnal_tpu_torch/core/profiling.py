@@ -10,16 +10,24 @@ Library code deep in a strategy records named sub-spans with
 :func:`subphase`; the engine's ``PhaseTimer.commit_round`` drains them
 into the round's record under ``"sub"`` (the JAX package's layout), so no
 timer has to be threaded through the scoring call stack.
+
+:func:`annotate` names a range of a profiler timeline
+(``torch.profiler.record_function``) and :func:`device_trace` records one
+(``torch.profiler``, the card's kernels through CUPTI when the process
+uses CUDA) into a directory that TensorBoard's profiler plugin reads, as
+the JAX package's ``jax.profiler`` pair does (``profiling.py:78-94``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import time
 from typing import Dict, Optional
 
 import torch
+from torch.profiler import record_function
 
 from nnal_tpu_torch.core.device import resolve_device, synchronize
 
@@ -87,3 +95,30 @@ class PhaseTimer:
                 f.write(json.dumps(rec) + "\n")
         self.current = {}
         return rec
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str):
+    """Profile the block into ``log_dir`` (``<host>_<pid>.<time>.pt.
+    trace.json``, a Chrome trace that TensorBoard's profiler plugin and
+    Perfetto read): host ops always, the card's kernels when CUDA is
+    available.  Yields the ``torch.profiler.profile``."""
+    from torch.profiler import (
+        ProfilerActivity,
+        profile,
+        tensorboard_trace_handler,
+    )
+
+    os.makedirs(log_dir, exist_ok=True)
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        yield prof
+
+
+def annotate(name: str):
+    """A named range of the profiler timeline
+    (``torch.profiler.record_function``)."""
+    return record_function(name)

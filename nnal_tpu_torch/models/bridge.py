@@ -1,7 +1,8 @@
 """Weights across frameworks: the JAX package's params pytree
 ``{layer: {"W", "b", "gamma", "beta"}}`` (conv and transposed-conv W in
-HWIO, fc W as (in, out)) as numpy, and the port's ``state_dict``
-(``<layer>.weight`` in OIHW or (out, in), ``<layer>.bias``,
+HWIO, or DHWIO for a 3-D spec, fc W as (in, out)) as numpy, and the
+port's ``state_dict`` (``<layer>.weight`` in OIHW / OIDHW or (out, in),
+``<layer>.bias``,
 ``<layer>.gamma``, ``<layer>.beta``); and the BN running state
 ``{layer: {"mean", "var"}}``, the same dict in both packages.
 
@@ -25,11 +26,19 @@ import torch
 
 
 def _w_to_port(w: np.ndarray) -> np.ndarray:
-    if w.ndim == 4:                      # HWIO -> OIHW
-        return w.transpose(3, 2, 0, 1)
+    if w.ndim in (4, 5):                 # HWIO -> OIHW, DHWIO -> OIDHW
+        return w.transpose(w.ndim - 1, w.ndim - 2, *range(w.ndim - 2))
     if w.ndim == 2:                      # (in, out) -> (out, in)
         return w.T
     raise ValueError(f"unsupported weight rank {w.ndim}")
+
+
+def _w_to_jax(t: torch.Tensor) -> torch.Tensor:
+    if t.dim() in (4, 5):                # OIHW -> HWIO, OIDHW -> DHWIO
+        return t.permute(*range(2, t.dim()), 1, 0)
+    if t.dim() == 2:
+        return t.t()
+    raise ValueError(f"unsupported weight rank {t.dim()}")
 
 
 def from_jax_params(np_params: Mapping[str, Mapping[str, np.ndarray]]
@@ -82,12 +91,8 @@ def to_jax_tensors(state: Mapping[str, torch.Tensor]
         layer, _, kind = key.rpartition(".")
         t = t.detach()
         if kind in ("weight", "W_q"):
-            w = (t.permute(2, 3, 1, 0) if t.dim() == 4 else t.t()
-                 if t.dim() == 2 else None)
-            if w is None:
-                raise ValueError(f"unsupported weight rank {t.dim()}")
             out.setdefault(layer, {})[
-                "W" if kind == "weight" else kind] = w.contiguous()
+                "W" if kind == "weight" else kind] = _w_to_jax(t).contiguous()
         elif kind in ("bias", "gamma", "beta", "w_scale"):
             out.setdefault(layer, {})[
                 "b" if kind == "bias" else kind] = t.clone()

@@ -281,6 +281,20 @@ def load_opt_leaves(path: str) -> List[np.ndarray]:
     return [flat[k] for k in sorted(flat)]
 
 
+def restore_opt_state(path: str, optimizer: torch.optim.Optimizer,
+                      model: torch.nn.Module) -> torch.optim.Optimizer:
+    """Re-attach a checkpoint's ``opt/<i>`` leaves to ``optimizer`` over
+    ``model``'s parameters (``checkpoint.py:377-394``; JAX's takes a fresh
+    optax state of the same structure, the port's the optimizer that
+    holds it): a leaf count that does not fit raises ``ValueError``, and
+    a checkpoint without optimizer leaves leaves it as it was.  Returns
+    ``optimizer``."""
+    from nnal_tpu_torch.models.optim import load_opt_state
+
+    load_opt_state(optimizer, model, load_opt_leaves(path))
+    return optimizer
+
+
 def load_reference_h5(path: str, params_template: Dict) -> Dict:
     """Weights from the reference's HDF5 layout (``checkpoint.py:397-422``):
     a copy of the JAX-layout ``params_template`` (numpy) with each layer

@@ -1,16 +1,19 @@
 """CNN engine over a :class:`CNNSpec` (counterpart of ``nnal_tpu/models/cnn.py``).
 
 ``CNN`` is an ``nn.Module`` built from the same spec rows as the JAX
-package's ``init_cnn``/``apply_cnn``: 2-D conv, transposed-conv, max- and
-average-pool and fc layers in any ``op_order`` of main op (``M``), batch
-norm (``B``) and activation (``A``), with skip ``sources`` combined by
-``concat`` or ``sum`` (PW1, the VGG/AlexNet shapes, DenseNet2B and the
-dense FC-DenseNet-103 "Tiramisu"), with or without the aleatoric head.
-3-D (rank-3) specs raise.
+package's ``init_cnn``/``apply_cnn``: 2-D or 3-D conv, transposed-conv,
+max- and average-pool and fc layers in any ``op_order`` of main op
+(``M``), batch norm (``B``) and activation (``A``), with skip ``sources``
+combined by ``concat`` or ``sum`` (PW1, the VGG/AlexNet shapes, DenseNet2B
+and the dense FC-DenseNet-103 "Tiramisu" at rank 2 or 3), with or without
+the aleatoric head.
 
 Semantics kept from the JAX package:
-* public inputs are channels-last ``(b, d1, d2, C)``; internally the module
-  runs NCHW (``forward(..., nchw=True)`` skips the transpose);
+* public inputs are channels-last ``(b, d1, d2, C)`` or, for a rank-3
+  spec, ``(b, d1, d2, d3, C)``; internally the module runs channels-first
+  (NCHW / NCDHW, JAX's first spatial dim as torch's D;
+  ``forward(..., nchw=True)`` skips the transpose).  Every spatial rule
+  below holds per spatial dim at either rank;
 * ``SAME`` convolution and pool padding is XLA's: ``total = max((out-1)
   * s + k - n, 0)``, ``lo = total // 2`` — for the 2x2 stride-2 pools on
   odd sizes (25 -> 13 -> 7) that is one ``-inf`` row/column at the END
@@ -21,7 +24,7 @@ Semantics kept from the JAX package:
   b)`` by XLA's transpose rule (``(2, 1)`` for 3x3 stride 2 SAME) and
   convolved with the UNflipped kernel.  That is ``conv_transpose2d`` with
   the kernel flipped, cropped to ``[k-1-a, k-1-a + out)``.  Its weight is
-  held in the conv layout ``(out, in, kh, kw)`` (the JAX kernel's HWIO
+  held in the conv layout ``(out, in, k...)`` (the JAX kernel's HWIO
   transposed like a conv's), so the bridge, the anchors' per-output int8
   axis and the optimizer's moments treat it as any conv weight; the
   forward transposes and flips it;
@@ -38,15 +41,15 @@ Semantics kept from the JAX package:
   eps is 1e-5.  ``gamma`` / ``beta`` are parameters of the layer's module
   (``<layer>.gamma``), the running state a separate ``{layer: {"mean",
   "var"}}`` dict, as the JAX package keeps it;
-* fc layers flatten in (h, w, c) order, so the activation is permuted to
-  channels-last before the first fc;
+* fc layers flatten in (h, w, c) (or (d, h, w, c)) order, so the
+  activation is permuted to channels-last before the first fc;
 * dropout (drop probability) follows every layer with ``dropout > 0`` —
   for PW1 fc1, fc2 and the linear head fc3, for the Tiramisu every dense
   block and transition conv — when ``train`` or ``mc_dropout`` (dropout
   alone, for MC-dropout scoring passes, ``cnn.py:181-193``) and a
   generator are given; ``feature`` is the feature layer's output after it
-  (flattened channels-last, or for an fcn spec the per-pixel ``(b, H, W,
-  C)`` map).  The mask is JAX's ``bernoulli``: ``u < keep`` for ``u``
+  (flattened channels-last, or for an fcn spec the per-pixel
+  channels-last map).  The mask is JAX's ``bernoulli``: ``u < keep`` for ``u``
   uniform in f32 over the channels-last shape and ``keep = 1 - rate``,
   then ``where(mask, h / keep, 0)`` at ``h``'s dtype (bf16 on bf16
   sweeps).  The uniforms come from :func:`_dropout_uniform`, the one place
@@ -69,10 +72,11 @@ Semantics kept from the JAX package:
   per-output ``w_scale`` in place of its ``weight`` (``models/quant``)
   runs the int8 branch (``_int8_main``, ``cnn.py:301-331``): the layer
   input is quantized per tensor (:func:`_quantize_act`), a conv's is
-  unfolded (im2col of the int8 codes, at the module's and ``pad_input``'s
-  SAME padding), and the int8 x int8 products are summed in int32 by
-  :func:`int8_matmul` (``torch._int_mm`` on the card, exact integer sums
-  through f32 GEMMs on the host); the accumulator is rescaled by ``s_x *
+  unfolded (im2col of the int8 codes over every spatial dim, at the
+  module's and ``pad_input``'s SAME padding), and the int8 x int8
+  products are summed in int32 by :func:`int8_matmul` (``torch._int_mm``
+  on the card, exact integer sums through f32 GEMMs on the host); the
+  accumulator is rescaled by ``s_x *
   w_scale`` and the bias added as one fused multiply-add, as the jitted
   XLA program computes it, then rounded to the incoming dtype (under
   bf16 the bias is rounded to bf16 first, as ``cast_float_params`` does).
@@ -108,19 +112,36 @@ _ACTS = {"relu": F.relu, "elu": F.elu, "tanh": torch.tanh, "gelu": F.gelu,
          "identity": lambda x: x}
 
 
-def conv2d_f32acc(h, W, stride, padding) -> torch.Tensor:
-    """``conv(h, W)`` of same-dtype low-precision operands with an f32
-    result — ``make_conv_f32acc`` (``cnn.py:265-300``).  That custom VJP
-    exists only to make JAX's transpose legal; here the backward is
-    autograd's, and it gets a bf16 cotangent as that VJP arranges.  On the
-    host the operands are upcast: bf16 x bf16 products are exact in f32,
-    so this is f32 accumulation rounded once, the JAX semantics.  On the
-    card cuDNN runs bf16 on the tensor cores with f32 accumulation and
-    returns bf16, so the sum is rounded before the caller adds its bias
-    (a second rounding; ROADMAP Queue 3)."""
+def to_channels_first(x: torch.Tensor) -> torch.Tensor:
+    """``(b, *spatial, c)`` -> ``(b, c, *spatial)``."""
+    return x.movedim(-1, 1)
+
+
+def to_channels_last(h: torch.Tensor) -> torch.Tensor:
+    """``(b, c, *spatial)`` -> ``(b, *spatial, c)``."""
+    return h.movedim(1, -1)
+
+
+def conv_nd(h: torch.Tensor):
+    """``F.conv2d`` or ``F.conv3d`` for channels-first ``h``."""
+    return F.conv3d if h.dim() == 5 else F.conv2d
+
+
+def conv_f32acc(h, W, stride, padding) -> torch.Tensor:
+    """``conv(h, W)`` (2-D or 3-D by ``h``'s rank) of same-dtype
+    low-precision operands with an f32 result -- ``make_conv_f32acc``
+    (``cnn.py:265-300``).  That custom VJP exists only to make JAX's
+    transpose legal; here the backward is autograd's, and it gets a bf16
+    cotangent as that VJP arranges.  On the host the operands are upcast:
+    bf16 x bf16 products are exact in f32, so this is f32 accumulation
+    rounded once, the JAX semantics.  On the card cuDNN runs bf16 on the
+    tensor cores with f32 accumulation and returns bf16, so the sum is
+    rounded before the caller adds its bias (a second rounding; ROADMAP
+    Queue 3)."""
+    conv = conv_nd(h)
     if h.device.type == "cuda":
-        return F.conv2d(h, W, None, stride, padding).float()
-    return F.conv2d(h.float(), W.float(), None, stride, padding)
+        return conv(h, W, None, stride, padding).float()
+    return conv(h.float(), W.float(), None, stride, padding)
 
 
 class _MmF32Acc(torch.autograd.Function):
@@ -149,7 +170,7 @@ def linear_f32acc(h, W) -> torch.Tensor:
     """``h @ W.T`` of same-dtype low-precision operands with an f32 result
     (``jnp.dot(..., preferred_element_type=f32)``): on the card through
     :class:`_MmF32Acc`, on the host by upcasting, as in
-    :func:`conv2d_f32acc`."""
+    :func:`conv_f32acc`."""
     if h.device.type == "cuda":
         return _MmF32Acc.apply(h, W)
     return h.float() @ W.float().t()
@@ -220,15 +241,15 @@ def _rescale_int8(acc, s_x, w_scale, bias, dt) -> torch.Tensor:
 
 
 def _int8_main(layer, mod, h: torch.Tensor, dt) -> torch.Tensor:
-    """The int8 branch of a quantized conv (NCHW ``h``, already padded by
-    ``pad_input`` where the module does not pad itself) or fc layer, in
-    row chunks of about ``_INT8_CHUNK_BYTES``.  Its parts run under
-    ``int8/quantize``, ``int8/im2col``, ``int8/int_mm`` and
-    ``int8/rescale`` profiler ranges (a profile of a sweep splits its
-    device time by them)."""
+    """The int8 branch of a quantized conv (channels-first ``h`` of rank 2
+    or 3, already padded by ``pad_input`` where the module does not pad
+    itself) or fc layer, in row chunks of about ``_INT8_CHUNK_BYTES``.
+    Its parts run under ``int8/quantize``, ``int8/im2col``,
+    ``int8/int_mm`` and ``int8/rescale`` profiler ranges (a profile of a
+    sweep splits its device time by them)."""
     bias = mod.bias.to(dt)
     if layer.kind == "fc" and h.dim() > 2:
-        h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
+        h = to_channels_last(h).reshape(h.shape[0], -1)
     with record_function("int8/quantize"):
         q, s_x = _quantize_act(h)
     wmat = mod.W_q.reshape(mod.W_q.shape[0], -1)
@@ -242,26 +263,30 @@ def _int8_main(layer, mod, h: torch.Tensor, dt) -> torch.Tensor:
             with record_function("int8/rescale"):
                 outs.append(_rescale_int8(acc, s_x, mod.w_scale, bias, dt))
         return torch.cat(outs) if len(outs) > 1 else outs[0]
-    ph, pw = mod.padding
-    (kh, kw), (sh, sw) = layer.ksize, layer.strides
-    b, _, hh, ww = q.shape
-    ho = (hh + 2 * ph - kh) // sh + 1
-    wo = (ww + 2 * pw - kw) // sw + 1
-    step = max(1, _INT8_CHUNK_BYTES // (ho * wo * (k + 12 * n_out)))
+    rank = q.dim() - 2
+    pads, ks, ss = mod.padding, layer.ksize, layer.strides
+    osz = tuple((q.shape[2 + d] + 2 * pads[d] - ks[d]) // ss[d] + 1
+                for d in range(rank))
+    step = max(1, _INT8_CHUNK_BYTES // (int(np.prod(osz))
+                                        * (k + 12 * n_out)))
+    # (b, o..., c, k...): the (c, k...) feature order of W_q's rows
+    order = (0, *range(2, 2 + rank), 1, *range(2 + rank, 2 + 2 * rank))
     outs = []
-    for lo in range(0, b, step):
+    for lo in range(0, q.shape[0], step):
         with record_function("int8/im2col"):
             blk = q[lo:lo + step]
-            if ph or pw:
-                blk = F.pad(blk, (pw, pw, ph, ph))
-            cols = blk.unfold(2, kh, sh).unfold(3, kw, sw).permute(
-                0, 2, 3, 1, 4, 5).reshape(-1, k)    # (c, kh, kw) features
+            if any(pads):
+                blk = F.pad(blk, [p for d in reversed(range(rank))
+                                  for p in (pads[d], pads[d])])
+            for d in range(rank):
+                blk = blk.unfold(2 + d, ks[d], ss[d])
+            cols = blk.permute(order).reshape(-1, k)
         with record_function("int8/int_mm"):
             acc = int8_matmul(cols, wmat)
         with record_function("int8/rescale"):
             y = _rescale_int8(acc, s_x, mod.w_scale, bias, dt)
-        outs.append(y.reshape(blk.shape[0], ho, wo, n_out).permute(
-            0, 3, 1, 2))
+        outs.append(to_channels_first(y.reshape(blk.shape[0], *osz,
+                                                n_out)))
     return torch.cat(outs) if len(outs) > 1 else outs[0]
 
 
@@ -276,12 +301,12 @@ def _same_pad(n, k, s) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def _pads_for(layer, hw) -> Tuple[int, int, int, int]:
-    """``F.pad`` widths (w_lo, w_hi, h_lo, h_hi) of a SAME layer on
-    spatial size ``hw``."""
-    (kh, kw), (sh, sw) = layer.ksize, layer.strides
-    ph, pw = _same_pad(hw[0], kh, sh), _same_pad(hw[1], kw, sw)
-    return (pw[0], pw[1], ph[0], ph[1])
+def _pads_for(layer, spatial) -> Tuple[int, ...]:
+    """``F.pad`` widths of a SAME layer on spatial size ``spatial``: (lo,
+    hi) per spatial dim, the last dim first."""
+    return tuple(p for d in reversed(range(len(spatial)))
+                 for p in _same_pad(spatial[d], layer.ksize[d],
+                                    layer.strides[d]))
 
 
 def _conv_transpose_pad(k: int, s: int, padding: str) -> Tuple[int, int]:
@@ -346,9 +371,9 @@ def _bn_width(layer, in_c: int, in_d: int) -> int:
 
 
 def _check_supported(spec: CNNSpec) -> None:
-    if spec.spatial_rank != 2:
-        raise NotImplementedError(
-            "model: only 2-D specs are ported (3-D specs: ROADMAP Queue 1)")
+    if spec.spatial_rank not in (2, 3):
+        raise ValueError(f"model: spatial rank {spec.spatial_rank} (2-D "
+                         "and 3-D specs run)")
     for layer in spec.layers:
         if layer.kind not in ("conv", "convT", "pool", "avgpool", "fc"):
             raise NotImplementedError(f"model: layer kind {layer.kind!r}")
@@ -358,7 +383,7 @@ def _dropout_uniform(shape, generator: torch.Generator, device,
                      layer_index: int) -> torch.Tensor:
     """The f32 uniforms of one dropout mask, drawn from ``generator`` in
     layer order, over the CHANNELS-LAST ``shape`` that JAX's ``bernoulli``
-    draws (the caller permutes a conv layer's to NCHW).  ``layer_index``
+    draws (the caller moves a conv layer's channels first).  ``layer_index``
     is the spec row, the tag JAX folds into its dropout key (``fold_in(key,
     i)``, ``cnn.py:230``); the port's own stream does not need it, a test
     that feeds JAX's draws does."""
@@ -366,35 +391,44 @@ def _dropout_uniform(shape, generator: torch.Generator, device,
                       dtype=torch.float32)
 
 
-def _center_crop(x: torch.Tensor, hw) -> torch.Tensor:
-    """Crop NCHW ``x``'s spatial dims to ``hw`` around the center
-    (``cnn.py:159-169``)."""
-    lo_h = (x.shape[2] - hw[0]) // 2
-    lo_w = (x.shape[3] - hw[1]) // 2
-    return x[:, :, lo_h:lo_h + hw[0], lo_w:lo_w + hw[1]]
+def _center_crop(x: torch.Tensor, spatial) -> torch.Tensor:
+    """Crop channels-first ``x``'s spatial dims to ``spatial`` around the
+    center (``cnn.py:159-169``)."""
+    idx = [slice(None), slice(None)]
+    for d, n in enumerate(spatial):
+        lo = (x.shape[2 + d] - n) // 2
+        idx.append(slice(lo, lo + n))
+    return x[tuple(idx)]
 
 
 def _channel_view(t: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """A per-channel vector shaped to broadcast over NCHW or (b, d) ``h``."""
-    return t.view(-1, 1, 1) if h.dim() == 4 else t
+    """A per-channel vector shaped to broadcast over channels-first or (b,
+    d) ``h``."""
+    return t.view((-1,) + (1,) * (h.dim() - 2))
 
 
 def _batch_norm(h, gamma, beta, stats, train: bool, decay: float,
-                eps: float = 1e-3):
-    """``_batch_norm`` (``cnn.py:371-394``) on NCHW or (b, d) ``h``.
-    ``stats`` is the layer's running ``{"mean", "var"}`` (f32) or None.
-    Batch statistics are the biased ones, reduced in f32 and rounded to
-    ``h``'s dtype (``jnp.mean`` / ``jnp.var`` upcast a bf16 input); the
-    normalization runs at ``h``'s dtype.  Returns ``(out, new_stats)``:
-    the stats moved toward the batch's at ``decay`` when ``train`` and
-    ``stats`` are given, else ``stats`` as it was."""
+                eps: float = 1e-3, reduce=None):
+    """``_batch_norm`` (``cnn.py:371-394``) on channels-first or (b, d)
+    ``h``.  ``stats`` is the layer's running ``{"mean", "var"}`` (f32) or
+    None.  Batch statistics are the biased ones, reduced in f32 and
+    rounded to ``h``'s dtype (``jnp.mean`` / ``jnp.var`` upcast a bf16
+    input); the normalization runs at ``h``'s dtype.  ``reduce`` (the
+    sharded step's, ``parallel/sharding``) turns this process's mean and
+    centered mean square into the global batch's.  Returns ``(out,
+    new_stats)``: the stats moved toward the batch's at ``decay`` when
+    ``train`` and ``stats`` are given, else ``stats`` as it was."""
     dt = h.dtype
-    dims = (0, 2, 3) if h.dim() == 4 else (0,)
+    dims = (0,) + tuple(range(2, h.dim()))
     if train or stats is None:
         h32 = h.float()
         m32 = h32.mean(dim=dims, keepdim=True)
+        if reduce is not None:
+            m32 = reduce(m32)
         mean = m32.reshape(-1)
         var = torch.square(h32 - m32).mean(dim=dims)
+        if reduce is not None:
+            var = reduce(var)
         mean, var = mean.to(dt), var.to(dt)
     else:
         mean, var = stats["mean"].to(dt), stats["var"].to(dt)
@@ -414,7 +448,7 @@ def _batch_norm(h, gamma, beta, stats, train: bool, decay: float,
 
 class ConvT(nn.Module):
     """A transposed conv's parameters: ``weight`` in the conv layout
-    ``(out, in, kh, kw)`` and ``bias`` (module docstring)."""
+    ``(out, in, k...)`` and ``bias`` (module docstring)."""
 
     def __init__(self, in_c: int, out_c: int, ksize, strides):
         super().__init__()
@@ -440,13 +474,14 @@ class CNN(nn.Module):
         for layer, (in_c, in_d, _) in zip(spec.layers, _trace_channels(spec)):
             out_c = layer.out if layer.out is not None else in_c
             if layer.kind == "conv":
-                (kh, kw), (sh, sw) = layer.ksize, layer.strides
+                ks, ss = tuple(layer.ksize), tuple(layer.strides)
                 # odd kernels at stride 1 pad SAME symmetrically in the
                 # module; other SAME convs pad in ``pad_input``
-                sym = ((kh - 1) // 2, (kw - 1) // 2) if (
-                    layer.padding == "SAME" and (sh, sw) == (1, 1)
-                    and kh % 2 and kw % 2) else (0, 0)
-                mod = nn.Conv2d(in_c, out_c, (kh, kw), (sh, sw), padding=sym)
+                sym = tuple((k - 1) // 2 for k in ks) if (
+                    layer.padding == "SAME" and set(ss) == {1}
+                    and all(k % 2 for k in ks)) else (0,) * len(ks)
+                conv = nn.Conv3d if len(ks) == 3 else nn.Conv2d
+                mod = conv(in_c, out_c, ks, ss, padding=sym)
             elif layer.kind == "convT":
                 mod = ConvT(in_c, out_c, layer.ksize, layer.strides)
             elif layer.kind in ("pool", "avgpool"):
@@ -472,12 +507,12 @@ class CNN(nn.Module):
                 for name, w in self._bn_widths.items()}
 
     def pad_input(self, layer, h: torch.Tensor) -> torch.Tensor:
-        """NCHW ``h`` with the SAME padding a conv (zeros, where its
-        module does not pad itself) or a pool (``-inf`` for max, zeros for
-        average) takes at ``h``'s own spatial size."""
+        """Channels-first ``h`` with the SAME padding a conv (zeros, where
+        its module does not pad itself) or a pool (``-inf`` for max, zeros
+        for average) takes at ``h``'s own spatial size."""
         if layer.padding != "SAME" or (
                 layer.kind == "conv"
-                and getattr(self, layer.name).padding != (0, 0)):
+                and any(getattr(self, layer.name).padding)):
             return h
         pads = _pads_for(layer, h.shape[2:])
         if not any(pads):
@@ -486,7 +521,8 @@ class CNN(nn.Module):
                      else 0.0)
 
     def _main(self, layer, mod, h, dt):
-        """The layer's main op on NCHW (or flat) ``h`` at dtype ``dt``."""
+        """The layer's main op on channels-first (or flat) ``h`` at dtype
+        ``dt``."""
         if layer.kind in ("conv", "pool", "avgpool"):
             h = self.pad_input(layer, h)
         if getattr(mod, "W_q", None) is not None:
@@ -494,21 +530,22 @@ class CNN(nn.Module):
         if layer.kind == "conv":
             if dt.itemsize >= 4:               # f32, or an f64 reference
                 return mod(h)
-            return (conv2d_f32acc(h, mod.weight.to(dt), mod.stride,
-                                  mod.padding)
-                    + mod.bias.to(dt)[:, None, None]).to(dt)
+            return (conv_f32acc(h, mod.weight.to(dt), mod.stride,
+                                mod.padding)
+                    + _channel_view(mod.bias.to(dt), h)).to(dt)
         if layer.kind == "convT":
             return self._conv_transpose(layer, mod, h, dt)
         if layer.kind == "pool":
-            return F.max_pool2d(h, layer.ksize, layer.strides)
+            pool = F.max_pool3d if h.dim() == 5 else F.max_pool2d
+            return pool(h, layer.ksize, layer.strides)
         if layer.kind == "avgpool":
             # a window sum over the zero-padded input over the full window
             # size, as ``reduce_window(add) / prod(ksize)`` (``:356-361``)
-            s = F.avg_pool2d(h, layer.ksize, layer.strides,
-                             divisor_override=1)
+            pool = F.avg_pool3d if h.dim() == 5 else F.avg_pool2d
+            s = pool(h, layer.ksize, layer.strides, divisor_override=1)
             return s / h.new_full((), float(np.prod(layer.ksize)))
         if h.dim() > 2:
-            h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
+            h = to_channels_last(h).reshape(h.shape[0], -1)
         if dt.itemsize >= 4:
             return mod(h)
         return (linear_f32acc(h, mod.weight.to(dt)) + mod.bias.to(dt)).to(dt)
@@ -517,30 +554,31 @@ class CNN(nn.Module):
     def _conv_transpose(layer, mod, h, dt):
         """``lax.conv_transpose`` (module docstring): the full transposed
         conv of the flipped kernel, cropped (or zero-extended) by ``F.pad``
-        to XLA's window, plus the bias at ``h``'s dtype."""
-        w = mod.weight.transpose(0, 1).flip(2, 3)
+        to XLA's window per spatial dim, plus the bias at ``h``'s dtype."""
+        rank = h.dim() - 2
+        w = mod.weight.transpose(0, 1).flip(tuple(range(2, 2 + rank)))
+        conv_t = F.conv_transpose3d if rank == 3 else F.conv_transpose2d
         if dt.itemsize >= 4 or h.device.type == "cuda":
-            y = F.conv_transpose2d(h, w.to(dt), None, mod.stride)
+            y = conv_t(h, w.to(dt), None, mod.stride)
         else:
             # the host's bf16 transposed conv: f32 sums rounded once
-            y = F.conv_transpose2d(h.float(), w.float(), None,
-                                   mod.stride).to(dt)
+            y = conv_t(h.float(), w.float(), None, mod.stride).to(dt)
         pads = []
-        for d in (1, 0):                   # F.pad's order: w, then h
+        for d in reversed(range(rank)):    # F.pad's order: the last dim first
             k, s = layer.ksize[d], layer.strides[d]
             lo, _ = _conv_transpose_pad(k, s, layer.padding)
             n_out = h.shape[2 + d] * s
             off = k - 1 - lo
             pads += [-off, off + n_out - y.shape[2 + d]]
         y = F.pad(y, pads)
-        return y + mod.bias.to(dt)[:, None, None]
+        return y + _channel_view(mod.bias.to(dt), y)
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 nchw: bool = False, mc_dropout: bool = False,
                 state: Optional[Dict] = None,
                 bn_decay: float = 0.999,
-                keep_probes: bool = False) -> CNNOutput:
+                keep_probes: bool = False, shard=None) -> CNNOutput:
         """``apply_cnn`` (``cnn.py:180-252``).  ``train`` turns on dropout
         (with a ``generator``) and BN batch statistics; ``state`` holds the
         BN running statistics, which eval mode normalizes with and which
@@ -549,11 +587,15 @@ class CNN(nn.Module):
         outputs of the layers in ``spec.probes`` (channels-last, after
         dropout) under ``probes``, keyed by layer name; JAX's jitted
         callers drop the probes they do not read, so they are kept only
-        on request here."""
-        h = x if nchw else x.permute(0, 3, 1, 2)
+        on request here.  ``shard`` is one process's part of a sharded
+        step (``parallel/sharding._Shard``): it runs the split fc layers'
+        main op, reduces the batch-norm statistics over the global batch
+        and cuts the global batch's dropout draws to this process."""
+        h = x if nchw else to_channels_first(x)
         dt = h.dtype
         feature = None
         use_dropout = (train or mc_dropout) and generator is not None
+        draw = _dropout_uniform if shard is None else shard.dropout_uniform
         new_state = {} if state is not None else None
         probes = {} if keep_probes else None
         outputs: Dict[str, torch.Tensor] = {}
@@ -561,9 +603,9 @@ class CNN(nn.Module):
             if layer.sources:
                 srcs = [outputs[s] for s in layer.sources]
                 if layer.combine == "concat":
-                    hw = (min(s.shape[2] for s in srcs),
-                          min(s.shape[3] for s in srcs))
-                    h = torch.cat([_center_crop(s, hw) for s in srcs], dim=1)
+                    sp = tuple(min(s.shape[d] for s in srcs)
+                               for d in range(2, srcs[0].dim()))
+                    h = torch.cat([_center_crop(s, sp) for s in srcs], dim=1)
                 else:
                     h = srcs[0]
                     for s in srcs[1:]:
@@ -572,24 +614,26 @@ class CNN(nn.Module):
             ops = "M" if layer.kind in ("pool", "avgpool") else layer.op_order
             for op in ops:
                 if op == "M":
-                    h = self._main(layer, mod, h, dt)
+                    h = (self._main(layer, mod, h, dt) if shard is None
+                         else shard.main(self, layer, mod, h, dt))
                 elif op == "B":
                     h, st = _batch_norm(
                         h, mod.gamma, mod.beta,
                         None if state is None else state.get(layer.name),
-                        train, bn_decay)
+                        train, bn_decay,
+                        reduce=None if shard is None else shard.bn_reduce)
                     if new_state is not None and st is not None:
                         new_state[layer.name] = st
                 elif op == "A":
                     h = self.act(h)
             if layer.dropout > 0 and use_dropout:
                 keep = 1.0 - layer.dropout
-                if h.dim() == 4:
-                    b, c, hh, ww = h.shape
-                    u = _dropout_uniform((b, hh, ww, c), generator, h.device,
-                                         i).permute(0, 3, 1, 2)
+                if h.dim() > 2:
+                    u = to_channels_first(draw(
+                        tuple(to_channels_last(h).shape), generator,
+                        h.device, i))
                 else:
-                    u = _dropout_uniform(h.shape, generator, h.device, i)
+                    u = draw(tuple(h.shape), generator, h.device, i)
                 # a tensor divisor at h's dtype: JAX divides by the weakly
                 # typed keep rounded to h's dtype, and torch would turn a
                 # Python-scalar divisor into a reciprocal multiply
@@ -598,13 +642,13 @@ class CNN(nn.Module):
             if layer.name in self._kept:
                 outputs[layer.name] = h
             if keep_probes and i in self.spec.probes:
-                probes[layer.name] = (h.permute(0, 2, 3, 1) if h.dim() == 4
+                probes[layer.name] = (to_channels_last(h) if h.dim() > 2
                                       else h)
             if i == self.spec.feature_layer:
-                f = h.permute(0, 2, 3, 1) if h.dim() == 4 else h
+                f = to_channels_last(h) if h.dim() > 2 else h
                 feature = f if self.spec.fcn else f.reshape(f.shape[0], -1)
-        if h.dim() == 4:
-            h = h.permute(0, 2, 3, 1)
+        if h.dim() > 2:
+            h = to_channels_last(h)
         log_sigma = None
         if self.spec.aleatoric:
             h, log_sigma = h.chunk(2, dim=-1)
@@ -631,3 +675,11 @@ def init_cnn(spec: CNNSpec, seed: int, device=None) -> CNN:
                              * np.sqrt(2.0 / fan_in))
             mod.bias.zero_()
     return model.to(device)
+
+
+def count_parameters(model: CNN) -> int:
+    """Total parameter count (``cnn.py:396``): every entry of the model's
+    ``state_dict`` (weights, biases, BN gamma and beta, an int8 layer's
+    ``W_q`` and ``w_scale``); the BN running statistics are not
+    parameters, as in JAX."""
+    return int(sum(v.numel() for v in model.state_dict().values()))

@@ -13,8 +13,8 @@ and so does any layer named in ``keep_float``.
 replaced by ``W_q`` + ``w_scale``; it saves and loads through
 ``models/checkpoint`` with its int8 and f32 leaves exact), and
 :func:`quantized_cnn` builds the :class:`~nnal_tpu_torch.models.cnn.CNN`
-that serves it: each quantized conv or fc module holds ``W_q`` (OIHW or
-(out, in), int8) and ``w_scale`` as buffers in place of its ``weight``
+that serves it: each quantized conv or fc module holds ``W_q`` (OIHW,
+OIDHW or (out, in), int8) and ``w_scale`` as buffers in place of its ``weight``
 parameter, and its forward takes the int8 branch.  Serving only: the
 rounding has no gradient, so training and FIM scoring keep float models.
 """

@@ -9,6 +9,15 @@ with ``ctypes``.  Nothing builds at import time: the first launch builds, or
 :func:`build_all` builds every kernel at once with one ``nvcc`` process
 per source running in parallel.  A failed build raises with nvcc's
 stderr.
+
+``_build/`` is the port's counterpart of the JAX package's persistent XLA
+compilation cache (``nnal_tpu/core/compile_cache.py``): XLA compiles
+every program at run time and keeps it on disk under a key hashed from
+the program; the port compiles only its hand-written kernels and host
+libraries (``runtime/gxx`` builds into the same directory), and the hash
+of source and flags in each file name is that key.  Nothing else of that
+module has a role here (``NNAL_COMPILE_CACHE``, its directory switch,
+configures JAX); ``cli/prime_cache`` fills the directory ahead of a run.
 """
 
 from __future__ import annotations

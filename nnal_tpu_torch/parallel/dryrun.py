@@ -11,7 +11,9 @@ code against one process:
   gathered parameters and the loss within 1e-5 of one process's SGD step
   on the whole batch with the same dropout masks (a split sum rounds in
   another order, so bit identity is not to be had), then one Adam step
-  whose loss is finite;
+  whose loss is finite; the same on the data axis for a small
+  FC-DenseNet-103 (batch norm over the global batch, concat skips,
+  transposed convs, the per-pixel CE);
 * ``sharding.sharded_pool_topk`` bit-identical to one process's top-k,
   with tied scores;
 * one AL round over the data mesh: the entropy grid selector and fi's
@@ -154,7 +156,8 @@ def _plain_step(model, x, y, lr, key):
     opt = torch.optim.SGD(ref.parameters(), lr=lr)
     gen = None if key is None else core_rng.key_stream(key, x.device)
     logits = ref(x, train=True, generator=gen).logits
-    loss = (-(y * torch.log_softmax(logits, -1)).sum(-1)).sum() / x.shape[0]
+    per = -(y * torch.log_softmax(logits, -1)).sum(-1)
+    loss = per.sum() / per.numel()
     opt.zero_grad()
     loss.backward()
     opt.step()
@@ -291,6 +294,14 @@ def _dryrun_worker(rank, n, port, out_dir):
                     "tp2", report)
     dmesh = make_multihost_mesh(1, device="cpu")
     _check_step(model, dmesh, x, y, f"dp{n}", report)
+    dense = init_cnn(create_model("Tiramisu", nclass=2, dropout_rate=0.2,
+                                  input_shape=(8, 8, 2), growth=2,
+                                  depths=(2, 2)), 0, device="cpu")
+    xd = torch.as_tensor(rng.normal(size=(2 * n, 8, 8, 2)).astype(
+        np.float32))
+    yd = torch.nn.functional.one_hot(
+        torch.as_tensor(rng.integers(0, 2, size=(2 * n, 8, 8))), 2).float()
+    _check_step(dense, dmesh, xd, yd, f"dp{n}_bn_skip", report)
 
     # the sharded pool top-k, with every second patch repeated (ties)
     pool = torch.as_tensor(rng.normal(size=(8 * n, 15, 15, 2)).astype(

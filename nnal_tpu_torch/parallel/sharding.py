@@ -5,8 +5,15 @@ One process per cell of a process mesh (``multihost.make_multihost_mesh``):
 
 * **DP**: each data row holds its slice of the global batch; after the
   backward every gradient is summed over the data group (an
-  ``all_reduce``), the loss being the global batch mean, so each process
-  takes the step GSPMD derives from JAX's ``P("data")`` batch.
+  ``all_reduce``), the loss being the global batch mean (over every
+  pixel of a dense spec's per-pixel CE), so each process takes the step
+  GSPMD derives from JAX's ``P("data")`` batch.  Train-mode batch norm
+  normalizes by the GLOBAL batch's statistics, as GSPMD computes them for
+  that batch: each process's per-channel mean, then its mean of squares
+  centered on the global mean, are averaged over the data group by an
+  ``all_reduce`` whose backward is an ``all_reduce`` of the gradient, so
+  the gradient flows through the collective.  JAX's step passes no BN
+  state, so no running statistics move.
 * **TP**: the spec-CNN fc stack splits as JAX's PartitionSpecs say
   (``sharding.py:32-35``): ``fc1`` column-parallel (its output features:
   weight dim 0 of torch's ``(out, in)`` layout, and its bias), ``fc2``
@@ -20,11 +27,13 @@ One process per cell of a process mesh (``multihost.make_multihost_mesh``):
   of the candidates over the data group and a global top-k (ties to the
   lower index, as ``lax.top_k``).
 
-Dropout draws the GLOBAL batch's uniforms through
+The forward is ``CNN.forward`` itself with a :class:`_Shard` (the
+split fc layers' main op, the BN reduction, the dropout cut), so skip
+sources, batch norm, transposed convs and 3-D specs run as they do in one
+process.  Dropout draws the GLOBAL batch's uniforms through
 ``models/cnn._dropout_uniform`` (the seam the tests feed JAX's draws
 through) and each process keeps its rows, and ``fc1``'s its columns, so
-the masks are the single-process step's.  The step takes sequential
-specs (PW1, the VGG / AlexNet shapes): skip sources and batch norm raise.
+the masks are the single-process step's.
 """
 
 from __future__ import annotations
@@ -145,84 +154,96 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
-def _check_sequential(spec) -> None:
-    for layer in spec.layers:
-        if layer.sources or "B" in layer.op_order:
-            raise NotImplementedError(
-                "the sharded train step takes sequential specs without "
-                f"batch norm; layer {layer.name!r} has "
-                + ("skip sources" if layer.sources else "batch norm"))
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over a group, forward and backward: every process's loss
+    term depends on the summed value, so each one's gradient is the sum
+    of all of theirs."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
-def _sharded_forward(model, x, generator, rows, n_rows, mp, m, group):
-    """``CNN.forward(x, train=True)`` over this process's ``rows`` of an
-    ``n_rows`` global batch and its model-axis slice ``m`` of ``mp``:
-    the logits."""
-    h = x.permute(0, 3, 1, 2)
-    dt = h.dtype
-    for i, layer in enumerate(model.spec.layers):
-        mod = getattr(model, layer.name, None)
-        split = mp > 1 and layer.name in _TP_FC_PLAN
-        for op in ("M" if layer.kind in ("pool", "avgpool")
-                   else layer.op_order):
-            if op == "A":
-                h = model.act(h)
-            elif not split:
-                h = model._main(layer, mod, h, dt)
-            elif layer.name == "fc1":
-                if h.dim() > 2:
-                    h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
-                h = F.linear(_CopyToModel.apply(h, group), mod.weight,
-                             mod.bias)
-            else:
-                h = (_ReduceFromModel.apply(F.linear(h, mod.weight), group)
-                     + mod.bias)
-        if layer.dropout > 0 and generator is not None:
-            keep = 1.0 - layer.dropout
-            if h.dim() == 4:
-                b, c, hh, ww = h.shape
-                u = cnn_mod._dropout_uniform(
-                    (n_rows, hh, ww, c), generator, h.device, i
-                )[rows].permute(0, 3, 1, 2)
-            else:
-                width = h.shape[1] * (mp if split and layer.name == "fc1"
-                                      else 1)
-                u = cnn_mod._dropout_uniform((n_rows, width), generator,
-                                             h.device, i)[rows]
-                if split and layer.name == "fc1":
-                    u = u[:, m * h.shape[1]:(m + 1) * h.shape[1]]
-            h = torch.where(u < keep, h / h.new_full((), keep),
-                            torch.zeros_like(h))
-    if h.dim() == 4:
-        h = h.permute(0, 2, 3, 1)
-    return h if h.dtype == torch.float64 else h.float()
+class _Shard:
+    """One process's part of the sharded forward (``CNN.forward``'s
+    ``shard``): ``rows`` of an ``n_rows`` global batch on a data axis of
+    ``dp``, and slice ``m`` of a model axis of ``mp``."""
+
+    def __init__(self, spec, rows, n_rows, dp, mp, m, model_group,
+                 data_group):
+        self.layers = spec.layers
+        self.rows, self.n_rows = rows, n_rows
+        self.dp, self.mp, self.m = dp, mp, m
+        self.model_group, self.data_group = model_group, data_group
+
+    def _split(self, layer) -> bool:
+        return self.mp > 1 and layer.name in _TP_FC_PLAN
+
+    def main(self, model, layer, mod, h, dt):
+        if not self._split(layer):
+            return model._main(layer, mod, h, dt)
+        if layer.name == "fc1":
+            if h.dim() > 2:
+                h = cnn_mod.to_channels_last(h).reshape(h.shape[0], -1)
+            return F.linear(_CopyToModel.apply(h, self.model_group),
+                            mod.weight, mod.bias)
+        return (_ReduceFromModel.apply(F.linear(h, mod.weight),
+                                       self.model_group) + mod.bias)
+
+    def bn_reduce(self, t):
+        """The data group's mean of equal shards' statistics (a weight of
+        1 / dp, exact for a power of two, and 1 in a world of one, where
+        the step stays the plain one bit for bit)."""
+        return _AllReduceSum.apply(t * (1.0 / self.dp), self.data_group)
+
+    def dropout_uniform(self, shape, generator, device, i):
+        """This process's part of the global batch's channels-last
+        uniforms for the layer ``i`` output ``shape``."""
+        split = self._split(self.layers[i]) and self.layers[i].name == "fc1"
+        width = shape[-1] * (self.mp if split else 1)
+        u = cnn_mod._dropout_uniform((self.n_rows, *shape[1:-1], width),
+                                     generator, device, i)[self.rows]
+        return u[..., self.m * shape[-1]:(self.m + 1) * shape[-1]] \
+            if split else u
 
 
 def make_sharded_train_step(mesh, tensor_parallel: bool = True):
     """DP(+TP) train step over a process mesh: returns ``step(state, x,
     y, key) -> loss``, one optimizer step of ``state`` (a ``TrainState``
     whose model is this process's :func:`shard_params` copy) on this
-    process's rows ``x`` (channels last) and one-hots ``y`` of the global
-    batch (its data row's slice; every row of a data group holds the same
-    rows).  ``key`` keys the dropout (``core/rng.key_stream``; None: no
-    dropout).  The loss is the global batch's mean CE."""
+    process's rows ``x`` (channels last) and one-hots ``y`` (per pixel for
+    a dense spec) of the global batch (its data row's slice; every row of
+    a data group holds the same rows).  ``key`` keys the dropout
+    (``core/rng.key_stream``; None: no dropout).  The loss is the global
+    batch's mean CE (``cross_entropy``'s mean over rows and pixels)."""
     dp, mp = int(mesh.shape["data"]), int(mesh.shape["model"])
     if not tensor_parallel:
         mp = 1
 
     def step(state, x, y, key=None) -> torch.Tensor:
         model = state.model
-        _check_sequential(model.spec)
         d, m, _ = _cell(mesh)
         b = x.shape[0]
         n = b * dp
         rows = torch.arange(d * b, (d + 1) * b, device=x.device)
         gen = (None if key is None
                else core_rng.key_stream(key, x.device))
-        logits = _sharded_forward(model, x, gen, rows, n, mp, m,
-                                  mesh.group("model") if mp > 1 else None)
+        shard = _Shard(model.spec, rows, n, dp, mp, m,
+                       mesh.group("model") if mp > 1 else None,
+                       mesh.group("data"))
+        logits = model(x, train=True, generator=gen, shard=shard).logits
         per = -(y * torch.log_softmax(logits, dim=-1)).sum(-1)
-        loss = per.sum() / n
+        # the global mean over rows (and a dense spec's pixels)
+        loss = per.sum() / (n * per[0].numel())
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         data = mesh.group("data")

@@ -26,6 +26,7 @@ from nnal_tpu_torch.runtime.gxx import build_library
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                    "dense_crf.cc")
 GXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
+STEM = "dense_crf"
 
 _f32p = ctypes.POINTER(ctypes.c_float)
 _lock = threading.Lock()
@@ -43,7 +44,7 @@ def load() -> ctypes.CDLL:
         if _failure is not None:
             raise RuntimeError(_failure)
         try:
-            out = build_library(SRC, GXX_FLAGS, "dense_crf")
+            out = build_library(SRC, GXX_FLAGS, STEM)
         except RuntimeError as e:
             _failure = str(e)
             raise

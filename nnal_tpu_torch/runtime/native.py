@@ -4,7 +4,8 @@ host RAM (``data/loaders.py``).
 
 The library is built with ``g++`` on first use (``runtime/gxx``); a
 failed build raises ``RuntimeError`` with the compiler's message and is
-not retried.  The JAX package falls back to numpy instead.  The gather
+not retried (:func:`native_available` says whether it built).  The JAX
+package falls back to numpy instead.  The gather
 normalizes as ``(x - mu) * (1 / sd)`` in f32, the JAX package's host
 rule, which can sit one ulp from the card's ``(x - mu) / sd``.
 """
@@ -23,6 +24,7 @@ from nnal_tpu_torch.runtime.gxx import build_library
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                    "patch_gather.cc")
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-ffp-contract=off")
+STEM = "patch_gather"
 
 _f32p = ctypes.POINTER(ctypes.c_float)
 _i64p = ctypes.POINTER(ctypes.c_int64)
@@ -40,7 +42,7 @@ def load() -> ctypes.CDLL:
         if _failure is not None:
             raise RuntimeError(_failure)
         try:
-            lib = ctypes.CDLL(build_library(SRC, GXX_FLAGS, "patch_gather"))
+            lib = ctypes.CDLL(build_library(SRC, GXX_FLAGS, STEM))
         except RuntimeError as e:
             _failure = str(e)
             raise
@@ -48,6 +50,16 @@ def load() -> ctypes.CDLL:
         lib.gather_labels_f32.restype = None
         _lib = lib
         return lib
+
+
+def native_available() -> bool:
+    """True when the port's build of ``patch_gather.cc`` loads (``native.py
+    :47``); the gather itself still raises when it does not."""
+    try:
+        load()
+    except RuntimeError:
+        return False
+    return True
 
 
 def gather_patches_native(padded_vols: List[np.ndarray], inds, patch_shape,

@@ -23,6 +23,7 @@ from nnal_tpu_torch.runtime.gxx import build_library
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "slic.cc")
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-ffp-contract=off")
+STEM = "slic"
 
 _f64p = ctypes.POINTER(ctypes.c_double)
 _i32p = ctypes.POINTER(ctypes.c_int32)
@@ -42,7 +43,7 @@ def load() -> ctypes.CDLL:
         if _failure is not None:
             raise RuntimeError(_failure)
         try:
-            out = build_library(SRC, GXX_FLAGS, "slic")
+            out = build_library(SRC, GXX_FLAGS, STEM)
         except RuntimeError as e:
             _failure = str(e)
             raise
@@ -53,6 +54,16 @@ def load() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_double, ctypes.c_int, _i32p]
         _lib = lib
         return lib
+
+
+def slic_native_available() -> bool:
+    """True when the port's build of ``slic.cc`` loads (``slic_native.py
+    :54``); ``slic_2d_native`` itself still raises when it does not."""
+    try:
+        load()
+    except RuntimeError:
+        return False
+    return True
 
 
 def grid_seeds(img: np.ndarray, n_segments: int):

@@ -43,7 +43,13 @@ from torch.utils.checkpoint import checkpoint
 
 from nnal_tpu_torch.data.patches import gather_patches_normalized
 from nnal_tpu_torch.models.bridge import to_jax_tensors
-from nnal_tpu_torch.models.cnn import conv2d_f32acc, linear_f32acc
+from nnal_tpu_torch.models.cnn import (
+    conv_f32acc,
+    conv_nd,
+    linear_f32acc,
+    to_channels_first,
+    to_channels_last,
+)
 
 
 def grad_param_layers(model) -> List[str]:
@@ -75,7 +81,8 @@ def _cast_act(model, layer, z, cd):
 
 
 def _eps_layer(model, layer, h, E, li, cd=None):
-    """One eps-injected layer on NCHW ``h``; returns ``(h_out, li_out)``.
+    """One eps-injected layer on channels-first ``h`` (2-D or 3-D);
+    returns ``(h_out, li_out)``.
 
     ``wsum`` (the ones-filter conv, or the row sum of an fc input) is
     computed without autograd: its only path into the gradient is
@@ -87,30 +94,33 @@ def _eps_layer(model, layer, h, E, li, cd=None):
     its output, not its input, which is what the JAX package's
     ``_relu_save_output`` custom VJP arranges."""
     if layer.kind == "pool":
-        return F.max_pool2d(model.pad_input(layer, h), layer.ksize,
-                            layer.strides), li
+        pool = F.max_pool3d if h.dim() == 5 else F.max_pool2d
+        return pool(model.pad_input(layer, h), layer.ksize,
+                    layer.strides), li
     mod = getattr(model, layer.name)
     W, b = mod.weight.detach(), mod.bias.detach()
     if layer.kind == "conv":
         h = model.pad_input(layer, h)
+        conv = conv_nd(h)
+        bias = b.view((-1,) + (1,) * (h.dim() - 2))
         if cd is None:
-            z = F.conv2d(h, W, b, mod.stride, mod.padding)
+            z = conv(h, W, b, mod.stride, mod.padding)
         else:
-            z = (conv2d_f32acc(h, W.to(h.dtype), mod.stride, mod.padding)
-                 + b[:, None, None])
+            z = (conv_f32acc(h, W.to(h.dtype), mod.stride, mod.padding)
+                 + bias)
         with torch.no_grad():
             # the window sum over every input channel: the f32 channel sum,
             # then one 1 -> 1 channel ones conv (a C_in -> 1 conv runs as
             # an implicit GEMM that wastes almost all of its tile)
             ones = torch.ones((1, 1) + tuple(W.shape[2:]),
                               dtype=torch.float32, device=h.device)
-            wsum = F.conv2d(h.sum(1, keepdim=True, dtype=torch.float32),
-                            ones, None, mod.stride, mod.padding)
-        z = z + E[:, li].view(-1, 1, 1, 1) * (wsum + 1.0)
+            wsum = conv(h.sum(1, keepdim=True, dtype=torch.float32),
+                        ones, None, mod.stride, mod.padding)
+        z = z + E[:, li].view((-1,) + (1,) * (h.dim() - 1)) * (wsum + 1.0)
     elif layer.kind == "fc":
         if h.dim() > 2:
             # fc layers flatten channels-last, as models/cnn.py does
-            h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
+            h = to_channels_last(h).reshape(h.shape[0], -1)
         if cd is None:
             z = F.linear(h, W, b)
         else:
@@ -139,7 +149,8 @@ def _segments(layers):
 
 def _apply_with_eps(model, h, E, remat: bool = False, compute_dtype=None
                     ) -> torch.Tensor:
-    """f32 logits of the eps-injected forward on NCHW ``h`` (see the module
+    """f32 logits of the eps-injected forward on channels-first ``h`` (see
+    the module
     docstring).  ``remat=True`` checkpoints each segment that ends at a
     pool, so the backward keeps only the segment inputs and recomputes the
     convolutions inside."""
@@ -169,8 +180,9 @@ def shrunk_class_grads_with_logits(model, x: torch.Tensor,
     Classes 1..c-1 take one backward pass each; class 0 comes from the
     softmax zero-sum identity ``sum_c p_c grad(log p_c) = 0``, which holds
     per sample: ``g0 = -sum_{c>=1} p_c g_c / max(p0, 1e-12)``.  ``x`` is
-    channels-last ``(b, d1, d2, C)`` unless ``nchw``."""
-    h = x if nchw else x.permute(0, 3, 1, 2)
+    channels-last ``(b, d1, d2, C)`` or ``(b, d1, d2, d3, C)`` unless
+    ``nchw``."""
+    h = x if nchw else to_channels_first(x)
     nclass = model.spec.nclass
     sizes = torch.as_tensor(layer_sizes(model), dtype=torch.float32,
                             device=x.device)

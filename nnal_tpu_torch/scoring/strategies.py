@@ -139,6 +139,11 @@ def require_strategy(method_name: str) -> None:
                      f"available: {sorted(_STRATEGIES)}")
 
 
+def available_strategies() -> List[str]:
+    """The registered strategy names, sorted (``strategies.py:1014``)."""
+    return sorted(_STRATEGIES)
+
+
 def cnn_query(ctx: QueryContext, method_name: str) -> np.ndarray:
     """Dispatch (reference ``PW_NNAL.CNN_query``).  Returns positions into
     ``ctx.pool_inds``."""

@@ -139,8 +139,8 @@ def test_port_imports_no_jax_and_nothing_of_nnal_tpu():
     files = sorted((REPO / "nnal_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
-    # the multi-subject, dense, classification, serving, multi-device and
-    # data / library slices' modules are among the scanned
+    # the multi-subject, dense, classification, serving, multi-device,
+    # data / library and probe slices' modules are among the scanned
     scanned = {str(f.relative_to(REPO)) for f in files}
     assert {f"nnal_tpu_torch/{m}.py" for m in (
         "engine/multi_experiment", "engine/sequential", "runtime/native",
@@ -154,7 +154,8 @@ def test_port_imports_no_jax_and_nothing_of_nnal_tpu():
         "parallel/dryrun", "evaluation/analysis", "engine/analysis",
         "evaluation/registry", "evaluation/visualize", "data/formats",
         "data/io", "data/datasets", "cli/repeat_runs",
-        "models/branches")} <= scanned
+        "models/branches", "core/device_probe", "cli/wait_device",
+        "cli/prime_cache")} <= scanned
     banned = {"jax", "jaxlib", "optax", "flax", "nnal_tpu"}
     for f in files:
         for mod in _imported_modules(f):

@@ -17,7 +17,14 @@ package's, on the CPU:
   trunk and branch posteriors atol 1e-6, ``branch_input_shape``, and a
   replica that moves apart;
 * ``load_reference_h5`` / ``save_reference_h5``: files either package
-  writes read back bit-equal by both.
+  writes read back bit-equal by both;
+* the last names of the ported modules: ``models/cnn.count_parameters``
+  and ``scoring/strategies.available_strategies`` equal JAX's;
+  ``data/patches.gather_patches`` and ``gather_patches_multimg`` (K2's
+  plain version here) give JAX's patches and labels bit for bit;
+  ``runtime/native.native_available`` and ``slic_native_available`` are
+  true where g++ builds the sources; ``core/profiling.annotate`` names a
+  range of the trace ``device_trace`` writes.
 
 Tiny shapes; the h5 files are deleted with their ``tmp_path``.
 """
@@ -31,6 +38,7 @@ import optax
 import pytest
 import torch
 
+from nnal_tpu.data import patches as jpatches
 from nnal_tpu.models import branches as jbr
 from nnal_tpu.models import checkpoint as jckpt
 from nnal_tpu.models import losses as jl
@@ -40,6 +48,10 @@ from nnal_tpu.models.specs import CNNSpec as JSpec
 from nnal_tpu.models.specs import Layer as JLayer
 from nnal_tpu.models.specs import create_pw1 as j_pw1
 from nnal_tpu.models.train import make_train_step as j_make_train_step
+from nnal_tpu.models.cnn import count_parameters as j_count_parameters
+from nnal_tpu.scoring.strategies import available_strategies as j_available
+from nnal_tpu_torch.core import profiling as tprof
+from nnal_tpu_torch.data import patches as tpatches
 from nnal_tpu_torch.models import branches as tbr
 from nnal_tpu_torch.models import checkpoint as tckpt
 from nnal_tpu_torch.models import losses as tl
@@ -49,7 +61,11 @@ from nnal_tpu_torch.models.cnn import CNN
 from nnal_tpu_torch.models.specs import CNNSpec as TSpec
 from nnal_tpu_torch.models.specs import Layer as TLayer
 from nnal_tpu_torch.models.specs import create_pw1 as t_pw1
+from nnal_tpu_torch.models.cnn import count_parameters
 from nnal_tpu_torch.models.train import TrainState, make_train_step
+from nnal_tpu_torch.runtime import native as tnative
+from nnal_tpu_torch.runtime import slic_native as tslic
+from nnal_tpu_torch.scoring.strategies import available_strategies
 from test_torch_cls_model import _batch, _jitter, _pair
 from torch_jax_dense import dense_pair
 from torch_jax_draws import inject
@@ -328,3 +344,54 @@ def test_reference_h5_round_trip_both_ways(tmp_path):
             tckpt.load_reference_h5(path, template)
     finally:
         shutil.rmtree(tmp_path, ignore_errors=True)
+
+
+def test_count_parameters_and_available_strategies_match_jax():
+    jspec, params, model = _pair("DenseNet", 3, (16, 16, 3))
+    assert count_parameters(model) == j_count_parameters(params)
+    assert available_strategies() == j_available()
+
+
+def _subjects(n=3, seed=0):
+    rng = np.random.default_rng(seed)
+    shapes = [(9, 8, 5), (7, 10, 4), (8, 8, 6)][:n]
+    vols = [[rng.normal(size=s).astype(np.float32) for _ in range(2)]
+            for s in shapes]
+    masks = [(rng.uniform(size=s) < 0.4).astype(np.float32) for s in shapes]
+    return vols, masks
+
+
+def test_gather_patches_match_jax_bit_for_bit():
+    ps = (5, 5, 3)
+    vols, masks = _subjects()
+    jpad = [jpatches.pad_volumes(v, ps) for v in vols]
+    tpad = [tpatches.pad_volumes(v, ps, device="cpu") for v in vols]
+    inds = np.array([0, 17, 40, 99, 143], np.int64)
+    raw_j = np.asarray(jpatches.gather_patches(
+        jpad[0], jnp.asarray(inds), ps, (9, 8, 5)))
+    raw_t = tpatches.gather_patches(tpad[0], torch.as_tensor(inds), ps,
+                                    (9, 8, 5))
+    np.testing.assert_array_equal(raw_t.numpy(), raw_j)
+    stats = np.array([[0.1, 1.3, -0.2, 0.7], [0.0, 1.0, 0.3, 2.1],
+                      [-0.4, 0.9, 0.2, 1.1]])
+    img_inds = [inds, np.array([], np.int64), np.array([3, 5, 200])]
+    bj, lj = jpatches.gather_patches_multimg(jpad, img_inds, ps, stats,
+                                             masks)
+    bt, lt = tpatches.gather_patches_multimg(tpad, img_inds, ps, stats,
+                                             masks)
+    assert bt[1] == [] and lt[1] == [] and bj[1] == []
+    for j in (0, 2):
+        np.testing.assert_array_equal(bt[j].numpy(), np.asarray(bj[j]))
+        np.testing.assert_array_equal(lt[j], lj[j])
+    bt, lt = tpatches.gather_patches_multimg(tpad, img_inds, ps, stats)
+    assert lt == [[], [], []] and bt[0].shape == (5, 5, 5, 6)
+
+
+def test_native_available_and_profiling_names(tmp_path):
+    assert tnative.native_available() and tslic.slic_native_available()
+    with tprof.device_trace(str(tmp_path / "tb")) as prof:
+        with tprof.annotate("nnal/range"):
+            torch.ones(8) @ torch.ones(8)
+    assert any(e.key == "nnal/range" for e in prof.key_averages())
+    files = list((tmp_path / "tb").glob("*.pt.trace.json"))
+    assert len(files) == 1 and "nnal/range" in files[0].read_text()

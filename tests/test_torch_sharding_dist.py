@@ -9,16 +9,21 @@
   PW1 (dropout 0, SGD): parameters and loss within 1e-5 of JAX's
   ``make_sharded_train_step`` on the conftest's CPU mesh of the same
   shape.
+* A 2-process DP step (mesh 2 x 1) of a small FC-DenseNet-103 (batch
+  norm over the global batch, concat skips, transposed convs, the
+  per-pixel CE; dropout 0, SGD): parameters within 1e-5 of JAX's and of
+  one process's plain step on the whole batch, the loss within 1e-5
+  relative.
 * In one process, a world-size-1 group: ``init_distributed`` is
   idempotent, the sharded step with dropout equals a plain step on the
   same masks BIT FOR BIT (the check ``chip_smoke.py`` repeats on the
   card with ``nccl``), and ``sharded_pool_topk`` equals a plain top-k.
 * ``process_local_pool_slice`` equals JAX's for 1 and 3 processes, and
   ``make_multihost_mesh`` keeps the model axis on a host.
-* ``dryrun_multichip(2)`` passes: DP / TP steps within 1e-5 of one
-  process, the pool top-k, the AL round's selections, the fi PMF draws,
-  the sharded serving and the sharded evaluator bit-identical to one
-  process.
+* ``dryrun_multichip(2)`` passes: DP / TP steps (and the DP step of a
+  small FC-DenseNet-103 with dropout) within 1e-5 of one process, the
+  pool top-k, the AL round's selections, the fi PMF draws, the sharded
+  serving and the sharded evaluator bit-identical to one process.
 """
 
 import copy
@@ -33,6 +38,7 @@ import torch.distributed as dist
 from nnal_tpu.models.cnn import init_cnn as j_init_cnn
 from nnal_tpu.models.optim import make_optimizer as j_make_optimizer
 from nnal_tpu.models.specs import create_pw1 as j_create_pw1
+from nnal_tpu.models.specs import create_tiramisu103 as j_tiramisu
 from nnal_tpu.parallel import multihost as jmh
 from nnal_tpu.parallel import sharding as jsh
 from nnal_tpu.parallel.mesh import make_mesh as j_make_mesh
@@ -40,6 +46,7 @@ from nnal_tpu_torch.core import rng as core_rng
 from nnal_tpu_torch.models.bridge import from_jax_params
 from nnal_tpu_torch.models.cnn import init_cnn
 from nnal_tpu_torch.models.specs import create_pw1
+from nnal_tpu_torch.models.specs import create_tiramisu103 as t_tiramisu
 from nnal_tpu_torch.models.train import TrainState
 from nnal_tpu_torch.parallel import multihost as tmh
 from nnal_tpu_torch.parallel import sharding as tsh
@@ -104,6 +111,39 @@ def test_two_process_step_matches_jax(pair, model_parallel):
     assert abs(loss - float(jloss)) <= 1e-5 * abs(float(jloss))
 
 
+def test_two_process_bn_skip_step_matches_jax_and_one_process():
+    shape, kw = (8, 8, 2), dict(growth=2, depths=(2, 2), dropout_rate=0.0)
+    jspec = j_tiramisu(2, shape, **kw)
+    params, _ = j_init_cnn(jspec, jax.random.key(1))
+    params = jax.tree_util.tree_map(np.asarray, params)
+    model = port_model(t_tiramisu(2, shape, **kw), params)
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(4,) + shape).astype(np.float32)
+    y = np.eye(2, dtype=np.float32)[rng.integers(0, 2, (4, 8, 8))]
+    full, loss = sharded_step_in_processes(
+        2, 1, model.spec, model.state_dict(), x, y)
+    mesh = j_make_mesh(2, model_parallel=1)
+    tx = j_make_optimizer("SGD", 1e-2)
+    jp = jsh.shard_params(jax.tree_util.tree_map(jnp.asarray, params), mesh)
+    new, _, jloss = jsh.make_sharded_train_step(jspec, mesh, tx)(
+        jp, tx.init(jp), jnp.asarray(x), jnp.asarray(y), jax.random.key(2))
+    want = from_jax_params(jax.tree_util.tree_map(np.asarray, new))
+    ref = copy.deepcopy(model)
+    opt = torch.optim.SGD(ref.parameters(), lr=1e-2)
+    logits = ref(torch.from_numpy(x), train=True).logits
+    per = -(torch.from_numpy(y) * torch.log_softmax(logits, -1)).sum(-1)
+    ref_loss = per.mean()
+    ref_loss.backward()
+    opt.step()
+    one = dict(ref.named_parameters())
+    for k, v in want.items():
+        for other in (v, one[k].detach()):
+            np.testing.assert_allclose(full[k].numpy(), other.numpy(),
+                                       rtol=0, atol=1e-5, err_msg=k)
+    for other in (float(jloss), float(ref_loss)):
+        assert abs(loss - other) <= 1e-5 * abs(other)
+
+
 def test_world_of_one_step_is_the_plain_step():
     tmh.init_distributed(f"localhost:{free_port()}", 1, 0, device="cpu")
     try:
@@ -161,3 +201,4 @@ def test_dryrun_multichip_two_processes():
     assert report["topk"] == report["al_round"] == "bit-identical"
     assert report["step_tp2_max_abs_err"] <= 1e-5
     assert report["step_dp2_max_abs_err"] <= 1e-5
+    assert report["step_dp2_bn_skip_max_abs_err"] <= 1e-5
