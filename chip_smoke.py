@@ -162,7 +162,12 @@ Phases, each of which passes or exits non-zero:
    same dropout uniforms (``KeyedDraws``) and plain SGD, plain and under
    the mean teacher: card and host each held to a float64 step on the
    card (the f32 update of this net is good to ~2e-3 of its size on
-   either device; the card within 2x the host's error and 1e-2), then
+   either device; the card within 2x the host's error and 1e-2), with
+   the first layer from the loss backwards whose weight gradient sits
+   10x further from float64's on the card than on the host (its name,
+   kind and both errors; a ReLU or max-pool decision that differs from
+   float64's sends such a layer's output gradient astray) and the
+   precision flags at the step (the IEEE policy, checked), then
    the BN refresh on the float64 step's weights card vs host (1e-4
    relative), and the seconds per Adam step of each; the whole-slice sweep's
    slices/s and TFLOP/s at f32 and bf16 (32 slices, batches of 4) and the
@@ -214,8 +219,8 @@ Phases, each of which passes or exits non-zero:
    ``softmax_harness.run_comparison`` on the card;
 19. serving (``phase_serving``; ``run_on_subjects`` runs inside the
    f32 campaign, on its entropy state): PW1 full-volume segmentation of
-   inference_bench.py's 256x256x64 two-modality subject at stride 1
-   (4,194,304 voxels) through ``full_volume_patchwise``, posteriors at
+   inference_bench.py's two-modality subject cut to 256x256x32, at
+   stride 1 (2,097,152 voxels) through ``full_volume_patchwise``, posteriors at
    f32, bf16 and int8 (``models/quant``, bf16 around it), each after a
    one-slice warm-up: voxels/s, TFLOP/s, peak memory; bf16's and int8's
    p1 against f32's (agreement at least 0.9 where |p1 - 0.5| > 0.05);
@@ -235,8 +240,15 @@ Phases, each of which passes or exits non-zero:
    (128x128x32), timed, deterministic and lowering the error;
    ``run_on_subjects`` over two held 128x128x32 subjects, float and int8
    (F-measures, seconds, the files; int8 segmentations agree with float's
-   on at least 90% of voxels); and a 2-round ``random`` campaign under
-   ``optimizer_name: RMSProp`` (the subject cut to 16 slices) stopped
+   on at least 90% of voxels), and again at f32 in a fresh child process
+   that never applies the precision policy itself
+   (``phase_fresh_precision``): the campaign subject
+   served through a bare stride-1 ``GridPoolEvaluator`` and through
+   ``run_on_subjects``, the child's flags after each the IEEE policy
+   (TF32 off in cuDNN and matmuls, no bf16 reduced-precision reduction)
+   and its posteriors equal to this process's (bit for bit, or 1e-6 with
+   equal predictions) with the same F-measure; and a 2-round ``random`` campaign under
+   ``optimizer_name: RMSProp`` (the subject cut to 8 slices) stopped
    after round 1 and resumed, equal to the uninterrupted run bit for
    bit;
 20. the multi-device phases (``phase_parallel``; 2 data shards on the
@@ -250,7 +262,7 @@ Phases, each of which passes or exits non-zero:
    ``data_parallel`` 1 (K1 in core-set); the sharded pool selector (K2 per
    shard over the 65,536-voxel pool), grid selector (top 64) and FIM-grid
    selector (top 200) and the bf16 dense segmenter over the serving
-   phase's 256x256x64 subject, values and volumes bit-equal to their
+   phase's 256x256x32 subject, values and volumes bit-equal to their
    unsharded references and indices equal; an in-process ``nccl`` group
    of world size 1 whose DP step equals a plain Adam step bit for bit, on
    PW1 and on 2-D FC-DenseNet-103 (batch norm over the group's batch,
@@ -285,7 +297,8 @@ Phases, each of which passes or exits non-zero:
    FC-DenseNet-103's dense loss on 2 slices (a third of the pixels
    unlabeled, class weights), card and host each held to a float64 step
    on the card (the update's worst element and 2-norm within 1e-2 of its
-   size, the rule of phase 18's AlexNet steps), and ``apply_with_branch``
+   size, the rule of phase 18's AlexNet steps; the first diverging layer
+   reported as in phase 17), and ``apply_with_branch``
    on PW1's probe card vs host (1e-4);
 23. the 3-D path (``phase_rank3``): FC-DenseNet-103 at its published
    width and depth, 3-D on 2 modalities (26,167,922 parameters, 190.0
@@ -362,6 +375,8 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as nnf
+from torch.overrides import TorchFunctionMode
 
 from nnal_tpu_torch import ops
 from nnal_tpu_torch.cli import prime_cache, wait_device
@@ -697,26 +712,31 @@ CLS_RUNS = (tuple((m, "") for m in cls_mod.METHODS
 # committees build their members the same way every round without
 # pretrained_paths); fi runs to CLS_FI_QUERIES queries, in as many rounds
 # as that takes (its picks shrink: 3, 3, 2, 2 at 10 on an H100 80GB HBM3
-# at 700 W)
-CLS_FI_QUERIES = 2
+# at 700 W; one query, one round, since the fresh-process precision
+# phase)
+CLS_FI_QUERIES = 1
 CLS_ONE_ROUND = {"ensemble", "QBC-JS", "egl", "influence", "entropy@mt",
                  "core-set", "MC-entropy", "BALD", "BatchBALD",
                  "rep-entropy", "BADGE", "entropy@lwf", "random@bf16"}
 CLS_VGG_N, CLS_VGG_HW = 512, 224
 SWEEP_Z_CHUNK = 4
-# serving (phase_serving): PW1 25x25 patches at stride 1 over SWEEP_SHAPE;
-# card vs host on 256 voxels of each of 4 slices; inference_bench.py's
-# 65,536 scattered off-grid voxels; its fcn_volume (64 slices of
-# 256x256x2, batch 2); the CRF's 256x256 map and 128x128x32 volume; two
-# held subjects for run_on_subjects; RMSProp's resume == continue
+# serving (phase_serving): PW1 25x25 patches at stride 1 over SERVE_SHAPE,
+# SWEEP_SHAPE cut to 32 slices (the rates are per voxel or patch) since
+# the fresh-process precision phase; card vs host on 256 voxels of each
+# of 4 slices; inference_bench.py's 65,536 scattered off-grid voxels; its
+# fcn_volume (64 slices of 256x256x2, batch 2); the CRF's 256x256 map and
+# 128x128x32 volume; two held subjects for run_on_subjects; RMSProp's
+# resume == continue
 SERVE_PS = (25, 25, 1)
-SERVE_CHECK_SLICES = (0, 21, 42, 63)
+SERVE_SHAPE = (256, 256, 32)
+SERVE_CHECK_SLICES = (0, 10, 21, 31)
 SERVE_CHECK_N = 256
 SERVE_SCATTERED = 65536
 FCN_SERVE = (64, 256, 2)
 CRF_2D, CRF_VOL = 256, (128, 128, 32)
 HELD_SEEDS = (41, 42)
 RMSPROP = OVERRIDES.replace("optimizer_name=Adam", "optimizer_name=RMSProp")
+RMSPROP_SHAPE = (128, 128, 8)
 # the multi-device phases: 2 data shards, on the one card given explicitly
 PARALLEL_DP = 2
 # the analysis phase's held subject: a slice of it goes through PW1 on
@@ -796,6 +816,22 @@ def card_state() -> str:
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
+
+
+def precision_flags() -> dict:
+    """This process's precision flags: ``core/device.set_precision``'s
+    three, and cuDNN's convolution precision where this torch has it."""
+    b = torch.backends
+    return {"cudnn.allow_tf32": b.cudnn.allow_tf32,
+            "cuda.matmul.allow_tf32": b.cuda.matmul.allow_tf32,
+            "bf16_reduced_precision_reduction":
+                b.cuda.matmul.allow_bf16_reduced_precision_reduction,
+            "cudnn.conv.fp32_precision": getattr(
+                getattr(b.cudnn, "conv", None), "fp32_precision", None)}
+
+
+IEEE_FLAGS = {"cudnn.allow_tf32": False, "cuda.matmul.allow_tf32": False,
+              "bf16_reduced_precision_reduction": False}
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_F32_FLOPS):
@@ -2301,6 +2337,9 @@ def phase_campaign(dev):
             dev, os.path.join(top, "entropy", "entropy", "curr_weights.npz"),
             top)
         served = phase_run_on_subjects(dev, os.path.join(top, "entropy"))
+        served["fresh_process"] = timed(
+            "fresh_precision", phase_fresh_precision, dev,
+            os.path.join(top, "entropy"))
         # what the multi-device and analysis phases reuse: the entropy
         # state and the round-0 picks at data_parallel 1
         kept = {"entropy_params": ckpt.load_checkpoint(os.path.join(
@@ -3228,6 +3267,35 @@ def _param_rel(a, b) -> float:
                      / sb[n].abs().max().clamp(min=1e-30)) for n in sb)
 
 
+def _rel64(got, want) -> float:
+    """max |got - want| over max |want|, in float64 on the host."""
+    return float((got.double().cpu() - want).abs().max()
+                 / want.abs().max().clamp(min=1e-300))
+
+
+def first_diverging_layer(spec, g_card, g_host, g64, ratio=10.0):
+    """From the loss backwards, the first conv or transposed conv whose
+    weight gradient sits more than ``ratio`` times further from the
+    float64 step's on the card than on the host (each max |g - g64| over
+    max |g64| of the layer's weight), with both figures; None when no
+    layer does.  The gradients are ``{parameter name: tensor}``."""
+    for layer in reversed(spec.layers):
+        if layer.kind not in ("conv", "convT"):
+            continue
+        w = f"{layer.name}.weight"
+        card, host = _rel64(g_card[w], g64[w]), _rel64(g_host[w], g64[w])
+        if card > ratio * host:
+            return {"layer": layer.name, "kind": layer.kind,
+                    "wgrad_err_card": card, "wgrad_err_host": host}
+    return None
+
+
+def step_grads(model) -> dict:
+    """The gradients a train step left on ``model``, float64 on the host."""
+    return {n: p.grad.detach().cpu().double()
+            for n, p in model.named_parameters()}
+
+
 def phase_dense_parity(dev, n=4, seed=31):
     """Full-width FC-DenseNet-103 card vs host from one seed's weights:
     the forward in eval mode (running statistics) and train mode (batch
@@ -3290,6 +3358,7 @@ def phase_dense_parity(dev, n=4, seed=31):
         with deterministic_cudnn():
             finetune_fcn_steps(st, x.to(device, dtype), y.to(device, dtype),
                                wpix, idx, w, 5, mt=mt_obj)
+            flags[str(device)] = precision_flags()
         return m, st.teacher
 
     def cpu64(mod):
@@ -3297,6 +3366,7 @@ def phase_dense_parity(dev, n=4, seed=31):
                 for k, v in mod.state_dict().items()}
 
     p0 = {k: v.double() for k, v in host.state_dict().items()}
+    flags = {}
 
     def update_err(p, want):
         """max |update - float64 update| over max |float64 update|."""
@@ -3317,6 +3387,16 @@ def phase_dense_parity(dev, n=4, seed=31):
         if mt:
             r["teacher_err_card"] = update_err(cpu64(tc), cpu64(t64))
             r["teacher_err_host"] = update_err(cpu64(th), cpu64(t64))
+        else:
+            # the first layer from the loss backwards whose weight
+            # gradient is 10x further from float64's on the card than on
+            # the host, and the precision the step ran at
+            r["first_diverging_layer"] = first_diverging_layer(
+                spec, step_grads(mc), step_grads(mh), step_grads(m64))
+            r["precision_at_step"] = dict(flags)
+            check(all(f[k] is v for f in flags.values()
+                      for k, v in IEEE_FLAGS.items()),
+                  f"the dense step ran outside the IEEE policy: {flags}")
         # the BN refresh on one set of stepped weights (the float64
         # step's, in f32) card vs host, as the forward checks above
         m32 = m64.float().cpu()
@@ -3359,6 +3439,186 @@ def phase_dense_parity(dev, n=4, seed=31):
     print(f"dense parity ok (FC-DenseNet-103, {n_params} params, "
           f"{gflop:.3f} GFLOP a 128x128x2 slice): {json.dumps(res)}")
     return res, card, bn_c, (vols, mask, mu, sd, pool)
+
+
+CUDNN_SETTINGS = {
+    "deterministic": deterministic_cudnn,
+    "nondeterministic": lambda: torch.backends.cudnn.flags(
+        enabled=True, benchmark=False, deterministic=False, allow_tf32=False),
+    "cudnn_off": lambda: torch.backends.cudnn.flags(
+        enabled=False, benchmark=False, deterministic=False,
+        allow_tf32=False)}
+
+
+class _Branches(TorchFunctionMode):
+    """Every 2-D convolution's arguments and output gradient, and every
+    ReLU's sign mask and max-pool's argmax, in call order (``mode``
+    "record"); with ``ref`` (a recorded run's decisions), "count" counts
+    this run's decisions that differ from them and "pin" imposes them
+    (a ReLU as ``x * mask``, a max-pool as a gather at the argmax)."""
+
+    def __init__(self, mode="record", ref=None):
+        super().__init__()
+        self.mode, self.ref = mode, ref
+        self.convs, self.decisions, self.flips = [], [], 0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = getattr(func, "__name__", "")
+        if func in (nnf.conv2d, nnf.conv_transpose2d):
+            out = func(*args, **kwargs)
+            rec = {"func": func, "args": args, "kwargs": kwargs, "gy": None}
+            self.convs.append(rec)
+            if out.requires_grad:
+                out.register_hook(lambda g, rec=rec: rec.update(gy=g))
+            return out
+        if func is not nnf.relu and name not in ("max_pool2d", "_max_pool2d"):
+            return func(*args, **kwargs)
+        x = args[0]
+        if func is nnf.relu:
+            mine = x.detach() > 0
+        else:
+            _, mine = nnf.max_pool2d(
+                x.detach(), args[1], args[2] if len(args) > 2
+                else kwargs["stride"], return_indices=True)
+        if self.mode == "record":
+            self.decisions.append(mine)
+            return func(*args, **kwargs)
+        ref = self.ref[len(self.decisions)].to(mine.device)
+        self.decisions.append(mine)
+        self.flips += int((ref != mine).sum())
+        if self.mode == "count":
+            return func(*args, **kwargs)
+        if func is nnf.relu:
+            return x * ref.to(x.dtype)
+        return x.flatten(2).gather(2, ref.flatten(2)).view(ref.shape)
+
+
+def _gap_inputs(kind, seed=31):
+    """The inputs of the dense parity phase's plain SGD step (4 slices,
+    2% of the pixels labeled) or of ``formats_steps``' ``focal_gamma``
+    step (2 slices, a third unlabeled, class weights), from ``seed``'s
+    FC-DenseNet-103."""
+    vols, mask, mu, sd, _ = _dense_subject()
+    spec = create_model("Tiramisu", nclass=2, input_shape=(128, 128, 2),
+                        dropout_rate=0.2)
+    host = init_cnn(spec, seed, device="cpu")
+    slices = normalized_slices(vols, mu, sd)
+    rng = np.random.default_rng(seed)
+    if kind == "plain":
+        lab = rng.integers(0, 2, (4, 128, 128))
+        return spec, host, (
+            torch.from_numpy(slices[:4].copy()),
+            torch.from_numpy(np.eye(2, dtype=np.float32)[lab]),
+            (rng.random((4, 128, 128)) < 0.02).astype(np.float32))
+    lab = np.nan_to_num(np.moveaxis(mask[:, :, 10:12], 2, 0)).astype(int)
+    ys = np.eye(2, dtype=np.float32)[lab]
+    ys[rng.random(lab.shape) < 1 / 3] = np.nan
+    return spec, host, (torch.from_numpy(slices[10:12].copy()),
+                        torch.from_numpy(ys), torch.tensor([0.4, 1.6]))
+
+
+def _gap_step(kind, host, inputs, device, dtype, ctx, mode="record",
+              ref=None):
+    """One SGD step (lr 0.1) of ``kind`` from ``host``'s weights at
+    ``dtype`` on ``device`` under the cuDNN context ``ctx``, with
+    ``KeyedDraws(31)``'s dropout: its gradients, its branch record and
+    the precision flags it ran at."""
+    m = copy.deepcopy(host).to(device, dtype)
+    st = init_train_state(m, "SGD", 0.1)
+    br = _Branches(mode, ref)
+    with KeyedDraws(31), ctx, br:
+        flags = precision_flags()
+        if kind == "plain":
+            x, y, wpix = inputs
+            finetune_fcn_steps(st, x.to(device, dtype), y.to(device, dtype),
+                               wpix, np.arange(4)[None],
+                               np.ones((1, 4), np.float32), 5)
+        else:
+            xs, ys, cw = inputs
+            make_train_step(fcn=True, focal_gamma=2.0)(
+                st, xs.to(device, dtype), ys.to(device, dtype), 5,
+                cw=cw.to(device, dtype))
+    return step_grads(m), br, flags
+
+
+def _conv_alone(c, device, dtype, ctx):
+    """A recorded convolution replayed alone on its float64 inputs and
+    output gradient: its forward, data gradient and filter gradient."""
+    x = c["args"][0].detach().to(device, dtype).requires_grad_(True)
+    w = c["args"][1].detach().to(device, dtype).requires_grad_(True)
+    rest = [a.detach().to(device, dtype) if torch.is_tensor(a) else a
+            for a in c["args"][2:]]
+    with ctx:
+        out = c["func"](x, w, *rest, **c["kwargs"])
+        gx, gw = torch.autograd.grad(out, (x, w), c["gy"].to(device, dtype))
+    return [t.detach().double().cpu() for t in (out, gx, gw)]
+
+
+def dev_dense_gap(dev=None) -> int:
+    """``python3 chip_smoke.py --dense-gap``: a development measurement,
+    not a smoke phase.  For the 2-D FC-DenseNet-103 f32 steps of the
+    dense parity phase (plain SGD) and of ``formats_steps``
+    (``focal_gamma``), against a float64 step on the card, the host and
+    the card under ``CUDNN_SETTINGS``: the whole step's error (max |g -
+    g64| over max |g64|), per conv layer the weight gradient's and the
+    output gradient's, the first layer from the loss backwards where the
+    card errs 10x the host, how many ReLU / max-pool decisions differ from
+    float64's; every convolution alone on float64's inputs (forward, data
+    and filter gradient); and the step again with float64's decisions
+    imposed."""
+    dev = torch.device("cuda") if dev is None else dev
+    set_precision()
+    print(card_line() if dev.type == "cuda" else dev)
+    for kind in ("plain", "focal"):
+        spec, host, inputs = _gap_inputs(kind)
+        convs = [l for l in spec.layers if l.kind in ("conv", "convT")]
+        g64, ref, _ = _gap_step(kind, host, inputs, dev, torch.float64,
+                                deterministic_cudnn())
+        big = max(float(v.abs().max()) for v in g64.values())
+        sides = {"host": ("cpu", contextlib.nullcontext)}
+        sides.update({f"card_{k}": (dev, c) for k, c in
+                      CUDNN_SETTINGS.items()})
+        res = {"decisions": sum(int(d.numel()) for d in ref.decisions)}
+        grads, out_grads = {}, {}
+        for side, (d, ctx) in sides.items():
+            r = {}
+            for mode in ("count", "pin"):
+                g, br, flags = _gap_step(kind, host, inputs, d,
+                                         torch.float32, ctx(), mode,
+                                         ref.decisions)
+                r[mode] = {"step_err": max(
+                    float((g[p] - g64[p]).abs().max()) for p in g64) / big,
+                    "flips": br.flips}
+                if mode == "count":
+                    grads[side], r["precision"] = g, flags
+                    out_grads[side] = {
+                        l.name: _rel64(c["gy"], ref.convs[i]["gy"].cpu())
+                        for i, (l, c) in enumerate(zip(convs, br.convs))}
+            res[side] = r
+        res["first_diverging"] = {}
+        for side in sides:
+            if side == "host":
+                continue
+            hit = first_diverging_layer(spec, grads[side], grads["host"],
+                                        g64)
+            if hit:
+                hit.update(gy_err_card=out_grads[side][hit["layer"]],
+                           gy_err_host=out_grads["host"][hit["layer"]])
+            res["first_diverging"][side] = hit
+        alone = {}
+        for side, (d, ctx) in sides.items():
+            worst = [0.0, 0.0, 0.0]
+            for c in ref.convs:
+                want = _conv_alone(c, dev, torch.float64,
+                                   deterministic_cudnn())
+                got = _conv_alone(c, d, torch.float32, ctx())
+                worst = [max(a, _rel64(g, w_))
+                         for a, g, w_ in zip(worst, got, want)]
+            alone[side] = dict(zip(("fwd", "dgrad", "wgrad"), worst))
+        res["conv_alone_worst"] = alone
+        print(f"dense gap, {kind} step (card above): " + json.dumps(res))
+    return 0
 
 
 def phase_dense_sweep(dev, card, bn_c, subject, reps=3):
@@ -4092,9 +4352,10 @@ def forward_flops(model, x) -> float:
 
 
 def _serve_subject(dev):
-    """inference_bench.py's pw_full_volume subject: 256x256x64, two
-    modalities, seed 0, padded for 25x25 patches on the card."""
-    vols, mask = synthetic_subject(shape=SWEEP_SHAPE, n_modalities=2, seed=0)
+    """inference_bench.py's pw_full_volume subject cut to 256x256x32
+    (``SERVE_SHAPE``), two modalities, seed 0, padded for 25x25 patches
+    on the card."""
+    vols, mask = synthetic_subject(shape=SERVE_SHAPE, n_modalities=2, seed=0)
     mu = np.array([float(v.mean()) for v in vols])
     sd = np.array([float(v.std()) for v in vols])
     return vols, mask, mu, sd, pad_volumes(vols, SERVE_PS, dev)
@@ -4103,7 +4364,7 @@ def _serve_subject(dev):
 def _serve_ev(spec, padded, mu, sd, cd):
     """The bench's evaluator: grid spacing 2, z-chunk 4 (its stride-1
     clone sweeps one 65,536-patch slice a chunk)."""
-    return GridPoolEvaluator(spec, padded, mu, sd, SERVE_PS, SWEEP_SHAPE,
+    return GridPoolEvaluator(spec, padded, mu, sd, SERVE_PS, SERVE_SHAPE,
                              grid_spacing=2, z_chunk=SWEEP_Z_CHUNK,
                              compute_dtype=cd)
 
@@ -4154,7 +4415,7 @@ def int8_profile(qmodel, ev):
 
 def phase_serve_pw(dev):
     """PW1 full-volume serving (inference_bench.py's pw_full_volume): every
-    voxel of the 256x256x64 subject at stride 1, ``posteriors``, at f32,
+    voxel of the 256x256x32 subject at stride 1, ``posteriors``, at f32,
     bf16 and int8 (bf16 surroundings), each after a one-slice warm-up;
     int8's and bf16's p1 against f32's, card vs host at f32 on 256
     voxels of each of 4 slices (the host's gather route, atol 1e-4), and
@@ -4164,7 +4425,7 @@ def phase_serve_pw(dev):
     qmodel = quantize_model(model)
     check(is_quantized(qmodel), "quantize_model left float layers")
     vols, _, mu, sd, padded = _serve_subject(dev)
-    n = int(np.prod(SWEEP_SHAPE))
+    n = int(np.prod(SERVE_SHAPE))
     flops = forward_flops(model, torch.zeros((1, 25, 25, 2), device=dev))
     res, vol = {"flops_per_voxel": flops}, {}
     for name, cd, m in (("float32", None, model),
@@ -4177,7 +4438,7 @@ def phase_serve_pw(dev):
         t0 = time.perf_counter()
         v = full_volume_patchwise(ev, m, "posteriors")
         secs = time.perf_counter() - t0
-        check(v.shape == SWEEP_SHAPE and v.dtype == np.float32
+        check(v.shape == SERVE_SHAPE and v.dtype == np.float32
               and bool(np.isfinite(v).all()) and 0.0 <= v.min()
               and v.max() <= 1.0, f"{name} volume {v.shape} {v.dtype}")
         res[name] = {"voxels_per_s": n / secs, "wall_s": secs,
@@ -4196,12 +4457,12 @@ def phase_serve_pw(dev):
             agree_vs_f32=agree, confident_share=float(sure.mean()))
         check(agree >= 0.9, f"{name} agrees with f32 on {agree:.4f} of the "
               "confident voxels")
-    s1, s2, s3 = SWEEP_SHAPE
+    s1, s2, s3 = SERVE_SHAPE
     rng = np.random.default_rng(7)
     inds = np.concatenate([rng.choice(s1 * s2, SERVE_CHECK_N, replace=False)
                            * s3 + z for z in SERVE_CHECK_SLICES])
     host_ev = PoolEvaluator(spec, pad_volumes(vols, SERVE_PS, "cpu"), mu, sd,
-                            SERVE_PS, SWEEP_SHAPE, ntb=1024)
+                            SERVE_PS, SERVE_SHAPE, ntb=1024)
     host = host_ev.evaluate(init_cnn(spec, seed=0, device="cpu"), inds,
                             ("posteriors",))["posteriors"]
     err = float(np.abs(host - p32.reshape(-1)[inds]).max())
@@ -4209,7 +4470,7 @@ def phase_serve_pw(dev):
                                "slices": list(SERVE_CHECK_SLICES),
                                "max_abs": err}
     check(err <= 1e-4, f"full-volume p1 card vs host {err}")
-    print("PW1 full-volume serving ok (256x256x64, stride 1; card above): "
+    print("PW1 full-volume serving ok (256x256x32, stride 1; card above): "
           + json.dumps({k: res[k] for k in ("float32", "bfloat16", "int8",
                                             "card_vs_host_f32")}))
     print("int8 z-chunk profile: " + json.dumps(res["int8_profile"]))
@@ -4253,7 +4514,7 @@ def phase_serve_offgrid(dev, spec, model, padded, mu, sd):
     clustered ROI of 80% of 6 slices (the router takes the stride-1 slab
     sweep), with the gather route's rate on 8,192 of its voxels."""
     ev = _serve_ev(spec, padded, mu, sd, torch.bfloat16)
-    s1, s2, s3 = SWEEP_SHAPE
+    s1, s2, s3 = SERVE_SHAPE
     rng = np.random.RandomState(0)
     scat = (rng.randint(0, s1, SERVE_SCATTERED) * s2
             + rng.randint(0, s2, SERVE_SCATTERED)) * s3 \
@@ -4457,16 +4718,150 @@ def phase_run_on_subjects(dev, root):
     return res
 
 
+def fresh_serve(root, device):
+    """The campaign subject served at f32 with the entropy weights of the
+    experiment at ``root``, twice: through a bare stride-1
+    ``GridPoolEvaluator`` made before any engine (the engine-less route),
+    then through ``run_on_subjects``, whose posteriors a spy on the
+    ``full_volume_patchwise`` it calls keeps.  Returns the flags read at
+    the start and after each route, both posterior volumes (p1) and
+    ``run_on_subjects``' F-measure."""
+    ros = sys.modules[run_on_subjects.__module__]
+    flags = {"at_start": precision_flags()}
+    cfg = ExperimentConfig.from_yaml(os.path.join(root, "parameters.txt"))
+    shape = tuple(cfg.synthetic_shape)
+    vols, mask = synthetic_subject(shape=shape, n_modalities=2, n_blobs=3,
+                                   seed=cfg.seed)
+    d1, d2, d3 = ps = tuple(cfg.model.patch_shape)
+    spec = create_model(cfg.model.model_name, nclass=cfg.model.nclass,
+                        dropout_rate=cfg.model.dropout_rate,
+                        patch_shape=(d1, d2, 2 * d3))
+    params = ckpt.load_checkpoint(os.path.join(
+        root, "entropy", "curr_weights.npz"))[0]
+    stats = multimg_stats([(vols, mask)])[0]
+    ev = GridPoolEvaluator(spec, pad_volumes(vols, ps, device=device),
+                           stats[0::2], stats[1::2], ps, shape,
+                           grid_spacing=1, ntb=cfg.query.ntb)
+    bare = full_volume_patchwise(ev, ros.serving_model(spec, params, device),
+                                 "posteriors")
+    flags["after_bare"] = precision_flags()
+    del ev
+    kept, orig = [], ros.full_volume_patchwise
+
+    def spy(evaluator, model, op="prediction"):
+        kept.append(orig(evaluator, model, "posteriors"))
+        return orig(evaluator, model, op)
+
+    expr = create_expr(root, synthetic=True, device=device)
+    ros.full_volume_patchwise = spy
+    try:
+        f = ros.run_on_subjects(expr, "entropy", [(vols, mask)],
+                                device=device)[0]
+    finally:
+        ros.full_volume_patchwise = orig
+    flags["after_run_on_subjects"] = precision_flags()
+    return flags, bare, kept[0], f
+
+
+def fresh_child(root, out, device="cuda") -> int:
+    """The child of :func:`compare_fresh`, a process that applies no
+    precision policy of its own: writes both posterior volumes of
+    :func:`fresh_serve` to ``out`` (npz) and prints the flags and the
+    F-measure as JSON."""
+    flags, bare, served, f = fresh_serve(root, device)
+    np.savez(out, bare=bare, run_on_subjects=served)
+    print(json.dumps({"flags": flags, "f_measure": f}))
+    return 0
+
+
+def compare_fresh(dev, root, port=ROOT) -> dict:
+    """:func:`fresh_serve` in a child process that never calls
+    ``set_precision`` (this file loaded by path, with the port tree
+    ``port`` first on its path) against the same call in this process,
+    which did: the child's flags and seconds, and per route the distance
+    of its posteriors from this process's."""
+    t0 = time.perf_counter()
+    out = os.path.join(root, "fresh_child.npz")
+    code = ("import importlib.util, sys; sys.path.insert(0, %r); "
+            "s = importlib.util.spec_from_file_location('chip_smoke_child', "
+            "%r); m = importlib.util.module_from_spec(s); "
+            "s.loader.exec_module(m); sys.exit(m.fresh_child(%r, %r, %r))"
+            % (port, os.path.abspath(__file__), root, out, str(dev)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=port,
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"the fresh-process child failed (rc "
+          f"{proc.returncode}): {proc.stderr[-3000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    res = {"port": port, "child": child, "child_s": time.perf_counter() - t0}
+    t1 = time.perf_counter()
+    flags, bare, served, f = fresh_serve(root, dev)
+    res["in_process"] = {"flags": flags, "f_measure": f,
+                         "s": time.perf_counter() - t1}
+    with np.load(out) as z:
+        got = {"bare": z["bare"], "run_on_subjects": z["run_on_subjects"]}
+    os.remove(out)
+    for name, want in (("bare", bare), ("run_on_subjects", served)):
+        g, d = got[name], np.abs(got[name] - want)
+        res[name] = {"voxels": int(g.size),
+                     "bit_equal": bool(np.array_equal(g, want)),
+                     "max_abs_dp1": float(d.max()),
+                     "mean_abs_dp1": float(d.mean()),
+                     "predictions_differing": int(np.sum(
+                         (g > 0.5) != (want > 0.5)))}
+    return res
+
+
+def phase_fresh_precision(dev, root):
+    """The precision policy in a fresh process (:func:`compare_fresh`):
+    after each route the child's flags are the IEEE policy
+    (``cudnn.allow_tf32``, ``cuda.matmul.allow_tf32`` and bf16
+    reduced-precision reduction False), and each route's posteriors equal
+    this process's bit for bit, or within 1e-6 with equal predictions,
+    and so does the F-measure."""
+    res = compare_fresh(dev, root)
+    child = res["child"]
+    ok_flags = all(child["flags"][k][n] is v for k in (
+        "after_bare", "after_run_on_subjects") for n, v in IEEE_FLAGS.items())
+    check(ok_flags and child["f_measure"] == res["in_process"]["f_measure"]
+          and all(r["bit_equal"] or (r["max_abs_dp1"] <= 1e-6
+                                     and not r["predictions_differing"])
+                  for r in (res["bare"], res["run_on_subjects"])),
+          f"fresh-process f32 serving differs from in-process: {res}")
+    print("fresh-process precision ok (card above): " + json.dumps(res))
+    return res
+
+
+def dev_fresh_precision(port) -> int:
+    """``python3 chip_smoke.py --fresh-precision-port PORT``: a
+    development measurement, not a smoke phase.  :func:`compare_fresh`
+    with the port tree at ``PORT`` in the child (an earlier commit's tree
+    from ``git archive``, say) on the f32 campaign's configuration and
+    ``add_method``'s initial entropy weights; printed, not checked."""
+    dev = torch.device("cuda")
+    set_precision()
+    print(card_line())
+    root = os.path.join(ROOT, "_smoke_expr", "fresh_dev")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        create_expr(root, OVERRIDES, synthetic=True,
+                    device=dev).add_method("entropy")
+        print("fresh-process precision against the port at "
+              f"{port}: " + json.dumps(compare_fresh(dev, root, port)))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return 0
+
+
 def phase_rmsprop_resume(dev):
     """``optimizer_name: RMSProp``: a 2-round random campaign on the
-    campaign subject cut to 16 slices run uninterrupted, and again
+    campaign subject cut to 8 slices run uninterrupted, and again
     stopped after round 1 and resumed by a fresh
     ``PWExperiment`` from its resume point (``nu`` and ``trace`` in the
     file): the final ``curr_weights.npz``, the journal and
     ``perf_evals.txt`` bit-identical."""
     top = os.path.join(ROOT, "_smoke_expr", "rmsprop")
     shutil.rmtree(top, ignore_errors=True)
-    vols, mask = synthetic_subject(shape=RESUME_SHAPE, n_modalities=2,
+    vols, mask = synthetic_subject(shape=RMSPROP_SHAPE, n_modalities=2,
                                    n_blobs=3, seed=0)
     pars = set_parameters(DEFAULT_PARS, RMSPROP)
 
@@ -4668,7 +5063,7 @@ def phase_selectors(dev, model, padded, mu, sd, mesh, serve):
         mesh, ps, SHAPE, 2, 200, z_inner=2)(model, padded, mu, sd))
     smodel, spadded, smu, ssd, svol = serve
     run("segmenter_bf16", lambda: make_sharded_dense_segmenter(
-        mesh, SERVE_PS, SWEEP_SHAPE, z_inner=1,
+        mesh, SERVE_PS, SERVE_SHAPE, z_inner=1,
         compute_dtype=torch.bfloat16)(smodel, spadded, smu, ssd))
     counts = {k.name: k.launches for k in ops.KERNELS}
     # the references (launches not counted)
@@ -4695,7 +5090,7 @@ def phase_selectors(dev, model, padded, mu, sd, mesh, serve):
     _equal("bf16 dense segmenter", res["segmenter_bf16"], svol)
     return {"seconds": t, "counts": counts,
             "pool_candidates": len(pool), "grid_rows": len(rows),
-            "segmenter_voxels": int(np.prod(SWEEP_SHAPE))}
+            "segmenter_voxels": int(np.prod(SERVE_SHAPE))}
 
 
 def phase_nccl(dev, model):
@@ -5196,19 +5591,21 @@ def formats_steps(dev, seed=31):
                 st, xs.to(device, dtype), ys.to(device, dtype), 5,
                 cw=cw.to(device, dtype))
         return ({k: v.detach().cpu().double()
-                 for k, v in m.state_dict().items()}, float(loss))
+                 for k, v in m.state_dict().items()}, float(loss),
+                step_grads(m))
 
     with KeyedDraws(seed):
-        (sh, lh), (sc, lc) = stepped("cpu"), stepped(dev)
-        s64, l64 = stepped(dev, torch.float64)
+        (sh, lh, gh), (sc, lc, gc) = stepped("cpu"), stepped(dev)
+        s64, l64, g64 = stepped(dev, torch.float64)
     (mc, nc), (mh, nh) = _update_errs(sc, s64, p0), _update_errs(sh, s64, p0)
     r = {"loss_card": lc, "loss_host": lh, "loss_f64": l64,
          "update_err_card": mc, "update_err_host": mh,
-         "update_norm_err_card": nc, "update_norm_err_host": nh}
+         "update_norm_err_card": nc, "update_norm_err_host": nh,
+         "first_diverging_layer": first_diverging_layer(spec, gc, gh, g64)}
     out["focal_gamma"] = r
     check(np.isfinite(lc) and max(mc, mh, nc, nh) <= 1e-2,
           f"focal_gamma dense step card and host vs float64: {r}")
-    del host, sh, sc, s64
+    del host, sh, sc, s64, gh, gc, g64
     # a branch on PW1's probe (layer 4)
     tspec = create_pw1(2, 0.5, (25, 25, 2))
     shape = branch_input_shape(tspec, 4)
@@ -5564,6 +5961,10 @@ def phase_rank3(dev, seed=31):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--fresh-precision-port"]:
+        return dev_fresh_precision(os.path.abspath(sys.argv[2]))
+    if sys.argv[1:2] == ["--dense-gap"]:
+        return dev_dense_gap()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2

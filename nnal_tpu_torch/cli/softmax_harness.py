@@ -21,7 +21,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from nnal_tpu_torch.core.device import resolve_device, set_precision
+from nnal_tpu_torch.core.device import resolve_device
 from nnal_tpu_torch.scoring.cls_strategies import linear_softmax_fi_scores
 from nnal_tpu_torch.scoring.uncertainty import shannon_entropy
 
@@ -57,7 +57,6 @@ def run_comparison(X, y, nclass: int, *, k: int = 10, rounds: int = 10,
     """Accuracy curves of random, entropy and fi querying (``rounds``
     rounds of ``k`` queries each, retrained from zeros every round)."""
     dev = resolve_device(device)
-    set_precision()
     rng = np.random.default_rng(seed)
     n = len(y)
     perm = rng.permutation(n)

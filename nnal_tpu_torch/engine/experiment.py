@@ -45,11 +45,7 @@ import torch
 
 from nnal_tpu_torch.core import rng as core_rng
 from nnal_tpu_torch.core.config import ExperimentConfig
-from nnal_tpu_torch.core.device import (
-    deterministic_cudnn,
-    resolve_device,
-    set_precision,
-)
+from nnal_tpu_torch.core.device import deterministic_cudnn, resolve_device
 from nnal_tpu_torch.core.journal import MethodJournal, load_inds, save_inds
 from nnal_tpu_torch.core.profiling import PhaseTimer
 from nnal_tpu_torch.core.rng import RngStream
@@ -107,7 +103,6 @@ class Experiment:
     def __init__(self, root_dir: str,
                  config: Optional[ExperimentConfig] = None, device=None):
         self.device = resolve_device(device)
-        set_precision()
         self.root_dir = root_dir
         os.makedirs(root_dir, exist_ok=True)
         par_path = os.path.join(root_dir, "parameters.txt")

@@ -73,6 +73,7 @@ import torch
 from torch.func import functional_call
 
 from nnal_tpu_torch.core import rng as core_rng
+from nnal_tpu_torch.core.device import set_precision
 from nnal_tpu_torch.data.batching import gen_batch_inds
 from nnal_tpu_torch.models.losses import (
     aleatoric_ce_per_sample,
@@ -142,6 +143,7 @@ def mt_coefficient(mt: MeanTeacher, i: int) -> float:
 
 def init_train_state(model, optimizer_name="SGD", learning_rate=1e-3
                      ) -> TrainState:
+    set_precision()
     return TrainState(model=model, optimizer=make_optimizer(
         optimizer_name, learning_rate, model.parameters()))
 
@@ -395,6 +397,7 @@ def make_train_step(*, mc_t: int = 10, lwf_lambda: float = 0.0,
         # does not broadcast
         raise ValueError("make_train_step: LwF needs per-row logits; it "
                          "does not combine with fcn")
+    set_precision()
 
     def step_fn(state: TrainState, x, y, key, w=None, old_logits=None,
                 cw=None, cc_scale: float = 1.0) -> torch.Tensor:

@@ -46,6 +46,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from nnal_tpu_torch.core import rng as core_rng
+from nnal_tpu_torch.core.device import set_precision
 from nnal_tpu_torch.models import cnn as cnn_mod
 from nnal_tpu_torch.parallel.mesh import (
     gather_shards,
@@ -225,6 +226,7 @@ def make_sharded_train_step(mesh, tensor_parallel: bool = True):
     a data group holds the same rows).  ``key`` keys the dropout
     (``core/rng.key_stream``; None: no dropout).  The loss is the global
     batch's mean CE (``cross_entropy``'s mean over rows and pixels)."""
+    set_precision()
     dp, mp = int(mesh.shape["data"]), int(mesh.shape["model"])
     if not tensor_parallel:
         mp = 1

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from nnal_tpu_torch.core import rng as core_rng
+from nnal_tpu_torch.core.device import set_precision
 from nnal_tpu_torch.data.patches import gather_patches_normalized
 from nnal_tpu_torch.models.quant import is_quantized
 from nnal_tpu_torch.scoring.uncertainty import running_average
@@ -77,6 +78,8 @@ class PoolEvaluator:
 
     def __init__(self, spec, padded: torch.Tensor, mu, sd, patch_shape,
                  orig_shape, ntb: int = 4096, compute_dtype=None):
+        # takes its device from ``padded``, so applies the policy itself
+        set_precision()
         self.spec = spec
         self.padded = padded
         self.device = padded.device
