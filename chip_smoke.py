@@ -133,9 +133,10 @@ Phases, each of which passes or exits non-zero:
    weights and draws, and fi's A-matrices of the card's candidates held
    on the host (the row rule below; ``multi picks ok``); 128-query
    campaigns (64 for ``MULTI_ONE_ROUND``: QBC-JS, influence, and fi at
-   f32 and bf16 in 2-3 rounds) over three 128x128x16 subjects
-   (``MULTI_SHAPE``, 32,768 grid voxels each; 32 slices before the
-   rank-3 phase), a test and a held subject, from an empty start: f32
+   f32 and bf16 in 2-3 rounds) over three 128x128x8 subjects
+   (``MULTI_SHAPE``, 16,384 grid voxels each; 32 slices before the
+   rank-3 phase, 16 before the examples' phase), a test and a held
+   subject, from an empty start: f32
    core-set (round 0
    from the held subject's features through K1), fi, QBC-JS (3
    members), influence (64 labels seeded) and entropy with the mean
@@ -147,7 +148,7 @@ Phases, each of which passes or exits non-zero:
    launches) with the launch counts zeroed just before each campaign and
    read just after; K2's copy cache must make one copy per distinct
    volume; multi resume == continue (random, int8 anchors every 2
-   rounds, crashed after round 2, the five subjects cut to 16 slices)
+   rounds, crashed after round 2, the five subjects cut to 8 slices)
    bit for bit; ``sequential_al`` over
    two subjects, warm-started; and the host loader (``PrefetchLoader``
    over the native gather: each batch equal to the host source's, within
@@ -184,7 +185,7 @@ Phases, each of which passes or exits non-zero:
    resume == continue bit for bit (entropy, 3 rounds, int8 anchors every
    2, crashed after round 2, the subject cut to 16 slices); and a
    multi-subject dense fi campaign
-   over two 128x128x16 subjects and one 96x96x16 (two shape groups; 64
+   over two 128x128x8 subjects and one 96x96x8 (two shape groups; 64
    queries), every test evaluator on the engine's BN state;
 18. the classification engine (``phase_cls``): AlexNet at its published
    width and 227x227x3 input (71,945,608 parameters, 2.5244 GFLOP an
@@ -321,7 +322,21 @@ Phases, each of which passes or exits non-zero:
    (counts zeroed just before, read just after; bit-equal to K2's plain
    version, labels equal); ``wait_device`` exits 0 on its first probe
    and ``prime_cache`` finds every build present;
-24. lines with the new methods' per-round seconds, the MC and perturb
+24. the examples (``phase_examples``): each of the six
+   ``nnal_tpu_torch.examples`` scripts' ``main`` on the card at its
+   documented defaults (``EXAMPLES`` names those run at ``--tiny``:
+   ``dense_model_al``, with ``--mt``):
+   ``patchwise_al`` at ``DEMO_CAMPAIGN_OVERRIDES`` (entropy and random,
+   3 rounds of k 20), ``multi_subject_al``, ``classification_al``,
+   ``serving``, ``dense_model_al`` (entropy and BADGE) and
+   ``multichip_campaign``, whose every round's picks at ``data_parallel``
+   8 (the card listed 8 times) must equal ``data_parallel`` 1's; one
+   ``example <name>`` line each (seconds, F per round of each method;
+   serving's F float / int8 and agreement; launches), each curve finite
+   in [0, 1] with the rounds its settings give; launch counts zeroed
+   just before the first example and read after the last; the first K2
+   call of ``patchwise_al``'s finetunes bit-equal to K2's plain version;
+25. lines with the new methods' per-round seconds, the MC and perturb
    sweeps' rates, the committee campaigns' peak memory, the lever runs'
    per-round seconds, each lever's seconds per finetune step, the
    checkpoint bytes with the teacher, whether the TensorBoard mirror
@@ -333,9 +348,10 @@ Phases, each of which passes or exits non-zero:
    build seconds, K1's SASS counts, the FIM, bf16, codec, resume, MC,
    perturbation, selection, second-order, SLIC and ``finetune_wpool``
    phases, the multi-subject, dense, multi-device, analysis, formats and
-   rank-3 ones) and one ``kernels`` JSON line (times, bounds, launches in
-   every campaign and in the serving, multi-device, analysis, formats and
-   ``gather_patches_multimg`` phases; each row's check at the formats
+   rank-3 and examples ones) and one ``kernels`` JSON line (times,
+   bounds, launches in every campaign and in the serving, multi-device,
+   analysis, formats, ``gather_patches_multimg`` and examples phases,
+   ``launches_by_example``; each row's check at the formats
    round's shapes under
    ``at_formats``; K1's row also its times at d = 16 under ``at_d16`` and
    at the classification shape under ``at_cls``).
@@ -364,6 +380,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import ctypes
+import importlib
 import io
 import json
 import os
@@ -634,8 +651,9 @@ RESUME_OVERRIDES = OVERRIDES + ",ckpt_full_every=2,ckpt_dtype=int8"
 # 65,536 grid voxels each), a test and a held subject, an empty start
 # (influence: 64 labels seeded), k 64, B 200, 128 queries a run
 # their subjects cut to 16 slices (``MULTI_SHAPE``) since the rank-3
-# phase: the multi-subject code they drive is the same at any depth
-MULTI_SHAPE = (128, 128, 16)
+# phase, to 8 since the examples' phase: the multi-subject code they
+# drive is the same at any depth
+MULTI_SHAPE = (128, 128, 8)
 MULTI = ("patch_shape=[25,25,1],grid_spacing=2,k=64,B=200,b=128,epochs=1,"
          "learning_rate=1e-3,optimizer_name=Adam,ntb=4096,seed=0")
 # (``entropy`` alone is left out: ``entropy@mt`` and the bf16 run drive
@@ -760,6 +778,16 @@ R3_STEPS = 3            # timed train steps per configuration, after one
 # gather_patches_multimg on the multi subjects: indices per subject (one
 # empty)
 MULTIMG_INDS = (512, 0, 256)
+# the examples (phase_examples), in the order a user meets them; True
+# runs one at its ``--tiny`` settings, False at its documented defaults
+# (``patchwise_al`` always at its protocol, DEMO_CAMPAIGN_OVERRIDES).
+# ``dense_model_al``'s defaults (a growth-8 FC-DenseNet on 128x128x32,
+# 25 epochs) took 17.3 s of the phase's 46.0 on an H100 80GB HBM3 at
+# 700 W; phase 17 drives the full-width dense path, so it runs at
+# ``--tiny`` (6 rounds of k 4)
+EXAMPLES = {"patchwise_al": False, "multi_subject_al": False,
+            "classification_al": False, "serving": False,
+            "dense_model_al": True, "multichip_campaign": False}
 PHASE_S = {}
 
 
@@ -3850,8 +3878,8 @@ def phase_dense_resume(dev, top):
 
 def phase_dense_multi(dev, top):
     """The multi-subject dense campaign (``DENSE_MULTI_RUNS``) over two
-    128x128x16 subjects and one 96x96x16, so two shape groups train; a
-    128x128x16 test subject and a held one."""
+    ``MULTI_SHAPE`` subjects and one 96x96 of its depth, so two shape
+    groups train; a ``MULTI_SHAPE`` test subject and a held one."""
     small = (96, 96, MULTI_SHAPE[2])
     s = [synthetic_subject(shape=sh, n_modalities=2, n_blobs=3, seed=i)
          for i, sh in enumerate((MULTI_SHAPE, MULTI_SHAPE, small,
@@ -5960,9 +5988,161 @@ def phase_rank3(dev, seed=31):
     return res
 
 
+# ----------------------------------------------------------- the examples
+def _run_example(name, root, dev, tiny):
+    """One example's ``main`` on the card; returns the line's results."""
+    mod = importlib.import_module(f"nnal_tpu_torch.examples.{name}")
+    if name == "serving":
+        res = mod.main(tiny, device=dev)
+        check(all(0.0 <= res[k] <= 1.0 for k in res),
+              f"serving example: {res}")
+        return {k: float(v) for k, v in res.items()}
+    if name == "multichip_campaign":
+        try:
+            mod.main(root, tiny, device=dev)
+        except AssertionError as e:
+            raise SmokeFailure(f"multichip_campaign example: {e}")
+        rounds = sorted(os.listdir(os.path.join(root, "dp8", "entropy",
+                                                "queries")))
+        equal = all(np.array_equal(
+            *(np.loadtxt(os.path.join(root, tag, "entropy", "queries", r),
+                         dtype=np.int64) for tag in ("dp8", "dp1")))
+            for r in rounds)
+        check(equal and len(rounds) == (2 if tiny else 6),
+              f"multichip_campaign example: dp 8 selections equal dp 1's "
+              f"in every round? {equal}, rounds {rounds}")
+        perf = {tag: np.loadtxt(os.path.join(root, tag, "entropy",
+                                             "perf_evals.txt")).tolist()
+                for tag in ("dp8", "dp1")}
+        return {"selections_equal": equal, "rounds": len(rounds),
+                "f_per_round": perf}
+    if name == "multi_subject_al":
+        nq = 6 if tiny else 24
+        res = mod.main(root, "entropy", nq, tiny, device=dev)
+        curves = {"entropy": np.atleast_1d(res["perf"])}
+        check(res["n_queries"] == nq, f"{name}: {res['n_queries']} queries")
+    elif name == "classification_al":
+        curves = mod.main(root, ("entropy", "random"), 30, tiny, device=dev)
+    elif name == "dense_model_al":
+        # at --tiny with the dense mean teacher, as the JAX package's test
+        curves = mod.main(root, ("entropy", "BADGE"), 24, tiny, mt=tiny,
+                          device=dev)
+    else:
+        curves = mod.main(root, ("entropy", "random"), 60, tiny, device=dev)
+    f = {m: np.atleast_1d(c).astype(float).tolist() for m, c in curves.items()}
+    want_rounds = {"patchwise_al": 2 if tiny else 3,
+                   "multi_subject_al": 2 if tiny else 3,
+                   "classification_al": 2 if tiny else 6,
+                   "dense_model_al": 6 if tiny else 1}[name]
+    check(all(len(c) == want_rounds and np.isfinite(c).all()
+              and all(0.0 <= v <= 1.0 for v in c) for c in f.values()),
+          f"{name}: curves {f}, {want_rounds} rounds each?")
+    return {"f_per_round": f}
+
+
+def phase_examples(dev):
+    """The six examples' ``main`` on the card (module docstring, phase
+    24), each in a directory of its own that is removed after it; launch
+    counts zeroed just before the first and read after the last (and per
+    example); the first K2 call of ``patchwise_al``'s finetunes held to
+    K2's plain version, bit-equal."""
+    t0 = time.perf_counter()
+    top = os.path.join(ROOT, "_smoke_expr", "examples")
+    shutil.rmtree(top, ignore_errors=True)
+    out = {"examples": {}}
+    try:
+        with _FirstCall(pw_experiment, "gather_patches_normalized") as k2:
+            ops.reset_launch_counts()
+            for name, tiny in EXAMPLES.items():
+                before = {k.name: k.launches for k in ops.KERNELS}
+                t = time.perf_counter()
+                res = _run_example(name, os.path.join(top, name), dev, tiny)
+                torch.cuda.synchronize()
+                res = {"seconds": time.perf_counter() - t,
+                       "settings": "--tiny" if tiny else "defaults", **res,
+                       "launches": {k.name: k.launches - before[k.name]
+                                    for k in ops.KERNELS}}
+                out["examples"][name] = res
+                print(f"example {name} (card above): " + json.dumps(res))
+                shutil.rmtree(os.path.join(top, name), ignore_errors=True)
+            out["counts"] = {k.name: k.launches for k in ops.KERNELS}
+        (padded, inds, mu, sd, ps, shape), _ = k2.args
+        err = float((gather_patches_normalized(padded, inds, mu, sd, ps,
+                                               shape)
+                     - gather_patches_plain(padded, inds, mu, sd, ps, shape))
+                    .abs().max())
+        out["k2_check"] = {"n": int(inds.numel()), "patch": list(ps),
+                           "max_abs_err": err}
+        check(err == 0.0, f"examples: K2 |delta| {err} on patchwise_al's "
+              "finetune gather (== 0?)")
+        check(out["counts"]["gather_patches_normalized"] >= 1,
+              f"examples: K2 never launched ({out['counts']})")
+        del k2, padded
+    finally:
+        shutil.rmtree(top, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    print("examples ok (card above): " + json.dumps(
+        {k: out[k] for k in ("counts", "k2_check", "seconds")}))
+    return out
+
+
+def _npz_rel(a, b):
+    """max |a - b| over max |b|, over the float arrays both hold."""
+    keys = [k for k in b if k in a and b[k].dtype.kind == "f"]
+    return (max(float(np.abs(a[k] - b[k]).max()) for k in keys)
+            / max(float(np.abs(b[k]).max()) for k in keys))
+
+
+def dev_dense_example_replay(devices=("cuda", "cpu")) -> int:
+    """``python3 chip_smoke.py --dense-example-replay``: a development
+    measurement, not a smoke phase.  ``dense_model_al`` at ``--tiny``
+    (its seed 3, BADGE, rounds of k 4) on the card and on the host with
+    the same dropout uniforms and BADGE draws (``KeyedDraws``), over 1
+    round and then 6: the initial weights and the weights after the last
+    round card vs host (max |delta| over max |host|), whether each
+    round's picks are equal, and each one's F per round; printed, not
+    checked.  It tells a fault of the card's path from one trajectory's
+    drift (ROADMAP Queue 3)."""
+    print(card_line())
+    mod = importlib.import_module("nnal_tpu_torch.examples.dense_model_al")
+    top = os.path.join(ROOT, "_smoke_expr", "dense_example_replay")
+    try:
+        for nq in (4, 24):
+            runs = {}
+            for dev in devices:
+                root = os.path.join(top, dev)
+                shutil.rmtree(root, ignore_errors=True)
+                with KeyedDraws(3):
+                    f = mod.main(root, ("BADGE",), nq, True, device=dev)
+                d = os.path.join(root, "BADGE")
+                qdir = os.path.join(d, "BADGE", "queries")
+                runs[dev] = {
+                    "f": np.atleast_1d(f["BADGE"]).tolist(),
+                    "w0": dict(np.load(os.path.join(d, "init_weights.npz"))),
+                    "w": dict(np.load(os.path.join(d, "BADGE",
+                                                   "curr_weights.npz"))),
+                    "picks": [np.loadtxt(os.path.join(qdir, r),
+                                         dtype=np.int64)
+                              for r in sorted(os.listdir(qdir),
+                                              key=lambda r: int(r[:-4]))]}
+            card, host = (runs[d] for d in devices)
+            res = {"rounds": len(card["f"]),
+                   "init_weights_rel": _npz_rel(card["w0"], host["w0"]),
+                   "weights_rel": _npz_rel(card["w"], host["w"]),
+                   "picks_equal": [bool(np.array_equal(a, b)) for a, b in
+                                   zip(card["picks"], host["picks"])],
+                   "f_card": card["f"], "f_host": host["f"]}
+            print("dense example replay: " + json.dumps(res))
+    finally:
+        shutil.rmtree(top, ignore_errors=True)
+    return 0
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--fresh-precision-port"]:
         return dev_fresh_precision(os.path.abspath(sys.argv[2]))
+    if sys.argv[1:2] == ["--dense-example-replay"]:
+        return dev_dense_example_replay()
     if sys.argv[1:2] == ["--dense-gap"]:
         return dev_dense_gap()
     if not torch.cuda.is_available():
@@ -6020,6 +6200,7 @@ def main() -> int:
                     kept["picks0"]["core-set"])
     del kept
     rank3 = timed("rank3", phase_rank3, dev)
+    examples = timed("examples", phase_examples, dev)
     phases, seconds, by_method, peaks, notes = {}, {}, {}, {}, {}
     for _, ph, sec, bym, pk, nt in (f32, bf16):
         phases.update(ph)
@@ -6124,7 +6305,10 @@ def main() -> int:
                          + cc["counts"][n] + cv["counts"][n]
                          + serving["counts"][n] + parallel["counts"][n]
                          + analysis["counts"][n] + formats["counts"][n]
-                         + rank3["counts"][n])
+                         + rank3["counts"][n] + examples["counts"][n])
+        r["launches_examples"] = examples["counts"][n]
+        r["launches_by_example"] = {
+            e: v["launches"][n] for e, v in examples["examples"].items()}
         r["launches_multimg_gather"] = rank3["counts"][n]
         r["launches_rank3_path"] = rank3["counts_path"][n]
         r["launches_formats"] = formats["counts"][n]
@@ -6202,7 +6386,7 @@ def main() -> int:
                           "evaluator", "selectors", "nccl", "seconds",
                           "peak_bytes", "bytes_moved_between_devices")},
                       "analysis": analysis, "formats": formats,
-                      "rank3": rank3,
+                      "rank3": rank3, "examples": examples,
                       "phase_seconds": PHASE_S,
                       "multi": {"picks": multi["picks"],
                                 "resume": multi["resume"],

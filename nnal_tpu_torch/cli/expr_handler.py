@@ -46,14 +46,17 @@ DEFAULT_PARS = {
 
 
 def create_expr(root_dir: str, overrides: str = "", synthetic: bool = False,
-                device=None) -> PWExperiment:
+                device=None, mesh=None) -> PWExperiment:
+    """``mesh`` is the ``data_parallel`` evaluators' device mesh
+    (``parallel/mesh.make_mesh``; ``None``: ``cached_mesh``), as
+    :class:`PWExperiment` takes it."""
     par_path = os.path.join(root_dir, "parameters.txt")
     if os.path.exists(par_path):
-        expr = PWExperiment(root_dir, device=device)
+        expr = PWExperiment(root_dir, device=device, mesh=mesh)
     else:
         pars = set_parameters(DEFAULT_PARS, overrides)
         expr = PWExperiment(root_dir, ExperimentConfig.from_pars(pars),
-                            device=device)
+                            device=device, mesh=mesh)
     if synthetic:
         from nnal_tpu_torch.data.io import synthetic_subject
 
@@ -68,11 +71,11 @@ def create_expr(root_dir: str, overrides: str = "", synthetic: bool = False,
 
 
 def do_expr(root_dir: str, method: str, nqueries: int, overrides: str = "",
-            synthetic: bool = False, device=None) -> dict:
+            synthetic: bool = False, device=None, mesh=None) -> dict:
     """add_method-if-missing + run_method (reference ``do_expr``).  A
     method the port lacks raises before anything is written."""
     require_strategy(method)
-    expr = create_expr(root_dir, overrides, synthetic, device)
+    expr = create_expr(root_dir, overrides, synthetic, device, mesh)
     method_dir = os.path.join(root_dir, method)
     if not os.path.exists(os.path.join(method_dir, "curr_weights.npz")):
         expr.add_method(method)

@@ -90,6 +90,11 @@ class RngStream:
         """A fresh 63-bit seed for one device consumer."""
         return int(torch.randint(0, 2 ** 62, (1,), generator=self.gen))
 
+    def next_n(self, n: int) -> list:
+        """``n`` fresh seeds for ``n`` consumers, drawn as :meth:`next`
+        draws them (JAX splits its key ``n + 1`` ways, ``rng.py:42-44``)."""
+        return [self.next() for _ in range(int(n))]
+
     def fold(self, tag: str) -> "RngStream":
         """Deterministic child stream keyed by ``(seed, tag)`` — process
         stable (blake2b, not Python's salted ``hash``)."""

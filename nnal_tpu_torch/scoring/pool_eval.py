@@ -31,7 +31,8 @@ import torch
 
 from nnal_tpu_torch.core import rng as core_rng
 from nnal_tpu_torch.core.device import set_precision
-from nnal_tpu_torch.data.patches import gather_patches_normalized
+from nnal_tpu_torch.data.patches import (gather_patches_normalized,
+                                         pad_volumes)
 from nnal_tpu_torch.models.quant import is_quantized
 from nnal_tpu_torch.scoring.uncertainty import running_average
 
@@ -117,6 +118,18 @@ class PoolEvaluator:
                 chunks[op].append(select_output(out, op, self.spec.nclass))
         return to_host({op: torch.cat(c)[:n] for op, c in chunks.items()},
                        as_device)
+
+    @classmethod
+    def from_volumes(cls, spec, vols, stats, patch_shape, ntb: int = 4096,
+                     device=None) -> "PoolEvaluator":
+        """An evaluator of one subject's raw volumes (``pool_eval.py:
+        180-187``): pads them on ``device`` (``None``: the card) and takes
+        ``mu`` and ``sd`` from the ``(m, 2)`` ``stats``."""
+        orig_shape = tuple(np.asarray(vols[0]).shape)
+        padded = pad_volumes(vols, patch_shape, device)
+        stats = np.asarray(stats, dtype=np.float64)
+        return cls(spec, padded, stats[:, 0], stats[:, 1], patch_shape,
+                   orig_shape, ntb)
 
 
 def mc_average_posteriors(evaluator: PoolEvaluator, model, pool_inds,

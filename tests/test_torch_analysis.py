@@ -37,8 +37,18 @@ from nnal_tpu_torch.data.io import synthetic_subject
 from nnal_tpu_torch.engine import analysis as tea
 from nnal_tpu_torch.engine.pw_experiment import PWExperiment
 from nnal_tpu_torch.evaluation import analysis as tan
+from torch_jax_native import ensure_jax_native
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native():
+    """The JAX package's native DenseCRF loaded before its side
+    runs: a load lost to a concurrent build would leave it on its
+    fallback (``torch_jax_native``)."""
+    ensure_jax_native("crf")
+
 
 PARS = {"model_name": "PW", "nclass": 2, "patch_shape": (9, 9, 1),
         "grid_spacing": 4, "k": 3, "B": 12, "ntb": 256, "b": 32,

@@ -26,8 +26,17 @@ from nnal_tpu.evaluation import crf as j_crf
 from nnal_tpu.runtime import crf_native as j_native
 from nnal_tpu_torch.evaluation import crf as t_crf
 from nnal_tpu_torch.runtime import crf_native as t_native
+from torch_jax_native import ensure_jax_native
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native():
+    """The JAX package's native DenseCRF loaded before its side
+    runs: a load lost to a concurrent build would leave it on its
+    fallback (``torch_jax_native``)."""
+    ensure_jax_native("crf")
 
 
 def _noisy(H=32, W=28, C=2, seed=0):
@@ -58,12 +67,6 @@ def test_meanfield_matches_jax(C, iters, radius, rgb):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
 
 
-requires_native = pytest.mark.skipif(
-    not j_native.crf_native_available(),
-    reason="the JAX package's native CRF did not build")
-
-
-@requires_native
 def test_native_solver_matches_jax_build():
     assert t_native.crf_native_available()
     assert "-march=native" in t_native.GXX_FLAGS
@@ -96,7 +99,6 @@ def test_native_solver_matches_jax_build():
         j_crf.dcrf_postprocess_3d(vol_p[..., 1], vol_i, iters=3))
 
 
-@requires_native
 def test_postprocess_2d_backends_match_jax():
     p, img, truth = _noisy(seed=7)
     p1 = p[..., 1]

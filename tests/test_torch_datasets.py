@@ -32,8 +32,17 @@ from nnal_tpu_torch.data import datasets as tds
 from nnal_tpu_torch.data import io as tio
 from nnal_tpu_torch.data.formats import write_nifti, write_nrrd
 from nnal_tpu_torch.engine.multi_experiment import MultiImgExperiment
+from torch_jax_native import ensure_jax_native
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native():
+    """The JAX package's native patch gather loaded before its side
+    runs: a load lost to a concurrent build would leave it on its
+    fallback (``torch_jax_native``)."""
+    ensure_jax_native("gather")
 
 
 @pytest.fixture

@@ -140,7 +140,8 @@ def test_port_imports_no_jax_and_nothing_of_nnal_tpu():
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
     # the multi-subject, dense, classification, serving, multi-device,
-    # data / library and probe slices' modules are among the scanned
+    # data / library and probe slices' modules and the examples are among
+    # the scanned
     scanned = {str(f.relative_to(REPO)) for f in files}
     assert {f"nnal_tpu_torch/{m}.py" for m in (
         "engine/multi_experiment", "engine/sequential", "runtime/native",
@@ -155,7 +156,10 @@ def test_port_imports_no_jax_and_nothing_of_nnal_tpu():
         "evaluation/registry", "evaluation/visualize", "data/formats",
         "data/io", "data/datasets", "cli/repeat_runs",
         "models/branches", "core/device_probe", "cli/wait_device",
-        "cli/prime_cache")} <= scanned
+        "cli/prime_cache", "examples/patchwise_al",
+        "examples/multi_subject_al", "examples/classification_al",
+        "examples/serving", "examples/dense_model_al",
+        "examples/multichip_campaign", "examples/_cli")} <= scanned
     banned = {"jax", "jaxlib", "optax", "flax", "nnal_tpu"}
     for f in files:
         for mod in _imported_modules(f):

@@ -24,7 +24,13 @@ package's, on the CPU:
   plain version here) give JAX's patches and labels bit for bit;
   ``runtime/native.native_available`` and ``slic_native_available`` are
   true where g++ builds the sources; ``core/profiling.annotate`` names a
-  range of the trace ``device_trace`` writes.
+  range of the trace ``device_trace`` writes;
+* ``PoolEvaluator.from_volumes``: the padded volume, ``mu`` and ``sd``
+  equal JAX's, posteriors of a ragged pool through the tiny net's
+  bridged weights agree within 1e-5, and it asks for the card by
+  default;
+* ``RngStream.next_n``: ``n`` distinct seeds, those ``n`` calls of
+  ``next`` would give, drawn again after ``restore(state())``.
 
 Tiny shapes; the h5 files are deleted with their ``tmp_path``.
 """
@@ -49,8 +55,12 @@ from nnal_tpu.models.specs import Layer as JLayer
 from nnal_tpu.models.specs import create_pw1 as j_pw1
 from nnal_tpu.models.train import make_train_step as j_make_train_step
 from nnal_tpu.models.cnn import count_parameters as j_count_parameters
+from nnal_tpu.scoring.pool_eval import PoolEvaluator as JPool
 from nnal_tpu.scoring.strategies import available_strategies as j_available
 from nnal_tpu_torch.core import profiling as tprof
+from nnal_tpu_torch.core.rng import RngStream
+from nnal_tpu_torch.data.io import synthetic_subject
+from nnal_tpu_torch.data.stats import multimg_stats
 from nnal_tpu_torch.data import patches as tpatches
 from nnal_tpu_torch.models import branches as tbr
 from nnal_tpu_torch.models import checkpoint as tckpt
@@ -65,10 +75,12 @@ from nnal_tpu_torch.models.cnn import count_parameters
 from nnal_tpu_torch.models.train import TrainState, make_train_step
 from nnal_tpu_torch.runtime import native as tnative
 from nnal_tpu_torch.runtime import slic_native as tslic
+from nnal_tpu_torch.scoring.pool_eval import PoolEvaluator
 from nnal_tpu_torch.scoring.strategies import available_strategies
 from test_torch_cls_model import _batch, _jitter, _pair
 from torch_jax_dense import dense_pair
 from torch_jax_draws import inject
+from torch_jax_tiny import tiny_pair
 
 torch.set_num_threads(1)
 
@@ -395,3 +407,43 @@ def test_native_available_and_profiling_names(tmp_path):
     assert any(e.key == "nnal/range" for e in prof.key_averages())
     files = list((tmp_path / "tb").glob("*.pt.trace.json"))
     assert len(files) == 1 and "nnal/range" in files[0].read_text()
+
+
+def test_pool_evaluator_from_volumes_matches_jax(monkeypatch):
+    vols, mask = synthetic_subject(shape=(12, 10, 4), n_modalities=2,
+                                   n_blobs=2, seed=5)
+    stats = multimg_stats([(vols, mask)]).reshape(-1, 2)   # (m, 2)
+    jspec, jparams, model, _ = tiny_pair(seed=3, input_shape=(5, 5, 2))
+    jev = JPool.from_volumes(jspec, vols, stats, (5, 5, 1), ntb=16)
+    tev = PoolEvaluator.from_volumes(model.spec, vols, stats, (5, 5, 1),
+                                     ntb=16, device="cpu")
+    assert tev.padded.device.type == "cpu"
+    assert tev.orig_shape == jev.orig_shape == (12, 10, 4)
+    np.testing.assert_array_equal(tev.padded.numpy(),
+                                  np.asarray(jev.padded))
+    np.testing.assert_array_equal(tev.mu.numpy(), np.asarray(jev.mu))
+    np.testing.assert_array_equal(tev.sd.numpy(), np.asarray(jev.sd))
+    inds = np.random.default_rng(0).choice(480, 50, replace=False)
+    got = tev.evaluate(model, inds, ("posteriors", "prediction"))
+    want = jev.evaluate(jparams, inds, ("posteriors", "prediction"))
+    np.testing.assert_allclose(got["posteriors"], want["posteriors"],
+                               rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(got["prediction"], want["prediction"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        PoolEvaluator.from_volumes(model.spec, vols, stats, (5, 5, 1))
+
+
+def test_rng_stream_next_n():
+    s = RngStream(11)
+    s.next()
+    saved = s.state()
+    seeds = s.next_n(6)
+    assert len(seeds) == 6 and len(set(seeds)) == 6
+    assert all(isinstance(v, int) and 0 <= v < 2 ** 62 for v in seeds)
+    assert s.next() not in seeds
+    s.restore(saved)
+    assert s.next_n(6) == seeds
+    s.restore(saved)
+    assert [s.next() for _ in range(6)] == seeds
+    assert s.next_n(0) == []

@@ -25,8 +25,18 @@ from nnal_tpu_torch.data.loaders import (
 )
 from nnal_tpu_torch.data.patches import gather_patches_normalized, pad_volumes
 from nnal_tpu_torch.runtime import native
+from torch_jax_native import ensure_jax_native
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native():
+    """The JAX package's native patch gather loaded before its side
+    runs: a load lost to a concurrent build would leave it on its
+    fallback (``torch_jax_native``)."""
+    ensure_jax_native("gather")
+
 
 SHAPE = (18, 20, 7)
 

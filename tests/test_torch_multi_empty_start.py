@@ -21,8 +21,18 @@ from nnal_tpu.engine.multi_experiment import MultiImgExperiment as JMulti
 from nnal_tpu_torch.core.config import ExperimentConfig
 from nnal_tpu_torch.data.io import synthetic_subject
 from nnal_tpu_torch.engine.multi_experiment import MultiImgExperiment
+from torch_jax_native import ensure_jax_native
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native():
+    """The JAX package's native patch gather loaded before its side
+    runs: a load lost to a concurrent build would leave it on its
+    fallback (``torch_jax_native``)."""
+    ensure_jax_native("gather")
+
 
 SUBJECTS = [synthetic_subject(shape=(24, 24, 6), n_modalities=2, n_blobs=3,
                               seed=i) for i in range(5)]

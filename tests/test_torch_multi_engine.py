@@ -48,8 +48,18 @@ from nnal_tpu_torch.models.checkpoint import load_checkpoint
 from nnal_tpu_torch.models.train import init_train_state
 from nnal_tpu_torch.parallel.grid_sharded import ShardedGridPoolEvaluator
 from test_torch_parallel_engine import drop_npz, link_npz
+from torch_jax_native import ensure_jax_native
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native():
+    """The JAX package's native patch gather loaded before its side
+    runs: a load lost to a concurrent build would leave it on its
+    fallback (``torch_jax_native``)."""
+    ensure_jax_native("gather")
+
 
 SHAPE = (20, 20, 6)
 TRAIN = [synthetic_subject(shape=SHAPE, n_modalities=1, n_blobs=6, seed=s)

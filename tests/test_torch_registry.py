@@ -49,8 +49,17 @@ from nnal_tpu_torch.models.checkpoint import load_checkpoint
 from nnal_tpu_torch.models.specs import create_pw1
 from torch_jax_dense import port_model
 from torch_jax_draws import inject
+from torch_jax_native import ensure_jax_native
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native():
+    """The JAX package's native patch gather loaded before its side
+    runs: a load lost to a concurrent build would leave it on its
+    fallback (``torch_jax_native``)."""
+    ensure_jax_native("gather")
 
 
 def _toy(seed, n=32):

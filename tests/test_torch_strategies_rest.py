@@ -44,9 +44,19 @@ from nnal_tpu_torch.scoring import superpixel as tsp
 from nnal_tpu_torch.scoring.grid_eval import GridPoolEvaluator as TGrid
 from test_torch_parallel_engine import link_npz
 from torch_jax_draws import inject
+from torch_jax_native import ensure_jax_native
 from torch_jax_tiny import tiny_pair
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native():
+    """The JAX package's native SLIC loaded before its side
+    runs: a load lost to a concurrent build would leave it on its
+    fallback (``torch_jax_native``)."""
+    ensure_jax_native("slic")
+
 
 SHAPE = (16, 16, 8)
 PATCH = (9, 9, 1)
