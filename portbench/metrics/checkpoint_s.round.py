@@ -1,0 +1,7 @@
+"""Seconds of the engine's ``checkpoint`` phase per round of the window."""
+
+from readers import phase_mean
+
+
+def read(rec):
+    return phase_mean(rec, "checkpoint")
